@@ -1,0 +1,52 @@
+"""ako_tpu_torch — the Ako wavelet image codec on PyTorch and CUDA.
+
+The PyTorch port of ako_tpu, which stays the reference it is held
+against: for every settings combination the `.ako` blob is
+byte-identical and the decoded pixels bit-identical to ako_tpu's (and
+the reference C codec's). The colour transform and the dyadic integer
+lift run on the card, every lift level through hand-written CUDA
+kernels (csrc/lift2d.cu); Kagari entropy coding and the container run
+on the host in the native C runtime (ako_tpu/runtime/native/akort.c).
+The package imports torch and numpy, never JAX.
+"""
+
+from ako_tpu_torch.core.settings import (
+    FORMAT_VERSION,
+    MAX_CHANNELS,
+    MAX_TILES_DIMENSION,
+    MIN_TILES_DIMENSION,
+    VERSION_MAJOR,
+    VERSION_MINOR,
+    VERSION_PATCH,
+    AkoError,
+    Color,
+    Compression,
+    Settings,
+    Status,
+    Wavelet,
+    Wrap,
+    default_settings,
+    status_string,
+)
+from ako_tpu_torch.decode import decode
+from ako_tpu_torch.encode import encode
+
+__version__ = f"{VERSION_MAJOR}.{VERSION_MINOR}.{VERSION_PATCH}"
+
+__all__ = [
+    "Settings",
+    "Wavelet",
+    "Color",
+    "Wrap",
+    "Compression",
+    "Status",
+    "AkoError",
+    "default_settings",
+    "status_string",
+    "encode",
+    "decode",
+    "MAX_CHANNELS",
+    "MIN_TILES_DIMENSION",
+    "MAX_TILES_DIMENSION",
+    "FORMAT_VERSION",
+]

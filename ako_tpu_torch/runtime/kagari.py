@@ -1,0 +1,132 @@
+"""Host-side entropy codec API (native-backed, akort.c).
+
+Byte-level contract: library/kagari.c:228-366 plus the per-tile block
+framing of library/compression.c:30-73 (4-byte little-endian
+compressed-size head). The device stage produces/consumes the raw int16
+coefficient stream; these functions translate it to/from the
+container's compressed blocks.
+
+MANBAVARAN: the reference reserves the enum value but ignores it, so a
+"manbavaran" blob carries Kagari bytes under the reserved flag; the
+port writes those parity bytes. Its decoder also reads ako_tpu's real
+rANS payloads (the AKO_TPU_MANBAVARAN extension): a payload that passes
+the rANS magic and model checks decodes as rANS, anything else as
+Kagari, as in ako_tpu/runtime/kagari.py.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from ako_tpu_torch.core.settings import Compression
+from ako_tpu_torch.runtime.build import load
+
+BLOCK_HEAD = struct.Struct("<I")
+
+
+def effective_method(method: Compression) -> Compression:
+    """The coder actually used inside blocks for a settings-level
+    method: KAGARI for KAGARI and the reserved MANBAVARAN (the reference
+    always writes Kagari bytes), NONE for raw blocks."""
+    return Compression.KAGARI if method != Compression.NONE else method
+
+
+def kagari_encode(values: np.ndarray, output_capacity: int) -> bytes | None:
+    """Encode an int16 array; None when the stream won't fit (the
+    incompressible-tile failure mode, which the orchestrator surfaces
+    as Status.ERROR exactly like the reference)."""
+    # <= 0 capacities: the reference's pointer arithmetic wraps and its
+    # sink bounds fail (every such encode errors); fail up front with
+    # the same observable result instead of relying on wrapped pointers
+    if output_capacity <= 0:
+        return None
+    lib = load()
+    values = np.ascontiguousarray(values, dtype=np.int16)
+    out = np.empty(output_capacity, dtype=np.uint8)
+    n = lib.akort_kagari_encode(
+        values.ctypes.data, values.nbytes, out.ctypes.data, output_capacity
+    )
+    if n == 0:
+        return None
+    return out[:n].tobytes()
+
+
+def kagari_decode(
+    count: int, blob: bytes | memoryview, output_capacity_bytes: int
+) -> tuple[np.ndarray, int] | None:
+    """Decode `count` int16 values; returns (values, consumed_bytes) or
+    None on broken input. `output_capacity_bytes` mirrors the
+    reference's slack-tolerant output bound (decode.c:150)."""
+    lib = load()
+    src = np.frombuffer(blob, dtype=np.uint8)
+    out = np.zeros(max(output_capacity_bytes, 2) // 2, dtype=np.int16)
+    consumed = lib.akort_kagari_decode(
+        count,
+        src.ctypes.data if src.size else None,
+        src.nbytes,
+        out.ctypes.data,
+        output_capacity_bytes,
+    )
+    if consumed == 0:
+        return None
+    return out[:count], consumed
+
+
+def manba_decode(count: int, blob: bytes | memoryview) -> np.ndarray | None:
+    """Decode `count` int16 values from a rANS (Manbavaran extension)
+    payload; None on anything that fails the magic/model/bounds checks
+    (the caller then falls back to Kagari for reserved-flag blobs)."""
+    lib = load()
+    src = np.frombuffer(blob, dtype=np.uint8)
+    out = np.zeros(max(count, 1), dtype=np.int16)
+    consumed = lib.akort_manba_decode(
+        count,
+        src.ctypes.data if src.size else None,
+        src.nbytes,
+        out.ctypes.data,
+        out.nbytes,
+    )
+    if consumed == 0:
+        return None
+    return out[:count]
+
+
+def compress_block(values: np.ndarray, tile_data_size: int) -> bytes | None:
+    """Kagari payload + 4-byte block head (compression.c:36-55). The
+    output budget equals the uncompressed tile size — incompressible
+    tiles fail, as in the reference."""
+    payload = kagari_encode(values, tile_data_size - BLOCK_HEAD.size)
+    if payload is None:
+        return None
+    return BLOCK_HEAD.pack(len(payload)) + payload
+
+
+def decompress_block(
+    blob: memoryview,
+    tile_data_size: int,
+    output_capacity_bytes: int,
+    method: Compression = Compression.KAGARI,
+) -> tuple[np.ndarray, int] | None:
+    """Inverse of compress_block (compression.c:58-73); returns
+    (values, total_consumed_incl_head) or None on broken input. A
+    MANBAVARAN-flagged block is tried as a rANS payload first."""
+    if len(blob) < BLOCK_HEAD.size:
+        return None
+    (block_size,) = BLOCK_HEAD.unpack_from(blob)
+    payload = blob[BLOCK_HEAD.size : BLOCK_HEAD.size + block_size]
+    if len(payload) < block_size:
+        return None
+    count = tile_data_size // 2
+    if method == Compression.MANBAVARAN:
+        values = manba_decode(count, payload)
+        if values is not None:
+            return values, block_size + BLOCK_HEAD.size
+    res = kagari_decode(count, payload, output_capacity_bytes)
+    if res is None:
+        return None
+    values, consumed = res
+    if consumed != block_size:
+        return None
+    return values, block_size + BLOCK_HEAD.size

@@ -1,0 +1,96 @@
+"""Build-and-load for the Hopper lift kernels (csrc/lift2d.cu).
+
+`nvcc` compiles the source into a shared library with a plain C
+interface in this package's `_build/` directory at first use, cached by
+source mtime, and ctypes binds it. Device pointers and the CUDA stream
+are passed as integers (c_void_p). Nothing here runs at import: the
+CPU tests import this module on machines with no nvcc and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+from ako_tpu_torch.runtime.build import BUILD_DIR
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(_PKG, "csrc", "lift2d.cu")
+_LIB = os.path.join(BUILD_DIR, "liblift2d.so")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib = None
+#: nvcc's output from this process's build (ptxas register and spill
+#: counts); empty when the library came from the cache
+build_log = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA lift kernels cannot be built")
+    return found
+
+
+def _compile() -> None:
+    global build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    res = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SRC], capture_output=True, text=True
+    )
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SRC}:\n{res.stdout}{res.stderr}")
+    build_log = res.stdout + res.stderr
+    os.replace(tmp, _LIB)
+
+
+def load() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(SRC):
+            _compile()
+        lib = ctypes.CDLL(_LIB)
+        lib.ako_lift2d.restype = _I
+        lib.ako_lift2d.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _P]
+        lib.ako_unlift2d.restype = _I
+        lib.ako_unlift2d.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _P]
+        _lib = lib
+        return _lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def lift2d(x, lp, hp, ll, b, c, d, n, cur_h, cur_w, wavelet, wrap, stream) -> None:
+    """Launch the forward level on `stream`; arguments are device
+    pointers (ints) and sizes, already checked by the caller."""
+    _check(
+        load().ako_lift2d(x, lp, hp, ll, b, c, d, n, cur_h, cur_w, wavelet, wrap, stream),
+        "ako_lift2d",
+    )
+
+
+def unlift2d(ll, b, c, d, left, right, out, n, cur_h, cur_w, wavelet, wrap, stream) -> None:
+    """Launch the inverse level on `stream` (see lift2d)."""
+    _check(
+        load().ako_unlift2d(ll, b, c, d, left, right, out, n, cur_h, cur_w, wavelet, wrap, stream),
+        "ako_unlift2d",
+    )
