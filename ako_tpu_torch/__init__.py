@@ -5,9 +5,13 @@ against: for every settings combination the `.ako` blob is
 byte-identical and the decoded pixels bit-identical to ako_tpu's (and
 the reference C codec's). The colour transform and the dyadic integer
 lift run on the card, every lift level through hand-written CUDA
-kernels (csrc/lift2d.cu); Kagari entropy coding and the container run
-on the host in the native C runtime (ako_tpu/runtime/native/akort.c).
-The package imports torch and numpy, never JAX.
+kernels (csrc/lift2d.cu, in the fused or split wiring of
+AKO_TORCH_LIFT_MODE). With `device_entropy` (the default on the card)
+Kagari coding runs there too: tokenize and pack as torch ops, the
+block-parallel decode as a CUDA kernel (csrc/kagari_decode.cu) from
+host sync records; otherwise, and for the container, the native C
+runtime (ako_tpu/runtime/native/akort.c) codes on the host. The package
+imports torch and numpy, never JAX.
 """
 
 from ako_tpu_torch.core.settings import (

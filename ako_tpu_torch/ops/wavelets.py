@@ -175,6 +175,14 @@ def lift2d(wavelet_eff: Wavelet, wrap: Wrap, x, level):
     return ll, b, c, d
 
 
+def vlift(wavelet: Wavelet, wrap: Wrap, x):
+    """Forward lift along the rows (axis -2) of planes x (..., h, w)
+    int16 -> (lp, hp), each (..., ceil(h/2), w) int16. An odd h gets
+    the fake last odd row (the last even row): the V-only level of the
+    split wiring (ako_tpu/ops/pallas_lift.py _vlift), on any height."""
+    return lift1d(wavelet, wrap, x, x.shape[-2] % 2, axis=-2)
+
+
 # ---------------------------------------------------------------------
 # Inverse lifting
 
@@ -207,6 +215,16 @@ def unlift1d_pair(wavelet: Wavelet, wrap: Wrap, lp, hp, axis: int):
     ev_p2 = _shift_next2(ev32, axis, wrap)
     od = i16(hp32 - div16(ev_l1 + ev_p2 - 9 * (ev32 + ev_p1)))
     return ev, od
+
+
+def vunlift(wavelet: Wavelet, wrap: Wrap, lp, hp, out_h: int):
+    """Inverse of vlift: lp, hp (..., th, w) -> rows interleaved into
+    (..., out_h, w) int16, out_h = 2*th or 2*th - 1 (the fake last row
+    dropped)."""
+    ev, od = unlift1d_pair(wavelet, wrap, lp, hp, axis=-2)
+    if out_h % 2:
+        od = _sl(od, 0, -1, -2)
+    return _interleave(ev, od, axis=-2)
 
 
 def unlift2d(wavelet_eff: Wavelet, wrap: Wrap, ll, b, c, d, level):

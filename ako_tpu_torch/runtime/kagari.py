@@ -74,6 +74,46 @@ def kagari_decode(
     return out[:count], consumed
 
 
+def kagari_sync(
+    count: int,
+    blob: bytes | memoryview,
+    output_capacity_bytes: int,
+    block: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int, int] | None:
+    """Scan a Kagari stream for the device decoder
+    (ops/kagari_device.py): one sync record per `block` output values,
+    (bit_offsets u32, prev i16, consec u16, run_remaining u16,
+    consumed_bytes, max_code_bits). None on broken input; the failure
+    conditions are kagari_decode's.
+
+    Streams with max_code_bits > 31 (only through the zigzag(-32768)+1
+    wrap quirk) must be decoded on the host: the device decoder's
+    window covers codes of at most 31 bits."""
+    lib = load()
+    src = np.frombuffer(blob, dtype=np.uint8)
+    n_rec = (count + block - 1) // block
+    bit_off = np.zeros(n_rec, dtype=np.uint32)
+    prev = np.zeros(n_rec, dtype=np.int16)
+    consec = np.zeros(n_rec, dtype=np.uint16)
+    run = np.zeros(n_rec, dtype=np.uint16)
+    max_bits = np.zeros(1, dtype=np.uint32)
+    consumed = lib.akort_kagari_sync(
+        count,
+        src.ctypes.data if src.size else None,
+        src.nbytes,
+        output_capacity_bytes,
+        block,
+        bit_off.ctypes.data,
+        prev.ctypes.data,
+        consec.ctypes.data,
+        run.ctypes.data,
+        max_bits.ctypes.data,
+    )
+    if consumed == 0:
+        return None
+    return bit_off, prev, consec, run, consumed, int(max_bits[0])
+
+
 def manba_decode(count: int, blob: bytes | memoryview) -> np.ndarray | None:
     """Decode `count` int16 values from a rANS (Manbavaran extension)
     payload; None on anything that fails the magic/model/bounds checks

@@ -1,8 +1,9 @@
-"""Build-and-load for the Hopper lift kernels (csrc/lift2d.cu).
+"""Build-and-load for the port's Hopper kernels: the lift kernels
+(csrc/lift2d.cu) and the Kagari block decoder (csrc/kagari_decode.cu).
 
-`nvcc` compiles the source into a shared library with a plain C
-interface in this package's `_build/` directory at first use, cached by
-source mtime, and ctypes binds it. Device pointers and the CUDA stream
+One `nvcc` call compiles both sources into one shared library with a
+plain C interface in this package's `_build/` directory at first use,
+cached by source mtime, and ctypes binds it. Device pointers and the CUDA stream
 are passed as integers (c_void_p). Nothing here runs at import: the
 CPU tests import this module on machines with no nvcc and no card.
 """
@@ -18,8 +19,8 @@ import threading
 from ako_tpu_torch.runtime.build import BUILD_DIR
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "lift2d.cu")
-_LIB = os.path.join(BUILD_DIR, "liblift2d.so")
+SOURCES = [os.path.join(_PKG, "csrc", f) for f in ("lift2d.cu", "kagari_decode.cu")]
+_LIB = os.path.join(BUILD_DIR, "libako_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,11 +36,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
+#: argtypes per exported symbol; every one returns a cudaError_t as int
+_SIGNATURES = {
+    "ako_lift2d": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
+    "ako_unlift2d": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
+    "ako_vlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _P],
+    "ako_vunlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _I, _P],
+    "ako_kagari_decode": [_P, _LL] + [_P] * 6 + [_I, _I, _I, _I, _P],
+}
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA lift kernels cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return found
 
 
@@ -48,10 +58,10 @@ def _compile() -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{_LIB}.{os.getpid()}.tmp"
     res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SRC], capture_output=True, text=True
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
     )
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SRC}:\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"nvcc failed on {SOURCES}:\n{res.stdout}{res.stderr}")
     build_log = res.stdout + res.stderr
     os.replace(tmp, _LIB)
 
@@ -63,13 +73,13 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(SRC):
+        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < max(map(os.path.getmtime, SOURCES)):
             _compile()
         lib = ctypes.CDLL(_LIB)
-        lib.ako_lift2d.restype = _I
-        lib.ako_lift2d.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _P]
-        lib.ako_unlift2d.restype = _I
-        lib.ako_unlift2d.argtypes = [_P] * 7 + [_LL, _I, _I, _I, _I, _P]
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = _I
+            fn.argtypes = argtypes
         _lib = lib
         return _lib
 
@@ -93,4 +103,24 @@ def unlift2d(ll, b, c, d, left, right, out, n, cur_h, cur_w, wavelet, wrap, stre
     _check(
         load().ako_unlift2d(ll, b, c, d, left, right, out, n, cur_h, cur_w, wavelet, wrap, stream),
         "ako_unlift2d",
+    )
+
+
+def vlift(x, lp, hp, n, h, w, wavelet, wrap, stream) -> None:
+    """Launch the V-only forward lift (K1v) on `stream`."""
+    _check(load().ako_vlift(x, lp, hp, n, h, w, wavelet, wrap, stream), "ako_vlift")
+
+
+def vunlift(lp, hp, out, n, th, w, out_h, wavelet, wrap, stream) -> None:
+    """Launch the V-only inverse lift (K2v) on `stream`."""
+    _check(load().ako_vunlift(lp, hp, out, n, th, w, out_h, wavelet, wrap, stream), "ako_vunlift")
+
+
+def kagari_decode(pool, pool_words, base, bit_off, prev, consec, run, out, tiles, blocks,
+                  n_outputs, block, stream) -> None:
+    """Launch the Kagari block decoder (K4) on `stream`."""
+    _check(
+        load().ako_kagari_decode(pool, pool_words, base, bit_off, prev, consec, run, out,
+                                 tiles, blocks, n_outputs, block, stream),
+        "ako_kagari_decode",
     )

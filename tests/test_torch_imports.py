@@ -49,6 +49,15 @@ def test_runs_with_jax_blocked():
         "img = np.arange(24 * 20 * 3, dtype=np.uint8).reshape(24, 20, 3)\n"
         "blob = ako_tpu_torch.encode(img, ako_tpu_torch.Settings(quantization=0), device='cpu')\n"
         "assert (ako_tpu_torch.decode(blob, device='cpu')[0] == img).all()\n"
+        "import os\n"
+        "for mode in ('fused', 'split'):\n"
+        "    os.environ['AKO_TORCH_LIFT_MODE'] = mode\n"
+        "    blob = ako_tpu_torch.encode(img, ako_tpu_torch.Settings(quantization=0), device='cpu',\n"
+        "                                device_entropy=True)\n"
+        "    pix = ako_tpu_torch.decode(blob, device='cpu', device_entropy=True)[0]\n"
+        "    assert (pix == img).all()\n"
+        "from ako_tpu_torch.utils import metrics\n"
+        "assert metrics.counters()['dec_device_tiles'] == 2\n"
         "assert not any(m == 'ako_tpu' or m.startswith('ako_tpu.') for m in sys.modules)\n"
     )
     res = subprocess.run(
