@@ -4,9 +4,12 @@ The PyTorch port of ako_tpu, which stays the reference it is held
 against: for every settings combination the `.ako` blob is
 byte-identical and the decoded pixels bit-identical to ako_tpu's (and
 the reference C codec's). The colour transform and the dyadic integer
-lift run on the card, every lift level through hand-written CUDA
-kernels (csrc/lift2d.cu, in the fused or split wiring of
-AKO_TORCH_LIFT_MODE). With `device_entropy` (the default on the card)
+lift run on the card through hand-written CUDA kernels: in the fused
+wiring of AKO_TORCH_LIFT_MODE (the default) one whole-pyramid launch
+per tile-shape group each way (csrc/lift_pyramid.cu, colour and
+quantize/gate fused), after per-level launches (csrc/lift2d.cu) for
+planes too large for a block; in the split wiring per-level V-only
+launches. With `device_entropy` (the default on the card)
 Kagari coding runs there too: tokenize and pack as torch ops, the
 block-parallel decode as a CUDA kernel (csrc/kagari_decode.cu) from
 host sync records; otherwise, and for the container, the native C

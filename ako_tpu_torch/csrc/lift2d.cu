@@ -24,48 +24,21 @@
 // neighbouring high-pass (forward) or even (inverse) taps its own
 // output needs, so no thread waits on another; neighbouring threads
 // take neighbouring columns, so loads and stores coalesce and the
-// recomputed taps come from L1. Staging small pyramids in shared
-// memory and fusing quantize/colour into the passes are later steps.
-// The V-only pair (K1v/K2v) is one such V pass per call, one thread per
+// recomputed taps come from L1. In the fused wiring these kernels take
+// only the levels whose planes do not fit a block's shared memory; the
+// rest of the pyramid, with colour and quantize fused, is one launch of
+// lift_pyramid.cu. The V-only pair (K1v/K2v) is one such V pass per call, one thread per
 // (row pair, column), so it moves the same bytes per pass; the split
 // wiring adds torch transposes between its three calls per level.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lift_common.cuh"
+
 namespace {
 
-enum { DD137 = 0, CDF53 = 1, HAAR = 2 };
-enum { CLAMP = 0, MIRROR = 1, REPEAT = 2, ZERO = 3 };
-
-__device__ __forceinline__ int div2(int x) { return (x + ((x >> 31) & 1)) >> 1; }
-__device__ __forceinline__ int div4(int x) { return (x + ((x >> 31) & 3)) >> 2; }
-__device__ __forceinline__ int div16(int x) { return (x + ((x >> 31) & 15)) >> 4; }
-__device__ __forceinline__ int div32(int x) { return (x + ((x >> 31) & 31)) >> 5; }
-__device__ __forceinline__ int wrap16(int x) { return (int)(int16_t)x; }
-
-// Index of the tap at i + d (d in -2..2) in a stream of n samples, or
-// -1 where the tap is zero. Out-of-range taps follow the reference's
-// substitutions (ops/wavelets.py _shift_prev/_shift_next/_shift_prev2/
-// _shift_next2): on +-1, CLAMP and MIRROR repeat the edge sample; on
-// +-2, MIRROR takes x[1], x[2] at the head and x[n-3], x[n-2] at the
-// tail; REPEAT wraps around; ZERO gives 0.
-__device__ __forceinline__ int tap(int i, int d, int n, int wrap) {
-    const int k = i + d;
-    if (k >= 0 && k < n) return k;
-    if (wrap == ZERO) return -1;
-    if (d == -1) return wrap == REPEAT ? n - 1 : 0;
-    if (d == 1) return wrap == REPEAT ? 0 : n - 1;
-    if (d == -2) {  // i is 0 or 1
-        if (wrap == CLAMP) return 0;
-        if (wrap == MIRROR) return i + 1;
-        return n - 2 + i;  // REPEAT
-    }
-    // d == 2, i is n-2 or n-1
-    if (wrap == CLAMP) return n - 1;
-    if (wrap == MIRROR) return i - 1;
-    return i - (n - 2);  // REPEAT
-}
+using namespace ako;
 
 // A stream of int16 samples at p[k * stride].
 struct Strided {

@@ -40,7 +40,7 @@ from ako_tpu_torch.ops.kagari_device import (
     decode_span_words,
     kagari_decode_device,
 )
-from ako_tpu_torch.ops.lifting import inverse_tile
+from ako_tpu_torch.ops.lifting import inverse_tiles
 from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, decompress_block, kagari_decode, kagari_sync
 from ako_tpu_torch.utils import metrics
 
@@ -98,13 +98,13 @@ def stream_pixels(coeffs, tw: int, th: int, channels: int, s: Settings):
     """(T, coeff_count) int16 streams on the device -> (T, th, tw,
     channels) u8 tiles on the device: dequantize, unlift, inverse
     colour, interleaved there (placing channel-strided tiles on the
-    host costs more than the transpose)."""
+    host costs more than the transpose); in the fused wiring one
+    unlift_pyramid launch (ops/lifting.py inverse_tiles)."""
     if s.wavelet == Wavelet.NONE:
         planes = coeffs.reshape(coeffs.shape[:-1] + (channels, th, tw))
-    else:
-        schedule = geometry.lift_schedule(tw, th)
-        planes = inverse_tile(coeffs, schedule, s.wavelet, s.wrap, channels)
-    return to_interleaved_u8(planes, s.color, channels).contiguous()
+        return to_interleaved_u8(planes, s.color, channels).contiguous()
+    schedule = geometry.lift_schedule(tw, th)
+    return inverse_tiles(coeffs, schedule, s.wavelet, s.wrap, channels, s.color)
 
 
 def decode_tiles_device(streams, tw: int, th: int, channels: int, s: Settings,

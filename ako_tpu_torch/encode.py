@@ -39,7 +39,7 @@ from ako_tpu_torch.core.settings import (
 )
 from ako_tpu_torch.ops.colorspace import to_planar_yuv
 from ako_tpu_torch.ops.kagari_device import kagari_encode_device
-from ako_tpu_torch.ops.lifting import forward_tile
+from ako_tpu_torch.ops.lifting import forward_tiles
 from ako_tpu_torch.ops.quantization import level_qg
 from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, compress_block, effective_method
 from ako_tpu_torch.utils import metrics
@@ -131,13 +131,16 @@ def stage_tiles(src, tiles, tw: int, th: int):
 
 def forward_streams(tiles_dev, tw: int, th: int, channels: int, s: Settings):
     """(T, th, tw, channels) u8 tiles on the device -> (T, coeff_count)
-    int16 serialized streams: colour transform, lift, quantize/gate."""
-    planes = to_planar_yuv(tiles_dev, s.color, bool(s.discard_non_visible)).contiguous()
+    int16 serialized streams: colour transform, lift, quantize/gate (in
+    the fused wiring one lift_pyramid launch, ops/lifting.py
+    forward_tiles)."""
+    discard = bool(s.discard_non_visible)
     if s.wavelet == Wavelet.NONE:
+        planes = to_planar_yuv(tiles_dev, s.color, discard).contiguous()
         return planes.reshape(planes.shape[0], -1)
     schedule = geometry.lift_schedule(tw, th)
     qg = tile_qg(tw, th, channels, s.quantization, s.gate, s.chroma_loss)
-    return forward_tile(planes, schedule, s.wavelet, s.wrap, qg)
+    return forward_tiles(tiles_dev, schedule, s.wavelet, s.wrap, qg, s.color, discard)
 
 
 def encode_tiles_device(

@@ -1,35 +1,56 @@
-"""One 2-D lift level per call, forward and inverse: the counterpart of
-ako_tpu/ops/pallas_lift.py, in its two wirings.
+"""The lift kernels' wrappers, the counterpart of
+ako_tpu/ops/pallas_lift.py, with their plain torch versions.
 
-- "fused" (default): one K1 (or K2) call per level, csrc/lift2d.cu
-  ako_lift2d / ako_unlift2d.
-- "split": three V-only K1v (or K2v) calls per level with torch
-  transposes between them, wired as pallas_lift.py:167-172 and
-  :242-247 (the H pass is transpose -> V-lift -> transpose).
+- Whole pyramids: `forward_pyramid` / `inverse_pyramid`, one launch of
+  csrc/lift_pyramid.cu per shape group for every level from
+  `pyramid_start` on, with the colour transform, quantize/gate and wire
+  order fused (forward), or the dequantize and the inverse colour
+  transform fused (inverse). The fused wiring's main path
+  (ops/lifting.py forward_tiles / inverse_tiles).
+- One 2-D level per call, in the two wirings of pallas_lift.py: "fused",
+  one K1 (K2) call per level, csrc/lift2d.cu ako_lift2d / ako_unlift2d,
+  for the levels whose planes do not fit a block's shared memory; and
+  "split", three V-only K1v (K2v) calls per level with torch transposes
+  between them, wired as pallas_lift.py:167-172 and :242-247 (the H pass
+  is transpose -> V-lift -> transpose).
 
 The wiring is `mode`, read per call from AKO_TORCH_LIFT_MODE when not
 given (the counterpart of AKO_TPU_PALLAS_MODE). A CUDA tensor launches
 the hand-written Hopper kernels (built and bound by runtime/kernels.py);
 if the build or the launch fails, the call raises. A CPU tensor takes
-the plain torch version in ops/wavelets.py, through the same wiring,
-and that is also what the kernels are checked against on the card.
-Unlike the Pallas kernels, these take odd dimensions, so every level of
-a tile goes through them.
+the plain torch version (ops/wavelets.py, and for the pyramids the level
+loop below), which writes through the same offset and q/g tables the
+kernels receive; it is also what the kernels are checked against on the
+card. Unlike the Pallas kernels, these take odd dimensions.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
 import torch
 
-from ako_tpu_torch.core.settings import Wavelet, Wrap
+from ako_tpu_torch.core.geometry import LiftSchedule
+from ako_tpu_torch.core.settings import Color, Wavelet, Wrap
 from ako_tpu_torch.ops import wavelets
+from ako_tpu_torch.ops.colorspace import to_interleaved_u8, to_planar_yuv
+from ako_tpu_torch.ops.intmath import divt, i16, i32
 from ako_tpu_torch.runtime import kernels
 
 #: kernel launches per wrapper (one per call that reaches the card)
-LAUNCHES = {"lift2d": 0, "unlift2d": 0, "vlift": 0, "vunlift": 0}
+LAUNCHES = {
+    "lift2d": 0, "unlift2d": 0, "vlift": 0, "vunlift": 0, "lift_pyramid": 0, "unlift_pyramid": 0,
+}
+
+#: shared memory a pyramid block may take: at most 64 KB keeps three
+#: blocks on an SM (a block may have up to 227 KB on the H100, but one
+#: block working through a large plane is slower than the per-level
+#: kernels on it); and the forward pyramid's warps
+#: (csrc/lift_pyramid.cu kFwdThreads / 32)
+SMEM_BYTES = 65536
+_FWD_WARPS = 16
 
 MODES = ("fused", "split")
 
@@ -157,4 +178,257 @@ def vunlift_level(wavelet: Wavelet, wrap: Wrap, lp, hp, out_h: int):
             out_h, int(wavelet), int(wrap), torch.cuda.current_stream().cuda_stream,
         )
     LAUNCHES["vunlift"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# Whole pyramids
+
+
+@functools.lru_cache(maxsize=256)
+def level_offsets(schedule: LiftSchedule, channels: int) -> tuple:
+    """Per level (encode order), the first element of its chunk in a
+    tile's stream: the LP planes come first, then the levels smallest ->
+    largest, each channel as [int16 q head][C][B][D]
+    (library/misc.c:229-288)."""
+    offs = [0] * len(schedule.levels)
+    off = channels * schedule.lp_h * schedule.lp_w
+    for k in reversed(range(len(schedule.levels))):
+        offs[k] = off
+        lvl = schedule.levels[k]
+        off += channels * (1 + 3 * lvl.target_h * lvl.target_w)
+    return tuple(offs)
+
+
+def smem_plane(schedule: LiftSchedule, start: int) -> tuple:
+    """(rows, pitch) of the shared-memory plane of a pyramid launch from
+    level `start`: its input plane, with room for each later level's fake
+    odd row and column (level s of the launch sits at stride 2^s)."""
+    levels = schedule.levels[start:]
+    h, w = (levels[0].current_h, levels[0].current_w) if levels else (
+        schedule.lp_h, schedule.lp_w)
+    rows = max([h] + [((2 * lvl.target_h - 1) << s) + 1 for s, lvl in enumerate(levels)])
+    pitch = max([w] + [((2 * lvl.target_w - 1) << s) + 1 for s, lvl in enumerate(levels)])
+    return rows, pitch
+
+
+def pyramid_smem(schedule: LiftSchedule, channels: int, start: int) -> tuple:
+    """Shared-memory bytes per block of (lift_pyramid, unlift_pyramid)
+    launched from level `start`: each block holds its channel's plane, and
+    the forward one from level 0 also a staging row of the u8 tile per
+    warp."""
+    rows, pitch = smem_plane(schedule, start)
+    plane = -(-rows * pitch * 2 // 16) * 16
+    fwd = plane
+    if start == 0:
+        fwd += _FWD_WARPS * (-(-schedule.tile_w * channels // 16) * 16)
+    return fwd, plane
+
+
+@functools.lru_cache(maxsize=256)
+def pyramid_start(schedule: LiftSchedule, channels: int) -> int | None:
+    """The first level whose plane both pyramid kernels hold within
+    SMEM_BYTES of a block's shared memory (len(schedule.levels) when only
+    the LP planes fit), or None when not even those fit or the tile has
+    more channels than a cluster takes. A pure function of the shape and
+    channel count: the levels before it run one lift2d_level /
+    unlift2d_level call each."""
+    if channels > kernels.MAX_CLUSTER:
+        return None
+    total = len(schedule.levels)
+    for k in range(total + 1):
+        if total - k <= kernels.MAX_LEVELS and max(pyramid_smem(schedule, channels, k)) <= SMEM_BYTES:
+            return k
+    return None
+
+
+def _quantize_gate(x, q, g):
+    """Dead-zone gate + truncating quantization on an int16 quadrant;
+    q/g broadcastable int32 (library/lifting.c:154-168)."""
+    x32 = i32(x)
+    keep = (x32 < -g) | (x32 > g)
+    return i16(torch.where(keep, divt(x32, q.clamp(min=1)), 0))
+
+
+def lift_levels(planes, stream, schedule: LiftSchedule, levels: range, wavelet: Wavelet,
+                wrap: Wrap, qg, lift):
+    """Lift the (T, C, h, w) int16 planes of the first of `levels` (encode
+    order) through them with `lift` (lift2d_level, or the plain
+    wavelets.lift2d), storing each level's q head and quantized, gated C,
+    B, D at their offsets of the (T, coeff_count) `stream`; returns the
+    last level's LL. The q/g table goes to the device in one copy."""
+    T, C = planes.shape[:2]
+    offs = level_offsets(schedule, C)
+    cur = planes
+    if not len(levels):
+        return cur
+    qg_dev = torch.tensor([[list(qs) for qs, _ in qg], [list(gs) for _, gs in qg]],
+                          dtype=torch.int32).to(planes.device)
+    for k in levels:
+        lvl = schedule.levels[k]
+        ll, b, c, d = lift(wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h),
+                           wrap, cur, lvl)
+        n = lvl.target_h * lvl.target_w
+        chunk = stream[:, offs[k] : offs[k] + C * (1 + 3 * n)].view(T, C, 1 + 3 * n)
+        q, g = qg_dev[0, k].view(C, 1, 1), qg_dev[1, k].view(C, 1, 1)
+        chunk[..., 0] = i16(qg_dev[0, k])
+        for j, quad in enumerate((c, b, d)):
+            chunk[..., 1 + j * n : 1 + (j + 1) * n] = _quantize_gate(quad, q, g).view(T, C, n)
+        cur = ll
+    return cur
+
+
+def store_lp(stream, ll) -> None:
+    """The (T, C, lp_h, lp_w) LP planes into the head of the stream."""
+    stream[:, : ll[0].numel()] = ll.reshape(ll.shape[0], -1)
+
+
+def load_lp(coeffs, schedule: LiftSchedule, channels: int):
+    """The (T, C, lp_h, lp_w) LP planes at the head of (T, coeff_count)
+    streams."""
+    lp_n = channels * schedule.lp_h * schedule.lp_w
+    return coeffs[:, :lp_n].reshape(-1, channels, schedule.lp_h, schedule.lp_w).contiguous()
+
+
+def unlift_levels(cur, coeffs, schedule: LiftSchedule, levels: range, wavelet: Wavelet,
+                  wrap: Wrap, unlift):
+    """Inverse of lift_levels: from the (T, C, h, w) LL planes below the
+    last of `levels`, take each level largest index first, its C, B, D
+    dequantized from the (T, coeff_count) streams by their q heads (the
+    int16-wrapping multiply, skipped for q <= 1; library/lifting.c:30-40),
+    through `unlift` (unlift2d_level, or the plain wavelets.unlift2d)."""
+    T, C = cur.shape[:2]
+    offs = level_offsets(schedule, C)
+    for k in reversed(levels):
+        lvl = schedule.levels[k]
+        hh, hw = lvl.target_h, lvl.target_w
+        n = hh * hw
+        chunk = coeffs[:, offs[k] : offs[k] + C * (1 + 3 * n)].reshape(T, C, 1 + 3 * n)
+        q = i32(chunk[..., :1]).view(T, C, 1, 1, 1)
+        quads = chunk[..., 1:].reshape(T, C, 3, hh, hw)
+        dequant = torch.where(q > 1, i16(i32(quads) * q), quads)
+        c, b, d = (dequant[:, :, j].contiguous() for j in range(3))
+        cur = unlift(wavelets.effective_wavelet(wavelet, hw, hh), wrap, cur, b, c, d, lvl)
+    return cur
+
+
+def _start_shape(schedule: LiftSchedule, start: int) -> tuple:
+    """(h, w) of the plane a pyramid launch from level `start` takes."""
+    if start < len(schedule.levels):
+        lvl = schedule.levels[start]
+        return lvl.current_h, lvl.current_w
+    return schedule.lp_h, schedule.lp_w
+
+
+@functools.lru_cache(maxsize=256)
+def _pyramid_args(schedule: LiftSchedule, channels: int, start: int, wavelet: Wavelet, wrap: Wrap,
+                  qg, color: Color, discard: bool):
+    """The kernels' PyramidArgs for one shape group (built once per
+    settings combination): the levels from `start`, their effective
+    wavelets, chunk offsets and q/g (None for the inverse)."""
+    levels = schedule.levels[start:]
+    coeffs = schedule.coeff_count(channels)
+    if len(levels) > kernels.MAX_LEVELS or channels > kernels.MAX_CHANNELS or coeffs >= 1 << 31:
+        raise ValueError(f"pyramid: {len(levels)} levels, {channels} channels, {coeffs} "
+                         "coefficients exceed the kernel's tables")
+    a = kernels.PyramidArgs()
+    a.levels, a.channels = len(levels), channels
+    a.height, a.width = _start_shape(schedule, start)
+    a.rows, a.pitch = smem_plane(schedule, start)
+    a.coeffs, a.wrap, a.color, a.discard, a.u8 = coeffs, wrap, color, discard, start == 0
+    offs = level_offsets(schedule, channels)
+    for s, lvl in enumerate(levels):
+        a.wavelet[s] = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+        a.off[s] = offs[start + s]
+        if qg is not None:
+            qs, gs = qg[start + s]
+            a.q[s][:channels] = qs
+            a.g[s][:channels] = gs
+    return a
+
+
+def _check_pyramid(schedule: LiftSchedule, channels: int, start: int) -> None:
+    if not 0 <= start <= len(schedule.levels):
+        raise ValueError(f"pyramid: start level {start} outside 0..{len(schedule.levels)}")
+    if max(pyramid_smem(schedule, channels, start)) > SMEM_BYTES:
+        raise ValueError(f"pyramid: the plane of level {start} does not fit a block's shared "
+                         f"memory (pyramid_start gives {pyramid_start(schedule, channels)})")
+
+
+def _check_stream(stream, n_tiles: int, schedule: LiftSchedule, channels: int, name: str) -> None:
+    shape = (n_tiles, schedule.coeff_count(channels))
+    if stream.dtype != torch.int16 or tuple(stream.shape) != shape or not stream.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous int16 stream of shape {shape}, got "
+                         f"{stream.dtype} {tuple(stream.shape)}")
+
+
+def forward_pyramid_plain(x, stream, schedule: LiftSchedule, start: int, wavelet: Wavelet,
+                          wrap: Wrap, qg, color: Color, discard: bool) -> None:
+    """The plain torch version of forward_pyramid, on any device."""
+    planes = to_planar_yuv(x, color, discard) if start == 0 else x
+    ll = lift_levels(planes, stream, schedule, range(start, len(schedule.levels)), wavelet, wrap,
+                     qg, wavelets.lift2d)
+    store_lp(stream, ll)
+
+
+def inverse_pyramid_plain(coeffs, schedule: LiftSchedule, start: int, wavelet: Wavelet,
+                          wrap: Wrap, channels: int, color: Color):
+    """The plain torch version of inverse_pyramid, on any device."""
+    ll = load_lp(coeffs, schedule, channels)
+    planes = unlift_levels(ll, coeffs, schedule, range(start, len(schedule.levels)), wavelet, wrap,
+                           wavelets.unlift2d)
+    return to_interleaved_u8(planes, color, channels).contiguous() if start == 0 else planes
+
+
+def forward_pyramid(x, stream, schedule: LiftSchedule, start: int, wavelet: Wavelet, wrap: Wrap,
+                    qg, color: Color, discard: bool) -> None:
+    """Levels [start, len(levels)) of every tile, and its LP planes, into
+    `stream`, the (T, coeff_count) int16 streams, at their wire offsets,
+    C, B and D quantized and gated by `qg` (quantization.level_qg's
+    table): one lift_pyramid launch. x is the (T, tile_h, tile_w, C) u8
+    tiles when start is 0 (colour transform `color` and discard-non-
+    visible applied to them), else the contiguous (T, C, h, w) int16 LL
+    planes of level `start`."""
+    channels = x.shape[-1] if start == 0 else x.shape[1]
+    if not _on_card(x, "forward_pyramid"):
+        forward_pyramid_plain(x, stream, schedule, start, wavelet, wrap, qg, color, discard)
+        return
+    _check_pyramid(schedule, channels, start)
+    h, w = _start_shape(schedule, start)
+    shape, dtype = ((h, w, channels), torch.uint8) if start == 0 else ((channels, h, w), torch.int16)
+    if x.dtype != dtype or tuple(x.shape[1:]) != shape or not x.is_contiguous():
+        raise ValueError(f"forward_pyramid: expected contiguous {dtype} (T, {shape}), got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    _check_stream(stream, x.shape[0], schedule, channels, "forward_pyramid")
+    if stream.device != x.device:
+        raise ValueError("forward_pyramid: the stream is not on the tiles' device")
+    args = _pyramid_args(schedule, channels, start, wavelet, wrap, tuple(qg), color, discard)
+    with torch.cuda.device(x.device):
+        kernels.lift_pyramid(args, x.data_ptr(), stream.data_ptr(), x.shape[0],
+                             torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["lift_pyramid"] += 1
+
+
+def inverse_pyramid(coeffs, schedule: LiftSchedule, start: int, wavelet: Wavelet, wrap: Wrap,
+                    channels: int, color: Color):
+    """The (T, coeff_count) int16 streams -> the tiles through levels
+    [start, len(levels)) in reverse, dequantized by the streams' q heads:
+    one unlift_pyramid launch. Returns the (T, tile_h, tile_w, C) u8
+    tiles (inverse colour transform `color`, saturated) when start is 0,
+    else the (T, C, h, w) int16 planes of level `start`."""
+    if not _on_card(coeffs, "inverse_pyramid"):
+        return inverse_pyramid_plain(coeffs, schedule, start, wavelet, wrap, channels, color)
+    _check_pyramid(schedule, channels, start)
+    _check_stream(coeffs, coeffs.shape[0], schedule, channels, "inverse_pyramid")
+    h, w = _start_shape(schedule, start)
+    n = coeffs.shape[0]
+    if start == 0:
+        out = torch.empty((n, h, w, channels), dtype=torch.uint8, device=coeffs.device)
+    else:
+        out = torch.empty((n, channels, h, w), dtype=torch.int16, device=coeffs.device)
+    args = _pyramid_args(schedule, channels, start, wavelet, wrap, None, color, False)
+    with torch.cuda.device(coeffs.device):
+        kernels.unlift_pyramid(args, coeffs.data_ptr(), out.data_ptr(), n,
+                               torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["unlift_pyramid"] += 1
     return out

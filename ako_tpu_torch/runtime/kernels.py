@@ -1,11 +1,16 @@
-"""Build-and-load for the port's Hopper kernels: the lift kernels
-(csrc/lift2d.cu) and the Kagari block decoder (csrc/kagari_decode.cu).
+"""Build-and-load for the port's Hopper kernels: the per-level lift
+kernels (csrc/lift2d.cu), the whole-pyramid lift kernels
+(csrc/lift_pyramid.cu) and the Kagari block decoder
+(csrc/kagari_decode.cu).
 
-One `nvcc` call compiles both sources into one shared library with a
-plain C interface in this package's `_build/` directory at first use,
-cached by source mtime, and ctypes binds it. Device pointers and the CUDA stream
-are passed as integers (c_void_p). Nothing here runs at import: the
-CPU tests import this module on machines with no nvcc and no card.
+At first use one `nvcc -c` per source, all started together, then one
+link build a shared library with a plain C interface in this package's
+`_build/` directory, cached by the mtime of the sources and the header
+they share; ctypes binds it. Device pointers and the CUDA stream are
+passed as integers (c_void_p), the pyramid kernels' table as a pointer
+to a PyramidArgs that the C side passes to the kernel by value. Nothing
+here runs at import: the CPU tests import this module on machines with
+no nvcc and no card.
 """
 
 from __future__ import annotations
@@ -19,12 +24,38 @@ import threading
 from ako_tpu_torch.runtime.build import BUILD_DIR
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = [os.path.join(_PKG, "csrc", f) for f in ("lift2d.cu", "kagari_decode.cu")]
+SOURCES = [
+    os.path.join(_PKG, "csrc", f) for f in ("lift2d.cu", "lift_pyramid.cu", "kagari_decode.cu")
+]
+#: what the library is rebuilt after: the sources and the header they include
+DEPENDS = [*SOURCES, os.path.join(_PKG, "csrc", "lift_common.cuh")]
 _LIB = os.path.join(BUILD_DIR, "libako_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+#: table sizes of csrc/lift_pyramid.cu, and its largest cluster (the
+#: inverse's channels of a tile)
+MAX_LEVELS = 16
+MAX_CHANNELS = 16
+MAX_CLUSTER = 8
+
+
+class PyramidArgs(ctypes.Structure):
+    """csrc/lift_pyramid.cu PyramidArgs, field for field (all int)."""
+
+    _fields_ = [
+        *((name, ctypes.c_int) for name in (
+            "levels", "channels", "height", "width", "rows", "pitch", "coeffs",
+            "wrap", "color", "discard", "u8",
+        )),
+        ("wavelet", ctypes.c_int * MAX_LEVELS),
+        ("off", ctypes.c_int * MAX_LEVELS),
+        ("q", (ctypes.c_int * MAX_CHANNELS) * MAX_LEVELS),
+        ("g", (ctypes.c_int * MAX_CHANNELS) * MAX_LEVELS),
+    ]
+
 
 _lock = threading.Lock()
 _lib = None
@@ -43,6 +74,8 @@ _SIGNATURES = {
     "ako_vlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _P],
     "ako_vunlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _I, _P],
     "ako_kagari_decode": [_P, _LL] + [_P] * 6 + [_I, _I, _I, _I, _P],
+    "ako_lift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
+    "ako_unlift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
 }
 
 
@@ -56,13 +89,24 @@ def _nvcc() -> str:
 def _compile() -> None:
     global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
-    )
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o") for src in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    for src, proc, out in zip(SOURCES, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+    tmp = f"{_LIB}.{tag}"
+    res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCES}:\n{res.stdout}{res.stderr}")
-    build_log = res.stdout + res.stderr
+        raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+    for obj in objs:
+        os.remove(obj)
+    build_log = "".join(logs)
     os.replace(tmp, _LIB)
 
 
@@ -73,7 +117,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < max(map(os.path.getmtime, SOURCES)):
+        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < max(map(os.path.getmtime, DEPENDS)):
             _compile()
         lib = ctypes.CDLL(_LIB)
         for name, argtypes in _SIGNATURES.items():
@@ -124,3 +168,16 @@ def kagari_decode(pool, pool_words, base, bit_off, prev, consec, run, out, tiles
                                  tiles, blocks, n_outputs, block, stream),
         "ako_kagari_decode",
     )
+
+
+def lift_pyramid(args, src, out, tiles, stream) -> None:
+    """Launch the forward pyramid (one block per tile and channel) on
+    `stream`; `args` is a PyramidArgs, the rest device pointers and the
+    tile count, already checked by the caller."""
+    _check(load().ako_lift_pyramid(ctypes.byref(args), src, out, tiles, stream), "ako_lift_pyramid")
+
+
+def unlift_pyramid(args, coeffs, dst, tiles, stream) -> None:
+    """Launch the inverse pyramid (one block per tile) on `stream`."""
+    _check(load().ako_unlift_pyramid(ctypes.byref(args), coeffs, dst, tiles, stream),
+           "ako_unlift_pyramid")

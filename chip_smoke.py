@@ -8,12 +8,20 @@ the exact bytes and pixels.
 Phases, each raising on failure (so the run exits non-zero and prints
 no result line):
   1. device   - a CUDA card is present; print its name and power limit
-  2. build    - one nvcc call builds csrc/lift2d.cu and
-                csrc/kagari_decode.cu, cc builds akort.c
+  2. build    - one nvcc per source (csrc/lift2d.cu, lift_pyramid.cu,
+                kagari_decode.cu), all started together, then a link;
+                cc builds akort.c
   3. kernels  - every kernel equals its plain torch version bit for bit
                 on the card: K1/K2 and K1v/K2v on every wavelet x wrap
                 at the north star's 128-px level planes (and transposed
                 planes), odd heights and one 1024x1280 (w x h) plane;
+                lift_pyramid / unlift_pyramid on every wavelet x wrap at
+                the north star's tile group, odd and tiny tiles (every
+                start level), tiles with fewer rows than channels,
+                every colour, 1-4 channels, discard with zero alphas,
+                and the whole tile's route from its start level, the
+                inverse on random streams whose q heads are
+                0, 1 and above 1 and whose dequantize wraps;
                 K4 on the north star's streams and on edge streams
   4. goldens  - tests/golden blobs and pixels are reproduced exactly,
                 on both entropy paths
@@ -27,9 +35,18 @@ no result line):
                 path's kernel launches counted from zero and exact
   6. profile  - torch.profiler over one warm north-star encode and
                 decode on each path: device time per kernel, the torch
-                ops of tokenize/pack, device busy and idle share
-  7. timings  - encode/decode ms and MP/s, per-stage host times, and
+                ops of tokenize/pack, device busy and idle share; and
+                over the default whole tile's device-entropy encode and
+                decode, the only place the fused wiring still runs K1/K2
+  7. timings  - encode/decode ms and MP/s, per-stage host times,
                 per-level kernel time against the plain torch version
+                (K1/K2 on the whole tile's levels before pyramid_start,
+                K1v/K2v on the north star's), and the pyramid kernels'
+                device ms per start level and per tile count
+  8. streams  - device ms and host enqueue ms of encode.forward_streams
+                and decode.stream_pixels on the north star's 128-px tile
+                group: kernel launches, torch ops, copies and host waits
+                for the device, from torch.profiler
 
 The second-to-last stdout line is the card's name and power limit from
 nvidia-smi, before it a JSON line with each kernel's launches, error,
@@ -75,13 +92,25 @@ REPLACES = {
     "vlift": "ako_tpu/ops/pallas_lift.py:127",
     "vunlift": "ako_tpu/ops/pallas_lift.py:211",
     "kagari_decode": "ako_tpu/ops/kagari_device.py:569",
+    "lift_pyramid": "ako_tpu/ops/pallas_lift.py:90",
+    "unlift_pyramid": "ako_tpu/ops/pallas_lift.py:184",
 }
 SOURCES = {k: "ako_tpu_torch/csrc/lift2d.cu" for k in REPLACES}
 SOURCES["kagari_decode"] = "ako_tpu_torch/csrc/kagari_decode.cu"
+SOURCES["lift_pyramid"] = SOURCES["unlift_pyramid"] = "ako_tpu_torch/csrc/lift_pyramid.cu"
+#: the (path, setting) whose profiled run gives each kernel's JSON row:
+#: the fused device-entropy north star at 128-px tiles, but K1v/K2v run
+#: only in the split wiring, and K1/K2 only on the levels of the default
+#: whole tile before pyramid_start
+ROW_RUN = {k: ("device_fused", "north_t128") for k in REPLACES}
+ROW_RUN.update(vlift=("device_split", "north_t128"), vunlift=("device_split", "north_t128"),
+               lift2d=("device_fused", "default_whole"),
+               unlift2d=("device_fused", "default_whole"))
 #: profiler kernel names -> kernel of the JSON line
 DEVICE_KERNELS = {
     "lift_h": "lift2d", "lift_v": "lift2d", "unlift_v": "unlift2d", "unlift_h": "unlift2d",
     "vlift": "vlift", "vunlift": "vunlift", "kagari_decode": "kagari_decode",
+    "lift_pyramid": "lift_pyramid", "unlift_pyramid": "unlift_pyramid",
 }
 #: a kernel's name in a profiler event, demangled ("ns::lift_h<0>(...)")
 #: or mangled ("...6lift_hILi0E...")
@@ -136,8 +165,15 @@ def phase_build():
     t_akort = time.perf_counter() - t
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", kernels.build_log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", kernels.build_log))
-    log(f"build: nvcc lift2d.cu + kagari_decode.cu {t_cuda:.2f} s, cc akort.c {t_akort:.2f} s; "
-        f"ptxas max registers {max(regs, default=0)}, spill stores {spills} B")
+    stack = max((int(b) for b in re.findall(r"(\d+) bytes stack frame", kernels.build_log)),
+                default=0)
+    log(f"build: nvcc lift2d.cu, lift_pyramid.cu, kagari_decode.cu {t_cuda:.2f} s, cc akort.c "
+        f"{t_akort:.2f} s; ptxas max registers {max(regs, default=0)}, spill stores {spills} B, "
+        f"largest stack frame {stack} B")
+    lines = kernels.build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "pyramid" in line:
+            log("  ptxas: " + " | ".join(part.strip() for part in lines[i : i + 4]))
 
 
 def _rand16(rng, shape, dev):
@@ -221,6 +257,91 @@ def phase_vlift_kernels(dev, shapes) -> dict:
             raise AssertionError(f"K1v/K2v != plain for {weff.name} {wrap.name} {(n, h, w)}: "
                                  f"vlift {e_fwd}, vunlift {e_inv}")
     log(f"kernels: K1v/K2v equal to plain on {len(shapes)} shapes x 3 wavelets x 4 wraps")
+    return err
+
+
+#: (tiles, w, h, channels) of the pyramid kernels' checks: the north
+#: star's 128-px tile group, odd and small tiles, tiles with no level,
+#: and tiles with fewer rows than channels (an image's edge row of
+#: tiles: some of the inverse's cluster blocks store no row)
+PYRAMID_SHAPES = [(80, 128, 128, 4), (3, 127, 97, 3), (3, 33, 17, 4), (2, 5, 9, 2), (2, 2, 2, 1),
+                  (2, 2, 2, 4), (3, 128, 3, 4), (2, 128, 1, 3)]
+
+
+def _pyramid_cases():
+    """(tiles, schedule, channels, start, wavelet, wrap, colour, discard,
+    q) of phase_pyramid_kernels: every wavelet x wrap on each shape with
+    the colour, discard and q cycling, every start level on the small
+    shapes, and the default whole 1024x1280 tile from its start level."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.core.settings import Color, Wavelet, Wrap
+    from ako_tpu_torch.ops.lift_kernels import pyramid_start
+
+    colours = [Color.YCOCG_Q, Color.YCOCG, Color.SUBTRACT_G, Color.NONE]
+    pairs = list(itertools.product([Wavelet.DD137, Wavelet.CDF53, Wavelet.HAAR], list(Wrap)))
+    cases = []
+    for n, w, h, ch in PYRAMID_SHAPES:
+        schedule = geometry.lift_schedule(w, h)
+        starts = [0] if n > 3 else range(len(schedule.levels) + 1)
+        for i, (wavelet, wrap) in enumerate(pairs):
+            cases += [(n, schedule, ch, start, wavelet, wrap, colours[i % 4], i % 2 == 1,
+                       (0, 1, 16)[i % 3]) for start in starts]
+    whole = geometry.lift_schedule(1024, 1280)
+    cases.append((1, whole, 4, pyramid_start(whole, 4), Wavelet.DD137, Wrap.CLAMP, Color.YCOCG_Q,
+                  False, 16))
+    return cases
+
+
+def _random_streams(rng, dev, n, schedule, ch):
+    """Random int16 streams whose q heads are 0, 1 or above 1 (7, 300:
+    the dequantize multiply wraps) or negative."""
+    from ako_tpu_torch.ops.lift_kernels import level_offsets
+
+    stream = rng.integers(-32768, 32768, size=(n, schedule.coeff_count(ch))).astype(np.int16)
+    for off, lvl in zip(level_offsets(schedule, ch), schedule.levels):
+        m = 1 + 3 * lvl.target_h * lvl.target_w
+        stream[:, off : off + ch * m : m] = rng.choice([0, 1, 7, 300, -5], size=(n, ch))
+    return torch.from_numpy(stream).to(dev)
+
+
+def phase_pyramid_kernels(dev) -> dict:
+    """lift_pyramid / unlift_pyramid against their plain versions on the
+    same inputs on the card (_pyramid_cases); returns the largest
+    absolute difference per kernel (must be 0)."""
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops.quantization import level_qg
+
+    rng = np.random.default_rng(3)
+    err = {"lift_pyramid": 0, "unlift_pyramid": 0}
+    cases = _pyramid_cases()
+    for n, schedule, ch, start, wavelet, wrap, color, discard, q in cases:
+        qg = level_qg(schedule, ch, q, 3, 2)
+        if start == 0:
+            tiles = rng.integers(0, 256, size=(n, schedule.tile_h, schedule.tile_w, ch))
+            if discard:
+                tiles[..., -1][rng.random(tiles.shape[:-1]) < 0.3] = 0
+            x = torch.from_numpy(tiles.astype(np.uint8)).to(dev)
+        else:
+            x = _rand16(rng, (n, ch, *lk._start_shape(schedule, start)), dev)
+        got = torch.zeros((n, schedule.coeff_count(ch)), dtype=torch.int16, device=dev)
+        ref = torch.zeros_like(got)
+        lk.forward_pyramid(x, got, schedule, start, wavelet, wrap, qg, color, discard)
+        lk.forward_pyramid_plain(x, ref, schedule, start, wavelet, wrap, qg, color, discard)
+        stream = _random_streams(rng, dev, n, schedule, ch)
+        e_fwd = _max_err(got, ref)
+        e_inv = _max_err(lk.inverse_pyramid(stream, schedule, start, wavelet, wrap, ch, color),
+                         lk.inverse_pyramid_plain(stream, schedule, start, wavelet, wrap, ch, color))
+        err["lift_pyramid"] = max(err["lift_pyramid"], e_fwd)
+        err["unlift_pyramid"] = max(err["unlift_pyramid"], e_inv)
+        if e_fwd or e_inv:
+            raise AssertionError(
+                f"pyramid kernels != plain for {n} tiles {schedule.tile_w}x{schedule.tile_h}x{ch} "
+                f"from level {start}, {wavelet.name} {wrap.name} {color.name} discard {discard} "
+                f"q {q}: lift_pyramid {e_fwd}, unlift_pyramid {e_inv}")
+    torch.cuda.synchronize()
+    log(f"kernels: lift_pyramid/unlift_pyramid equal to plain on {len(cases)} cases "
+        f"({len(PYRAMID_SHAPES)} tile shapes x 3 wavelets x 4 wraps x their start levels, "
+        "4 colours, 1-4 channels, and the 1024x1280 tile from its start level)")
     return err
 
 
@@ -362,28 +483,33 @@ def oracle_decode(blob):
     return image
 
 
-def level_groups(img, settings):
-    """(levels, shape groups) summed: lift levels over all shape groups,
-    and the number of shape groups."""
-    from ako_tpu_torch.core import geometry
-
-    h, w, _ = img.shape
-    groups = geometry.group_by_shape(geometry.tile_grid(w, h, settings.tiles_dimension))
-    return sum(len(geometry.lift_schedule(tw, th).levels) for tw, th in groups), len(groups)
-
-
 def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
-    """One K1 (K2) call per level and shape group, or three K1v (K2v) in
-    split mode; one K4 per shape group of a device-entropy decode."""
-    levels, groups = 0, 0
+    """Per shape group: in the fused wiring one K1 (K2) call per level
+    before pyramid_start and one lift_pyramid (unlift_pyramid) launch, in
+    the split wiring three K1v (K2v) calls per level; one K4 per shape
+    group of a device-entropy decode."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.ops.lift_kernels import pyramid_start
+
+    h, w, ch = img.shape
+    out = dict.fromkeys(("lift2d", "unlift2d", "vlift", "vunlift", "kagari_decode",
+                         "lift_pyramid", "unlift_pyramid"), 0)
     for s in settings.values():
-        lv, gr = level_groups(img, s)
-        levels += lv
-        groups += gr
-    fused = levels if mode == "fused" else 0
-    split = 3 * levels if mode == "split" else 0
-    return {"lift2d": fused, "unlift2d": fused, "vlift": split, "vunlift": split,
-            "kagari_decode": groups if device_entropy else 0}
+        for tw, th in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)):
+            schedule = geometry.lift_schedule(tw, th)
+            levels = len(schedule.levels)
+            if mode == "split":
+                out["vlift"] += 3 * levels
+                out["vunlift"] += 3 * levels
+            else:
+                start = pyramid_start(schedule, ch)
+                per_level = levels if start is None else start
+                out["lift2d"] += per_level
+                out["unlift2d"] += per_level
+                out["lift_pyramid"] += start is not None
+                out["unlift_pyramid"] += start is not None
+            out["kagari_decode"] += device_entropy
+    return out
 
 
 def phase_north_star(P, dev, img, oracle) -> dict:
@@ -421,6 +547,9 @@ def phase_north_star(P, dev, img, oracle) -> dict:
         want = expected_launches(img, settings, device_entropy, mode)
         if launches[path] != want:
             raise AssertionError(f"{path}: launch counts {launches[path]}, expected {want}")
+        north = expected_launches(img, {"north_t128": settings["north_t128"]}, device_entropy, mode)
+        if mode == "fused" and (north["lift2d"], north["unlift2d"]) != (0, 0):
+            raise AssertionError(f"{path}: north_t128 expects per-level launches: {north}")
         if device_entropy:
             from ako_tpu_torch.core import geometry
 
@@ -482,8 +611,11 @@ def _event_ms(fn, iters=KERNEL_ITERS) -> float:
 
 
 def _profile_window(fn) -> dict:
-    """One warm call under torch.profiler: host-clock wall ms, device
-    busy ms (union of device intervals), and device ms per kernel."""
+    """One warm call under torch.profiler: host-clock wall ms (to the
+    closing synchronize) and enqueue ms (until the call returns), device
+    busy ms (union of device intervals), device ms per kernel, and the
+    counts of device kernels, device copies, host waits for the stream
+    (cudaStreamSynchronize, blocking cudaMemcpy) and top-level torch ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -492,8 +624,10 @@ def _profile_window(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
+        enqueue = (time.perf_counter() - t) * 1e3
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+    host = [e for e in prof.events() if e.device_type != DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     busy, end = 0.0, float("-inf")
@@ -504,23 +638,97 @@ def _profile_window(fn) -> dict:
         m = KERNEL_RE.search(name)
         key = m.group(1) if m else ("memcpy" if "Memcpy" in name else "torch ops")
         per[key] = per.get(key, 0.0) + (b - a) / 1e3
-    return {"wall": wall, "busy": busy / 1e3, "per": per, "events": len(spans)}
+    copies = sum(1 for _, _, name in spans if "Memcpy" in name)
+    return {
+        "wall": wall, "enqueue": enqueue, "busy": busy / 1e3, "per": per, "events": len(spans),
+        "kernels": sum(1 for _, _, name in spans if "Memcpy" not in name and "Memset" not in name),
+        "copies": copies,
+        "waits": sum(1 for e in host if e.name in ("cudaStreamSynchronize", "cudaMemcpy")),
+        "ops": sum(1 for e in host
+                   if e.name.startswith("aten::") and getattr(e, "cpu_parent", None) is None),
+    }
+
+
+def _enqueue_ms(fn) -> float:
+    """Median host ms until fn returns (its device work left queued)."""
+    fn()
+    times = []
+    for _ in range(RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _span_ms(fn) -> float:
+    """Median device ms between CUDA events recorded just before and just
+    after the call: its kernels' time when the host enqueues faster than
+    the device runs, else the host's enqueue time."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(RUNS):
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_streams(P, dev, img, card) -> None:
+    """encode.forward_streams and decode.stream_pixels on the north
+    star's 128-px tile group (80 RGBA tiles): median host enqueue ms and
+    device span (CUDA events), the port's kernel launches per call, and
+    under torch.profiler one warm call's device busy ms, wall ms, device
+    kernels and copies, host waits for the stream and top-level torch
+    ops. Uses only what every version of the port has, so that it can
+    be imported against an older checkout's package to compare."""
+    from ako_tpu_torch.decode import stream_pixels
+    from ako_tpu_torch.encode import checked_settings, forward_streams
+
+    s = checked_settings(P.Settings(quantization=16, tiles_dimension=128))
+    t = s.tiles_dimension
+    h, w, ch = img.shape
+    batch = [img[y : y + t, x : x + t] for y in range(0, h, t) for x in range(0, w, t)]
+    tiles = torch.from_numpy(np.stack(batch)).to(dev)
+    streams = forward_streams(tiles, t, t, ch, s)
+    for name, fn in (("forward_streams", lambda: forward_streams(tiles, t, t, ch, s)),
+                     ("stream_pixels", lambda: stream_pixels(streams, t, t, ch, s))):
+        enqueue = _enqueue_ms(fn)
+        span = _span_ms(fn)
+        before = sum(all_launches().values())
+        fn()
+        launches = sum(all_launches().values()) - before
+        r = _profile_window(fn)
+        log(f"streams {name} on {tuple(tiles.shape)}: host enqueue {enqueue:.3f} ms, device span "
+            f"{span:.4f} ms (medians of {RUNS}), {launches} port kernel launches; profiled call: "
+            f"enqueue {r['enqueue']:.3f} ms, wall {r['wall']:.3f} ms, "
+            f"device busy {r['busy']:.4f} ms, {r['kernels']} device kernels, {r['copies']} device "
+            f"copies, {r['waits']} host waits for the stream, {r['ops']} top-level torch ops "
+            f"[{card}]")
 
 
 def phase_profile(P, dev, img, card) -> dict:
     """Device time per kernel on one warm north-star (128-px tiles)
-    encode and decode on each path, and the tokenize/pack torch ops
-    alone. Returns {kernel: device ms per image} from the path that
-    runs it."""
+    encode and decode on each path and on the default whole tile's
+    device-entropy path, and the tokenize/pack torch ops alone. Returns
+    {kernel: device ms per image} from the run of ROW_RUN."""
     from ako_tpu_torch.core import geometry
     from ako_tpu_torch.encode import checked_settings, forward_streams, pack_budget
     from ako_tpu_torch.ops.kagari_device import kagari_encode_device
     from ako_tpu_torch.runtime.kagari import BLOCK_HEAD
 
-    s = north_star_settings(P)["north_t128"]
+    settings = north_star_settings(P)
     per_kernel: dict = {}
-    for path, device_entropy, mode in PATHS:
+    runs = [(*p, "north_t128") for p in PATHS] + [("device_fused", True, "fused", "default_whole")]
+    for path, device_entropy, mode, setting in runs:
         os.environ["AKO_TORCH_LIFT_MODE"] = mode
+        s = settings[setting]
         blob = P.encode(img, s, device=dev, device_entropy=device_entropy)
         for direction, fn in (
             ("encode", lambda: P.encode(img, s, device=dev, device_entropy=device_entropy)),
@@ -532,16 +740,16 @@ def phase_profile(P, dev, img, card) -> dict:
                     f"events around {KERNEL_ITERS} back-to-back launches")
                 return {}
             per = {k: round(v, 4) for k, v in sorted(r["per"].items())}
-            log(f"profile {path} {direction}: wall {r['wall']:.3f} ms, device busy {r['busy']:.3f} ms "
-                f"(idle {100 * (1 - r['busy'] / r['wall']):.1f}%); device ms {per} [{card}]")
-            if device_entropy:
-                for name, k in DEVICE_KERNELS.items():
-                    if name in r["per"] and (mode == "split") == (k in ("vlift", "vunlift")):
-                        per_kernel[k] = per_kernel.get(k, 0.0) + r["per"][name]
+            log(f"profile {path} {setting} {direction}: wall {r['wall']:.3f} ms, device busy "
+                f"{r['busy']:.3f} ms (idle {100 * (1 - r['busy'] / r['wall']):.1f}%); device ms "
+                f"{per} [{card}]")
+            for name, k in DEVICE_KERNELS.items():
+                if name in r["per"] and ROW_RUN[k] == (path, setting):
+                    per_kernel[k] = per_kernel.get(k, 0.0) + r["per"][name]
     os.environ.pop("AKO_TORCH_LIFT_MODE")
 
     # K3: the tokenize + pack torch ops on the north star's streams
-    s = checked_settings(s)
+    s = checked_settings(settings["north_t128"])
     h, w, ch = img.shape
     tiles = geometry.tile_grid(w, h, s.tiles_dimension)
     batch = np.stack([img[t.y : t.y + t.h, t.x : t.x + t.w] for t in tiles])
@@ -569,7 +777,9 @@ def _level_inputs(rng, dev, n, lvl):
 def kernel_times(P, dev, img, s, card, split: bool) -> dict:
     """Per-level kernel vs plain torch time (CUDA events around
     back-to-back calls, so launch rate for the small levels) for the
-    shape groups of one setting; returns per-kernel sums over levels."""
+    shape groups of one setting, on the levels each wiring sends to them
+    (every level split; fused, the levels before pyramid_start); returns
+    per-kernel sums over levels."""
     from ako_tpu_torch.core import geometry
     from ako_tpu_torch.encode import checked_settings
     from ako_tpu_torch.ops import lift_kernels, wavelets
@@ -581,7 +791,9 @@ def kernel_times(P, dev, img, s, card, split: bool) -> dict:
     names = ("vlift", "vunlift") if split else ("lift2d", "unlift2d")
     total = {k: [0.0, 0.0] for k in names}
     for (tw, th), tiles in geometry.group_by_shape(grid).items():
-        for i, lvl in enumerate(geometry.lift_schedule(tw, th).levels):
+        schedule = geometry.lift_schedule(tw, th)
+        start = None if split else lift_kernels.pyramid_start(schedule, ch)
+        for i, lvl in enumerate(schedule.levels[:start]):
             weff = wavelets.effective_wavelet(s.wavelet, lvl.target_w, lvl.target_h)
             n = len(tiles) * ch
             x, quads = _level_inputs(rng, dev, n, lvl)
@@ -637,29 +849,40 @@ def k4_times(dev, blob, card) -> tuple:
 
 
 def bounds_ms(img, blob) -> dict:
-    """Least time per north-star image (128-px tiles) for each kernel:
-    {kernel: (ms, "bytes" or "operations")}, the larger of the bytes it
-    must move (each input read once, each output written once) over the
-    card's memory rate and its integer operations over the 32-bit scalar
-    rate."""
+    """Least time per north-star image for each kernel on the run of
+    ROW_RUN (128-px tiles; K1/K2: the whole tile's levels before
+    pyramid_start): {kernel: (ms, "bytes" or "operations")}, the larger of
+    the bytes it must move (each input read once, each output written
+    once) over the card's memory rate and its integer operations over the
+    32-bit scalar rate."""
     from ako_tpu_torch.core import container, geometry
     from ako_tpu_torch.ops.kagari_device import DECODE_BLOCK
+    from ako_tpu_torch.ops.lift_kernels import pyramid_start
     from ako_tpu_torch.runtime.kagari import BLOCK_HEAD
 
     h, w, ch = img.shape
     t = 128
     n = (h // t) * (w // t) * ch
-    b = {"lift2d": 0, "unlift2d": 0, "vlift": 0, "vunlift": 0}
-    ops = dict(b)
+    b = {"lift2d": 0, "vlift": 0}
+    # the pyramids: the u8 tiles and the int16 streams, each once
+    b["lift_pyramid"] = n // ch * t * t * ch + n // ch * geometry.tile_data_size(t, t) * ch
+    ops = dict.fromkeys(b, 0)
     for lvl in geometry.lift_schedule(t, t).levels:
         plane = lvl.current_h * lvl.current_w
-        b["lift2d"] += n * 2 * (plane + 4 * lvl.target_h * lvl.target_w)
         # three V-only calls: (w, h) -> 2x (w/2, h), then 2x (h, w/2) -> 4x (h/2, w/2)
         b["vlift"] += n * 2 * (plane + 2 * lvl.current_h * lvl.target_w) * 2
-        # either wiring: one 1-D lift along each axis of the plane
-        ops["lift2d"] += n * plane * 2 * LIFT_OPS
-    b["unlift2d"], b["vunlift"] = b["lift2d"], b["vlift"]
-    ops["unlift2d"] = ops["vlift"] = ops["vunlift"] = ops["lift2d"]
+        # one 1-D lift along each axis of the plane
+        ops["vlift"] += n * plane * 2 * LIFT_OPS
+    ops["lift_pyramid"] = ops["vlift"]
+    # K1/K2: the whole tile's planes before pyramid_start (one per channel)
+    # and their four quadrants, once each
+    whole = geometry.lift_schedule(w, h)
+    for lvl in whole.levels[: pyramid_start(whole, ch)]:
+        plane = lvl.current_h * lvl.current_w
+        b["lift2d"] += ch * 2 * (plane + 4 * lvl.target_h * lvl.target_w)
+        ops["lift2d"] += ch * plane * 2 * LIFT_OPS
+    for k, same in (("unlift2d", "lift2d"), ("vunlift", "vlift"), ("unlift_pyramid", "lift_pyramid")):
+        b[k], ops[k] = b[same], ops[same]
     # K4: the compressed payloads, the base words and the sync records
     # (four int32 each) in, the int16 streams out
     tiles = len(geometry.tile_grid(w, h, t))
@@ -694,15 +917,120 @@ def phase_timings(P, dev, img, card) -> dict:
                                                    device_entropy=device_entropy))
         log(f"  stages encode {stages_enc} ms, decode {stages_dec} ms (host clock)")
     os.environ.pop("AKO_TORCH_LIFT_MODE")
-    per_kernel = {}
-    for name in ("north_t128", "default_whole"):
-        log(f"kernel times, {name} (sum over levels):")
-        per_kernel[name] = kernel_times(P, dev, img, settings[name], card, split=False)
-        log(f"  {name}: {per_kernel[name]} (kernel ms, plain ms)")
+    log("kernel times, default_whole, the levels before pyramid_start (sum over levels):")
+    per_level = kernel_times(P, dev, img, settings["default_whole"], card, split=False)
+    log(f"  default_whole: {per_level} (kernel ms, plain ms)")
     log("kernel times, north_t128 split wiring (sum over levels):")
     split = kernel_times(P, dev, img, settings["north_t128"], card, split=True)
     log(f"  north_t128 split: {split} (kernel ms, plain ms)")
-    return {**per_kernel["north_t128"], **split}
+    pyramid = {}
+    for name in ("north_t128", "default_whole"):
+        pyramid[name] = pyramid_times(dev, img, settings[name], card)
+        log(f"  {name} pyramids: {pyramid[name]} (kernel ms, plain ms)")
+    pyramid_breakdown(dev, img, settings["north_t128"], card)
+    return {**per_level, **split, **pyramid["north_t128"]}
+
+
+def _launch_ms(fn, name: str, iters: int = 20) -> float:
+    """Median device ms of the kernel `name` over `iters` launches under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and KERNEL_RE.search(e.name)
+             and KERNEL_RE.search(e.name).group(1) == name]
+    return statistics.median(times) / 1e3 if times else float("nan")
+
+
+def pyramid_breakdown(dev, img, s, card) -> None:
+    """Where the pyramid kernels' time goes on the north star's 128-px
+    group: device ms (profiler) launched from each start level (the
+    difference of two starts is a level's share) and, from level 0, for
+    1, 8, 40 and 80 tiles (one tile alone is one block's serial chain;
+    80 tiles load every SM)."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import checked_settings, tile_qg
+    from ako_tpu_torch.ops import lift_kernels as lk
+
+    s = checked_settings(s)
+    t = s.tiles_dimension
+    h, w, ch = img.shape
+    schedule = geometry.lift_schedule(t, t)
+    qg = tuple(tile_qg(t, t, ch, s.quantization, s.gate, s.chroma_loss))
+    tiles = torch.from_numpy(np.stack([img[y : y + t, x : x + t] for y in range(0, h, t)
+                                       for x in range(0, w, t)])).to(dev)
+    fwd = (s.wavelet, s.wrap, qg, s.color, bool(s.discard_non_visible))
+    inv = (s.wavelet, s.wrap, ch, s.color)
+    rng = np.random.default_rng(5)
+
+    def row(x, start):
+        stream = torch.zeros((x.shape[0], schedule.coeff_count(ch)), dtype=torch.int16, device=dev)
+        lift = _launch_ms(lambda: lk.forward_pyramid(x, stream, schedule, start, *fwd),
+                          "lift_pyramid")
+        unlift = _launch_ms(lambda: lk.inverse_pyramid(stream, schedule, start, *inv),
+                            "unlift_pyramid")
+        return f"lift_pyramid {lift:.4f} ms, unlift_pyramid {unlift:.4f} ms"
+
+    for start in range(len(schedule.levels) + 1):
+        x = tiles if start == 0 else _rand16(
+            rng, (tiles.shape[0], ch, *lk._start_shape(schedule, start)), dev)
+        log(f"  pyramids from level {start}, {tiles.shape[0]} tiles: {row(x, start)} [{card}]")
+    for n in (1, 8, 40):
+        log(f"  pyramids from level 0, {n} tiles: {row(tiles[:n].contiguous(), 0)} [{card}]")
+
+
+def pyramid_times(dev, img, s, card) -> dict:
+    """lift_pyramid / unlift_pyramid against their plain versions (CUDA
+    events around back-to-back calls) on the shape groups of one setting,
+    each from its pyramid_start; the inverse on the forward's streams."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import checked_settings, tile_qg
+    from ako_tpu_torch.ops import lift_kernels as lk
+
+    s = checked_settings(s)
+    h, w, ch = img.shape
+    rng = np.random.default_rng(4)
+    total = {"lift_pyramid": [0.0, 0.0], "unlift_pyramid": [0.0, 0.0]}
+    grid = geometry.tile_grid(w, h, s.tiles_dimension)
+    for (tw, th), tiles in geometry.group_by_shape(grid).items():
+        schedule = geometry.lift_schedule(tw, th)
+        start = lk.pyramid_start(schedule, ch)
+        qg = tuple(tile_qg(tw, th, ch, s.quantization, s.gate, s.chroma_loss))
+        n = len(tiles)
+        if start == 0:
+            x = torch.from_numpy(np.stack([img[t.y : t.y + th, t.x : t.x + tw] for t in tiles]))
+            x = x.to(dev)
+        else:
+            x = _rand16(rng, (n, ch, *lk._start_shape(schedule, start)), dev)
+        stream = torch.zeros((n, schedule.coeff_count(ch)), dtype=torch.int16, device=dev)
+        fwd = (s.wavelet, s.wrap, qg, s.color, bool(s.discard_non_visible))
+        inv = (s.wavelet, s.wrap, ch, s.color)
+        lk.forward_pyramid(x, stream, schedule, start, *fwd)
+        row = {
+            "lift_pyramid": (
+                _event_ms(lambda: lk.forward_pyramid(x, stream, schedule, start, *fwd)),
+                _event_ms(lambda: lk.forward_pyramid_plain(x, stream, schedule, start, *fwd),
+                          iters=5),
+            ),
+            "unlift_pyramid": (
+                _event_ms(lambda: lk.inverse_pyramid(stream, schedule, start, *inv)),
+                _event_ms(lambda: lk.inverse_pyramid_plain(stream, schedule, start, *inv),
+                          iters=5),
+            ),
+        }
+        for k, (kern, plain) in row.items():
+            total[k][0] += kern
+            total[k][1] += plain
+            log(f"  {k} {n} tiles {tw}x{th}x{ch} from level {start}: kernel {kern:.4f} ms, "
+                f"plain {plain:.4f} ms [{card}]")
+    return {k: (round(v[0], 4), round(v[1], 4)) for k, v in total.items()}
 
 
 def main() -> int:
@@ -717,8 +1045,8 @@ def main() -> int:
     import ako_tpu_torch as P
     from ako_tpu_torch.utils.corpus import corpus
 
-    phase_build()
     img = corpus(NORTH_STAR["seed"], 1, NORTH_STAR["h"], NORTH_STAR["w"], NORTH_STAR["ch"])[0]
+    phase_build()
     oracle = {}
     for name, s in north_star_settings(P).items():
         blob = oracle_encode(img, s)
@@ -726,28 +1054,29 @@ def main() -> int:
 
     err = phase_lift_kernels(dev, [(320, 128, 128), (3, 127, 97), (3, 5, 9), (1, 1280, 1024)])
     err.update(phase_vlift_kernels(dev, vlift_shapes(img, 128)))
+    err.update(phase_pyramid_kernels(dev))
     err["kagari_decode"] = phase_k4(dev, oracle["north_t128"][0])
     phase_goldens(P, dev)
     launches = phase_north_star(P, dev, img, oracle)
     device_ms = phase_profile(P, dev, img, card)
     times = phase_timings(P, dev, img, card)
     times["kagari_decode"] = k4_times(dev, oracle["north_t128"][0], card)
+    phase_streams(P, dev, img, card)
     bound = bounds_ms(img, oracle["north_t128"][0])
     for k in REPLACES:
         if k not in device_ms:  # no device time in the profile: CUDA events
             device_ms[k] = times[k][0]
             log(f"{k}: ms from CUDA events (kernel launch rate), not the profiler")
 
-    # launches: lift2d/unlift2d/K4 on the fused device-entropy path,
-    # vlift/vunlift on the split one
-    path_of = {"vlift": "device_split", "vunlift": "device_split"}
+    # launches: each kernel's count on the path of its ROW_RUN, every
+    # setting of that path (K1/K2: the whole tile's levels)
     kernels = [
         {
             "name": k,
             "route": "cuda",
             "source": SOURCES[k],
             "replaces": REPLACES[k],
-            "launches": launches[path_of.get(k, "device_fused")][k],
+            "launches": launches[ROW_RUN[k][0]][k],
             "max_abs_err": err[k],
             "ms": device_ms[k],
             "plain_ms": times[k][1],
