@@ -10,11 +10,12 @@ per tile-shape group each way (csrc/lift_pyramid.cu, colour and
 quantize/gate fused), after per-level launches (csrc/lift2d.cu) for
 planes too large for a block; in the split wiring per-level V-only
 launches. With `device_entropy` (the default on the card)
-Kagari coding runs there too: tokenize and pack as torch ops, the
-block-parallel decode as a CUDA kernel (csrc/kagari_decode.cu) from
-host sync records; otherwise, and for the container, the native C
-runtime (ako_tpu/runtime/native/akort.c) codes on the host. The package
-imports torch and numpy, never JAX.
+Kagari coding runs there too: tokenize and pack as one CUDA kernel
+(csrc/kagari_encode.cu), the block-parallel decode as another
+(csrc/kagari_decode.cu) from host sync records; otherwise, and for the
+container, the port's copy of the native C runtime (csrc/akort.c)
+codes on the host. The package imports torch and numpy, never JAX, and
+reads no file of ako_tpu.
 """
 
 from ako_tpu_torch.core.settings import (

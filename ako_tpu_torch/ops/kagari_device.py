@@ -6,8 +6,14 @@ The reference coder is a sequential bit-accumulator loop
 passes over whole coefficient streams, batched over a leading tile
 dimension:
 
-  encode (torch ops on int32/int64; torch's uint32 lacks shifts and
-  compares on the CPU)
+  encode
+    On a CUDA tensor this is kernel K3 (csrc/kagari_encode.cu): each
+    chunk of K3_CHUNK positions of a stream is one CTA, which takes the
+    last mismatch and the bit offset of its stream's earlier chunks as
+    carries (three short launches), tokenizes, and packs its codes in
+    shared memory. The plain version below (torch ops on int32/int64;
+    torch's uint32 lacks shifts and compares on the CPU) is what a CPU
+    tensor takes and what K3 is checked against on the card:
     1. zigzag + RLE tokenization: the run structure comes from a
        cumulative max of the last mismatch, and the run-length escape
        rules (trigger 2, forced flush at counter 65534) are evaluated
@@ -22,15 +28,15 @@ dimension:
     A host scan (runtime.kagari.kagari_sync) gives each block of
     DECODE_BLOCK outputs its bit offset and carry state, so every
     (tile, block) lane decodes on its own. On a CUDA tensor that is
-    kernel K4 (csrc/kagari_decode.cu, one thread per lane); the plain
+    kernel K4 (csrc/kagari_decode.cu: K4_LANES lanes of a tile per CTA,
+    their words staged in shared memory, decode_cta_spans); the plain
     version below runs all lanes at once for `block` steps and is what
     a CPU tensor takes and what K4 is checked against on the card.
 
 The bytes equal the reference coder's exactly; only its failure
 conditions differ, so callers hand tiles near the capacity to the host
 coder (encode.py). The TPU-only scatter-free packers of ako_tpu (rank,
-placement and MXU cumsums) are not ported: an integer scatter-add is
-exact and cheap on the card.
+placement and MXU cumsums) are not ported.
 """
 
 from __future__ import annotations
@@ -68,8 +74,17 @@ _SCAN_CHUNK = 1024
 #: the atomic adds of a long run off one word
 _SPILL_SLOTS = 1024
 
-#: kernel launches per wrapper (one per call that reaches the card)
-LAUNCHES = {"kagari_decode": 0}
+#: positions per CTA of kernel K3 (csrc/kagari_encode.cu kChunk)
+K3_CHUNK = 4096
+
+#: kernel K4's CTA: lanes (threads) of one tile, and the most pool words
+#: it stages in shared memory (csrc/kagari_decode.cu kLanes, kSpanWords)
+K4_LANES = 64
+K4_SPAN_WORDS = 4096
+
+#: kernel launches per wrapper (one per call that reaches the card; a
+#: kagari_encode call is K3's three grid launches)
+LAUNCHES = {"kagari_encode": 0, "kagari_decode": 0}
 
 
 def _exclusive_cumsum(x):
@@ -194,18 +209,54 @@ def kagari_size_device(values):
     return (nbits.sum(dim=-1, dtype=torch.int64) + 7) >> 3
 
 
+def encode_layout(rows: int, n: int, budget_bytes: int) -> tuple:
+    """Kernel K3's launch arithmetic for `rows` streams of n values:
+    (chunks per row, 32-bit words per output row, int32 scratch words).
+    A row's output is ceil(budget_bytes / 4) words, so rows start on
+    word boundaries and the caller's (rows, budget_bytes) bytes are a
+    view of them."""
+    chunks = -(-n // K3_CHUNK)
+    return chunks, -(-budget_bytes // 4), 2 * rows * chunks
+
+
 def kagari_encode_device(values, capacity_bytes: int, budget_bytes: int | None = None):
     """Kagari encode of (..., n) int16 streams. Returns (bytes uint8
     (..., budget_bytes), total_bytes int64 (...)).
 
     total_bytes == ceil(total_bits / 8) is always exact; the bytes
     cover only `budget_bytes` (default capacity_bytes), so callers fall
-    back to the host coder whenever total_bytes > budget_bytes."""
+    back to the host coder whenever total_bytes > budget_bytes.
+
+    A CUDA tensor launches kernel K3; its bytes are a view of rows of
+    ceil(budget_bytes / 4) words. A CPU tensor takes the plain version
+    (tokenize + pack_bits)."""
     if budget_bytes is None:
         budget_bytes = capacity_bytes
-    vals, nbits = tokenize(values)
-    by, total_bits = pack_bits(vals, nbits, budget_bytes)
-    return by, (total_bits + 7) >> 3
+    if values.device.type == "cpu":
+        vals, nbits = tokenize(values)
+        by, total_bits = pack_bits(vals, nbits, budget_bytes)
+        return by, (total_bits + 7) >> 3
+    if values.device.type != "cuda":
+        raise ValueError(f"kagari_encode_device: no kernel for device {values.device}")
+    n = values.shape[-1] if values.dim() else 0
+    if values.dtype != torch.int16 or n == 0 or not values.is_contiguous():
+        raise ValueError("kagari_encode_device: expected contiguous int16 (..., n) streams, n > 0, "
+                         f"got {values.dtype} {tuple(values.shape)}")
+    if budget_bytes < 1:
+        raise ValueError(f"kagari_encode_device: budget {budget_bytes} bytes")
+    batch = tuple(values.shape[:-1])
+    rows = math.prod(batch)
+    _, row_words, scratch_ints = encode_layout(rows, n, budget_bytes)
+    out =torch.empty((rows, row_words * 4), dtype=torch.uint8, device=values.device)
+    totals = torch.empty((rows,), dtype=torch.int64, device=values.device)
+    if rows:
+        scratch = torch.empty((scratch_ints,), dtype=torch.int32, device=values.device)
+        with torch.cuda.device(values.device):
+            kernels.kagari_encode(values.data_ptr(), out.data_ptr(), totals.data_ptr(),
+                                  scratch.data_ptr(), scratch_ints, rows, n, row_words,
+                                  torch.cuda.current_stream().cuda_stream)
+        LAUNCHES["kagari_encode"] += 1
+    return out[:, :budget_bytes].reshape(batch + (budget_bytes,)), totals.reshape(batch)
 
 
 # ---------------------------------------------------------------------
@@ -222,6 +273,37 @@ def decode_span_words(bit_offsets, total_bits: int, slack: int = 3) -> int:
     ends = np.concatenate([boff[1:], np.asarray([max(total_bits, 1)], np.int64)])
     spans = (ends - 1) // 32 - boff // 32 + 1
     return int(spans.max()) + slack
+
+
+def decode_cta_spans(base, bit_off, pool_words: int) -> dict:
+    """Kernel K4's CTAs and the pool words each stages, as the kernel
+    computes them (csrc/kagari_decode.cu). A CTA takes K4_LANES
+    consecutive lanes of one tile; it stages the words
+    [base + bit_off[first] >> 5, base + (bit_off[last + 1] >> 5) + 2),
+    where the tile's last lane ends two words past the tile's own (the
+    next tile's base, or the pool's end before its DECODE_SLACK_WORDS),
+    within the pool. A span of at most K4_SPAN_WORDS words takes the
+    shared-memory route; a larger one reads the pool.
+
+    base: (T,) and bit_off: (T, B) sync records (numpy or lists).
+    Returns arrays, one entry per CTA in launch order: tile, first
+    lane, lanes, start word, words and staged (bool)."""
+    base = np.asarray(base, np.int64)
+    boff = np.asarray(bit_off, np.int64) & _U32
+    T, B = boff.shape
+    per = -(-B // K4_LANES)
+    tile = np.repeat(np.arange(T), per)
+    first = np.tile(np.arange(per) * K4_LANES, T)
+    lanes = np.minimum(K4_LANES, B - first)
+    start = base[tile] + (boff[tile, first] >> 5)
+    after = first + lanes
+    inner = base[tile] + (boff[tile, np.minimum(after, B - 1)] >> 5) + 2
+    nxt = np.where(tile + 1 < T, base[np.minimum(tile + 1, T - 1)], pool_words - DECODE_SLACK_WORDS)
+    end = np.minimum(np.where(after < B, inner, nxt + 2), pool_words)
+    words = end - start
+    staged = (words > 0) & (words <= K4_SPAN_WORDS)
+    return {"tile": tile, "first": first, "lanes": lanes, "start": start,
+            "words": words, "staged": staged}
 
 
 def _gamma_at(hi, lo, cur):
@@ -310,15 +392,18 @@ def kagari_decode_device(pool, base, bit_off, prev, consec, run, n_outputs: int,
     B = ceil(n_outputs / block). Returns (T, n_outputs) int16, bit-exact
     with the host decoder for every stream whose codes are <= 31 bits.
 
-    A CUDA tensor launches kernel K4 (which reads words from the pool
-    and ignores `span`); a CPU tensor takes the plain version, whose
-    per-lane window is `span` words wide (decode_span_words; None = the
-    whole pool)."""
+    A CUDA tensor launches kernel K4 (block must be DECODE_BLOCK; each
+    CTA sizes its own window, decode_cta_spans, and `span` is ignored);
+    a CPU tensor takes the plain version, whose per-lane window is
+    `span` words wide (decode_span_words; None = the whole pool)."""
     T, B = bit_off.shape
     if pool.device.type == "cpu":
         return _decode_plain(pool, base, bit_off, prev, consec, run, n_outputs, block, span)
     if pool.device.type != "cuda":
         raise ValueError(f"kagari_decode_device: no kernel for device {pool.device}")
+    if block != DECODE_BLOCK:
+        raise ValueError(f"kagari_decode_device: the kernel decodes blocks of {DECODE_BLOCK}, "
+                         f"not {block}")
     if B != -(-n_outputs // block):
         raise ValueError(f"kagari_decode_device: {B} sync records for {n_outputs} outputs")
     for name, t, shape in (("pool", pool, (pool.shape[0],)), ("base", base, (T,)),

@@ -1,10 +1,10 @@
 """Build-and-load for the native host runtime (entropy coder, q/g curve).
 
-The C source is ako_tpu's own `ako_tpu/runtime/native/akort.c`,
-compiled here by file path (importing any ako_tpu module would import
-JAX). The library goes into this package's `_build/` directory, cached
-by source mtime, and is bound with ctypes. No pip/apt dependencies:
-plain cc + libm.
+The C source is the port's own copy, `csrc/akort.c` (the same code as
+ako_tpu's `runtime/native/akort.c`; the port reads no file of the JAX
+package). The library goes into this package's `_build/` directory,
+cached by source mtime, and is bound with ctypes. No pip/apt
+dependencies: plain cc + libm.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "ako_tpu", "runtime", "native", "akort.c")
+SRC = os.path.join(_PKG, "csrc", "akort.c")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _LIB = os.path.join(BUILD_DIR, "_akort.so")
 

@@ -1,7 +1,7 @@
 """Build-and-load for the port's Hopper kernels: the per-level lift
 kernels (csrc/lift2d.cu), the whole-pyramid lift kernels
-(csrc/lift_pyramid.cu) and the Kagari block decoder
-(csrc/kagari_decode.cu).
+(csrc/lift_pyramid.cu), the Kagari tokenize + pack (csrc/kagari_encode.cu)
+and the Kagari block decoder (csrc/kagari_decode.cu).
 
 At first use one `nvcc -c` per source, all started together, then one
 link build a shared library with a plain C interface in this package's
@@ -25,7 +25,8 @@ from ako_tpu_torch.runtime.build import BUILD_DIR
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [
-    os.path.join(_PKG, "csrc", f) for f in ("lift2d.cu", "lift_pyramid.cu", "kagari_decode.cu")
+    os.path.join(_PKG, "csrc", f)
+    for f in ("lift2d.cu", "lift_pyramid.cu", "kagari_encode.cu", "kagari_decode.cu")
 ]
 #: what the library is rebuilt after: the sources and the header they include
 DEPENDS = [*SOURCES, os.path.join(_PKG, "csrc", "lift_common.cuh")]
@@ -73,6 +74,7 @@ _SIGNATURES = {
     "ako_unlift2d": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
     "ako_vlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _P],
     "ako_vunlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _I, _P],
+    "ako_kagari_encode": [_P] * 4 + [_LL, _I, _I, _I, _P],
     "ako_kagari_decode": [_P, _LL] + [_P] * 6 + [_I, _I, _I, _I, _P],
     "ako_lift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
     "ako_unlift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
@@ -158,6 +160,16 @@ def vlift(x, lp, hp, n, h, w, wavelet, wrap, stream) -> None:
 def vunlift(lp, hp, out, n, th, w, out_h, wavelet, wrap, stream) -> None:
     """Launch the V-only inverse lift (K2v) on `stream`."""
     _check(load().ako_vunlift(lp, hp, out, n, th, w, out_h, wavelet, wrap, stream), "ako_vunlift")
+
+
+def kagari_encode(values, out, totals, scratch, scratch_ints, rows, n, row_words, stream) -> None:
+    """Launch the Kagari tokenize + pack (K3, three grid launches) on
+    `stream`."""
+    _check(
+        load().ako_kagari_encode(values, out, totals, scratch, scratch_ints, rows, n, row_words,
+                                 stream),
+        "ako_kagari_encode",
+    )
 
 
 def kagari_decode(pool, pool_words, base, bit_off, prev, consec, run, out, tiles, blocks,

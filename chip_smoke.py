@@ -9,8 +9,8 @@ Phases, each raising on failure (so the run exits non-zero and prints
 no result line):
   1. device   - a CUDA card is present; print its name and power limit
   2. build    - one nvcc per source (csrc/lift2d.cu, lift_pyramid.cu,
-                kagari_decode.cu), all started together, then a link;
-                cc builds akort.c
+                kagari_encode.cu, kagari_decode.cu), all started
+                together, then a link; cc builds the port's csrc/akort.c
   3. kernels  - every kernel equals its plain torch version bit for bit
                 on the card: K1/K2 and K1v/K2v on every wavelet x wrap
                 at the north star's 128-px level planes (and transposed
@@ -22,7 +22,13 @@ no result line):
                 and the whole tile's route from its start level, the
                 inverse on random streams whose q heads are
                 0, 1 and above 1 and whose dequantize wraps;
-                K4 on the north star's streams and on edge streams
+                K3 (bytes and totals) on the north star's 80 streams, the
+                whole-image tile's 5.2 M-value stream, lossless q=0
+                streams, edge streams (runs, forced flushes and -32768
+                across its 4096-value chunks, the densest codes) and
+                budgets that cut; K4 on the north star's streams and on
+                edge streams, on both its routes (spans staged in shared
+                memory, and spans too wide for it that read the pool)
   4. goldens  - tests/golden blobs and pixels are reproduced exactly,
                 on both entropy paths
   5. north    - the north-star image (fbm corpus, seed 42, 1024x1280
@@ -34,8 +40,10 @@ no result line):
                 (runtime/hostcodec.py); no host fallback tile; each
                 path's kernel launches counted from zero and exact
   6. profile  - torch.profiler over one warm north-star encode and
-                decode on each path: device time per kernel, the torch
-                ops of tokenize/pack, device busy and idle share; and
+                decode on each path: device time per kernel, device busy
+                and idle share; K3 alone on the north star's streams (one
+                kernel of three launches) beside its plain version's
+                torch ops; and
                 over the default whole tile's device-entropy encode and
                 decode, the only place the fused wiring still runs K1/K2
   7. timings  - encode/decode ms and MP/s, per-stage host times,
@@ -84,6 +92,10 @@ LIFT_OPS = 9
 #: refill, __clz, the gamma length and value, the unzigzag, the run
 #: compare and counters
 K4_OPS = 20
+#: integer operations per value K3 codes: the zigzag, the compare with
+#: the neighbours, the max and sum scans, the run counter's modulo and
+#: tests, two gamma lengths, and placing a code's parts in its words
+K3_OPS = 30
 #: (path name, device_entropy, lift wiring)
 PATHS = [("host", False, "fused"), ("device_fused", True, "fused"), ("device_split", True, "split")]
 REPLACES = {
@@ -92,11 +104,13 @@ REPLACES = {
     "vlift": "ako_tpu/ops/pallas_lift.py:127",
     "vunlift": "ako_tpu/ops/pallas_lift.py:211",
     "kagari_decode": "ako_tpu/ops/kagari_device.py:569",
+    "kagari_encode": "ako_tpu/ops/kagari_device.py:665",
     "lift_pyramid": "ako_tpu/ops/pallas_lift.py:90",
     "unlift_pyramid": "ako_tpu/ops/pallas_lift.py:184",
 }
 SOURCES = {k: "ako_tpu_torch/csrc/lift2d.cu" for k in REPLACES}
 SOURCES["kagari_decode"] = "ako_tpu_torch/csrc/kagari_decode.cu"
+SOURCES["kagari_encode"] = "ako_tpu_torch/csrc/kagari_encode.cu"
 SOURCES["lift_pyramid"] = SOURCES["unlift_pyramid"] = "ako_tpu_torch/csrc/lift_pyramid.cu"
 #: the (path, setting) whose profiled run gives each kernel's JSON row:
 #: the fused device-entropy north star at 128-px tiles, but K1v/K2v run
@@ -110,6 +124,8 @@ ROW_RUN.update(vlift=("device_split", "north_t128"), vunlift=("device_split", "n
 DEVICE_KERNELS = {
     "lift_h": "lift2d", "lift_v": "lift2d", "unlift_v": "unlift2d", "unlift_h": "unlift2d",
     "vlift": "vlift", "vunlift": "vunlift", "kagari_decode": "kagari_decode",
+    "kagari_encode_runs": "kagari_encode", "kagari_encode_bits": "kagari_encode",
+    "kagari_encode_pack": "kagari_encode",
     "lift_pyramid": "lift_pyramid", "unlift_pyramid": "unlift_pyramid",
 }
 #: a kernel's name in a profiler event, demangled ("ns::lift_h<0>(...)")
@@ -167,12 +183,13 @@ def phase_build():
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", kernels.build_log))
     stack = max((int(b) for b in re.findall(r"(\d+) bytes stack frame", kernels.build_log)),
                 default=0)
-    log(f"build: nvcc lift2d.cu, lift_pyramid.cu, kagari_decode.cu {t_cuda:.2f} s, cc akort.c "
+    log(f"build: nvcc lift2d.cu, lift_pyramid.cu, kagari_encode.cu, kagari_decode.cu "
+        f"{t_cuda:.2f} s, cc csrc/akort.c "
         f"{t_akort:.2f} s; ptxas max registers {max(regs, default=0)}, spill stores {spills} B, "
         f"largest stack frame {stack} B")
     lines = kernels.build_log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "pyramid" in line:
+        if "Compiling entry function" in line and ("pyramid" in line or "kagari" in line):
             log("  ptxas: " + " | ".join(part.strip() for part in lines[i : i + 4]))
 
 
@@ -395,25 +412,125 @@ def _edge_blob_inputs(v, dev):
 def phase_k4(dev, north_blob) -> int:
     """K4 against the plain block decoder on the card: the north star's
     streams and edge streams (a run past the 65534 forced flush, the
-    int16 extremes, runs across blocks)."""
+    int16 extremes, runs across blocks), and high-entropy streams whose
+    CTA spans are too wide for shared memory (the route that reads the
+    pool; kagari_device.decode_cta_spans says which CTAs take it)."""
     from ako_tpu_torch.ops import kagari_device as kd
 
     rng = np.random.default_rng(2)
     runs = rng.integers(-300, 300, size=20000)
     runs[rng.random(20000) < 0.6] = 0
     edges = [np.zeros(70000), np.full(1 + 2 * 65534 + 10, -2), np.array([32767] * 600 + [-32767] * 600),
-             np.array([-32767, 32767, 0, -1, 1] * 300), runs, np.array([3, 3, 3]), np.array([7])]
+             np.array([-32767, 32767, 0, -1, 1] * 300), runs, np.array([3, 3, 3]), np.array([7]),
+             rng.integers(-32767, 32768, size=20000), rng.integers(-32767, 32768, size=70001)]
     cases = [(parts, n, span, None) for parts, n, span in entropy_inputs(north_blob, dev)]
     cases += [_edge_blob_inputs(v, dev) for v in edges]
     err = 0
+    routes = {"staged": 0, "pool": 0}
     for parts, n, span, want in cases:
+        spans = kd.decode_cta_spans(parts[1].cpu().numpy(), parts[2].cpu().numpy(),
+                                    parts[0].shape[0])
+        routes["staged"] += int(spans["staged"].sum())
+        routes["pool"] += int((~spans["staged"]).sum())
         got = kd.kagari_decode_device(*parts, n)
         ref = kd._decode_plain(*parts, n, kd.DECODE_BLOCK, span)
         e = _max_err(got, ref)
         err = max(err, e)
         if e or (want is not None and not np.array_equal(got.cpu().numpy()[0], want)):
             raise AssertionError(f"K4 != plain (or the stream) on a {tuple(got.shape)} case: {e}")
-    log(f"kernels: K4 equal to plain on the north star's streams and {len(edges)} edge streams")
+    if not routes["staged"] or not routes["pool"]:
+        raise AssertionError(f"K4: a route went unchecked: CTAs {routes}")
+    torch.cuda.synchronize()
+    log(f"kernels: K4 equal to plain on the north star's streams and {len(edges)} edge streams; "
+        f"CTAs by route {routes}")
+    return err
+
+
+def group_streams(dev, img, s) -> list:
+    """(streams, capacity, budget) per shape group of one setting: the
+    coefficient streams on the card as the device-entropy encoder makes
+    them, with its Kagari capacity and pack budget."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import (checked_settings, forward_streams, pack_budget, stage_tiles,
+                                      tile_stream_bytes)
+    from ako_tpu_torch.runtime.kagari import BLOCK_HEAD
+
+    s = checked_settings(s)
+    h, w, ch = img.shape
+    src = torch.from_numpy(np.ascontiguousarray(img))
+    out = []
+    for (tw, th), tiles in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)).items():
+        streams = forward_streams(stage_tiles(src, tiles, tw, th).to(dev), tw, th, ch, s)
+        cap = tile_stream_bytes(tiles[0], s, ch) - BLOCK_HEAD.size
+        out.append((streams, cap, pack_budget(cap, s.quantization)))
+    return out
+
+
+def k3_cases(P, dev, img) -> list:
+    """(name, streams, capacity, budget) of phase_k3: the encoder's
+    streams and budgets of every north-star setting (80 streams of 65560
+    values at 128-px tiles, lossy and lossless; the whole-image tile's
+    one stream of 5,242,932), budgets that cut them (inside a word and
+    on a word boundary), and edge streams: runs, a forced flush and
+    -32768 across the kernel's chunks, the densest codes (32 bits a
+    position), full-range noise."""
+    from ako_tpu_torch.ops.kagari_device import K3_CHUNK
+
+    cases = []
+    for name, s in north_star_settings(P).items():
+        for i, (streams, cap, budget) in enumerate(group_streams(dev, img, s)):
+            cases.append((f"{name}[{i}]", streams, cap, budget))
+            cases.append((f"{name}[{i}] cut", streams, cap, 1001 if streams.shape[0] > 1 else 100004))
+    rng = np.random.default_rng(6)
+    c = K3_CHUNK
+    wrap = rng.integers(-40, 40, size=3 * c + 100)
+    wrap[[0, c, 2 * c, 3 * c]] = -32768
+    wrap[c - 2 : c + 3] = -32768
+    edges = {
+        "runs across chunks": [1] * (c - 5) + [2] * 10 + [3] * (2 * c) + [4] * c + list(range(300)),
+        "flush in a later chunk": [7] * (1 + 2 * 65534 + 10),
+        "-32768 at chunk starts": wrap,
+        "densest codes": [32767] * 3 + [-32767] * 3,
+        "full-range noise": rng.integers(-32768, 32768, size=300001),
+    }
+    for name, v in edges.items():
+        v = np.asarray(v, np.int16)
+        if name == "densest codes":
+            v = np.tile(v, 20000)
+        t = torch.from_numpy(np.stack([v, v[::-1].copy()])).to(dev)
+        cases.append((name, t, 4 * v.size, 4 * v.size))
+    return cases
+
+
+def k3_plain(streams, budget):
+    """K3's plain version on the card: (bytes, totals) from tokenize +
+    pack_bits, the torch ops a CPU tensor takes."""
+    from ako_tpu_torch.ops import kagari_device as kd
+
+    vals, nbits = kd.tokenize(streams)
+    by, total_bits = kd.pack_bits(vals, nbits, budget)
+    return by, (total_bits + 7) >> 3
+
+
+def phase_k3(P, dev, img) -> int:
+    """K3 against its plain version (tokenize + pack_bits, torch ops on
+    the card) on k3_cases: bytes and totals bit for bit. Returns the
+    largest absolute difference (must be 0)."""
+    from ako_tpu_torch.ops import kagari_device as kd
+
+    err, values = 0, 0
+    for name, streams, cap, budget in k3_cases(P, dev, img):
+        got, got_total = kd.kagari_encode_device(streams, cap, budget)
+        ref, ref_total = k3_plain(streams, budget)
+        e = max(_max_err(got, ref), int((got_total - ref_total).abs().max()))
+        err = max(err, e)
+        values += streams.numel()
+        if e or not torch.equal(got, ref) or not torch.equal(got_total, ref_total):
+            raise AssertionError(f"K3 != plain on {name} {tuple(streams.shape)} budget {budget}: {e}")
+        cut = int((ref_total > budget).sum())
+        log(f"  K3 {name} {tuple(streams.shape)} budget {budget}: equal ({cut} rows past the budget)")
+    torch.cuda.synchronize()
+    log(f"kernels: K3 equal to plain on {values} values")
     return err
 
 
@@ -486,14 +603,15 @@ def oracle_decode(blob):
 def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
     """Per shape group: in the fused wiring one K1 (K2) call per level
     before pyramid_start and one lift_pyramid (unlift_pyramid) launch, in
-    the split wiring three K1v (K2v) calls per level; one K4 per shape
-    group of a device-entropy decode."""
+    the split wiring three K1v (K2v) calls per level; one K3 per shape
+    group of a device-entropy encode, one K4 per shape group of its
+    decode."""
     from ako_tpu_torch.core import geometry
     from ako_tpu_torch.ops.lift_kernels import pyramid_start
 
     h, w, ch = img.shape
-    out = dict.fromkeys(("lift2d", "unlift2d", "vlift", "vunlift", "kagari_decode",
-                         "lift_pyramid", "unlift_pyramid"), 0)
+    out = dict.fromkeys(("lift2d", "unlift2d", "vlift", "vunlift", "kagari_encode",
+                         "kagari_decode", "lift_pyramid", "unlift_pyramid"), 0)
     for s in settings.values():
         for tw, th in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)):
             schedule = geometry.lift_schedule(tw, th)
@@ -508,6 +626,7 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
                 out["unlift2d"] += per_level
                 out["lift_pyramid"] += start is not None
                 out["unlift_pyramid"] += start is not None
+            out["kagari_encode"] += device_entropy
             out["kagari_decode"] += device_entropy
     return out
 
@@ -716,12 +835,9 @@ def phase_streams(P, dev, img, card) -> None:
 def phase_profile(P, dev, img, card) -> dict:
     """Device time per kernel on one warm north-star (128-px tiles)
     encode and decode on each path and on the default whole tile's
-    device-entropy path, and the tokenize/pack torch ops alone. Returns
+    device-entropy path, and K3 alone beside its plain version. Returns
     {kernel: device ms per image} from the run of ROW_RUN."""
-    from ako_tpu_torch.core import geometry
-    from ako_tpu_torch.encode import checked_settings, forward_streams, pack_budget
     from ako_tpu_torch.ops.kagari_device import kagari_encode_device
-    from ako_tpu_torch.runtime.kagari import BLOCK_HEAD
 
     settings = north_star_settings(P)
     per_kernel: dict = {}
@@ -748,23 +864,17 @@ def phase_profile(P, dev, img, card) -> dict:
                     per_kernel[k] = per_kernel.get(k, 0.0) + r["per"][name]
     os.environ.pop("AKO_TORCH_LIFT_MODE")
 
-    # K3: the tokenize + pack torch ops on the north star's streams
-    s = checked_settings(settings["north_t128"])
-    h, w, ch = img.shape
-    tiles = geometry.tile_grid(w, h, s.tiles_dimension)
-    batch = np.stack([img[t.y : t.y + t.h, t.x : t.x + t.w] for t in tiles])
-    streams = forward_streams(torch.from_numpy(batch).to(dev), s.tiles_dimension,
-                              s.tiles_dimension, ch, s)
-    cap = streams.shape[1] * 2 - BLOCK_HEAD.size
-    budget = pack_budget(cap, s.quantization)
+    # K3 alone on the north star's streams: the kernel (three launches),
+    # then its plain version's torch ops
+    ((streams, cap, budget),) = group_streams(dev, img, settings["north_t128"])
     r = _profile_window(lambda: kagari_encode_device(streams, cap, budget))
-    # bound: the int16 streams read once, the (T, budget) rows and the
-    # totals written once
-    comp, totals = kagari_encode_device(streams, cap, budget)
-    bound = (streams.nbytes + comp.nbytes + totals.nbytes) / HBM_BYTES_PER_S * 1e3
-    log(f"profile K3 tokenize+pack (torch ops) on {tuple(streams.shape)}: device busy "
-        f"{r['busy']:.3f} ms of wall {r['wall']:.3f} ms, {r['events']} device events, "
-        f"byte bound {bound:.5f} ms [{card}]")
+    k3 = {n: round(v, 4) for n, v in r["per"].items() if DEVICE_KERNELS.get(n) == "kagari_encode"}
+    plain = _profile_window(lambda: k3_plain(streams, budget))
+    log(f"profile K3 kernel on {tuple(streams.shape)}: device ms {k3} (sum "
+        f"{sum(k3.values()):.4f}), {r['kernels']} device kernels, busy {r['busy']:.4f} ms of wall "
+        f"{r['wall']:.3f} ms, enqueue {r['enqueue']:.3f} ms; its plain version (torch ops): busy "
+        f"{plain['busy']:.3f} ms in {plain['events']} device events, enqueue "
+        f"{plain['enqueue']:.3f} ms [{card}]")
     return {k: round(v, 4) for k, v in per_kernel.items()}
 
 
@@ -848,6 +958,19 @@ def k4_times(dev, blob, card) -> tuple:
     return round(kern, 4), round(plain, 4)
 
 
+def k3_times(P, dev, img, card) -> tuple:
+    """K3 vs its plain version on the card on the north star's streams
+    (CUDA events)."""
+    from ako_tpu_torch.ops.kagari_device import kagari_encode_device
+
+    ((streams, cap, budget),) = group_streams(dev, img, north_star_settings(P)["north_t128"])
+    kern = _event_ms(lambda: kagari_encode_device(streams, cap, budget))
+    plain = _event_ms(lambda: k3_plain(streams, budget), iters=3)
+    log(f"  K3 per image: kernel {kern:.4f} ms (CUDA events, launches included), "
+        f"plain {plain:.4f} ms [{card}]")
+    return round(kern, 4), round(plain, 4)
+
+
 def bounds_ms(img, blob) -> dict:
     """Least time per north-star image for each kernel on the run of
     ROW_RUN (128-px tiles; K1/K2: the whole tile's levels before
@@ -856,6 +979,7 @@ def bounds_ms(img, blob) -> dict:
     once) over the card's memory rate and its integer operations over the
     32-bit scalar rate."""
     from ako_tpu_torch.core import container, geometry
+    from ako_tpu_torch.encode import pack_budget
     from ako_tpu_torch.ops.kagari_device import DECODE_BLOCK
     from ako_tpu_torch.ops.lift_kernels import pyramid_start
     from ako_tpu_torch.runtime.kagari import BLOCK_HEAD
@@ -891,6 +1015,10 @@ def bounds_ms(img, blob) -> dict:
     records = tiles * -(-count // DECODE_BLOCK)
     b["kagari_decode"] = payload + 4 * tiles + 16 * records + 2 * tiles * count
     ops["kagari_decode"] = tiles * count * K4_OPS
+    # K3: the int16 streams in, the (T, budget) rows and the totals out
+    budget = pack_budget(2 * count - BLOCK_HEAD.size, 16)
+    b["kagari_encode"] = 2 * tiles * count + tiles * budget + 8 * tiles
+    ops["kagari_encode"] = tiles * count * K3_OPS
     out = {}
     for k in b:
         by_bytes, by_ops = b[k] / HBM_BYTES_PER_S * 1e3, ops[k] / SCALAR_OPS_PER_S * 1e3
@@ -1055,12 +1183,14 @@ def main() -> int:
     err = phase_lift_kernels(dev, [(320, 128, 128), (3, 127, 97), (3, 5, 9), (1, 1280, 1024)])
     err.update(phase_vlift_kernels(dev, vlift_shapes(img, 128)))
     err.update(phase_pyramid_kernels(dev))
+    err["kagari_encode"] = phase_k3(P, dev, img)
     err["kagari_decode"] = phase_k4(dev, oracle["north_t128"][0])
     phase_goldens(P, dev)
     launches = phase_north_star(P, dev, img, oracle)
     device_ms = phase_profile(P, dev, img, card)
     times = phase_timings(P, dev, img, card)
     times["kagari_decode"] = k4_times(dev, oracle["north_t128"][0], card)
+    times["kagari_encode"] = k3_times(P, dev, img, card)
     phase_streams(P, dev, img, card)
     bound = bounds_ms(img, oracle["north_t128"][0])
     for k in REPLACES:

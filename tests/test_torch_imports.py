@@ -68,6 +68,44 @@ def test_runs_with_jax_blocked():
     assert res.stdout.strip() == repr(ref)
 
 
+def test_builds_only_sources_of_the_port():
+    """Every source the port compiles (the native runtime, the CUDA
+    kernels and the header they include) lies inside ako_tpu_torch/."""
+    from ako_tpu_torch.runtime import build, kernels
+
+    paths = [build.SRC, *kernels.SOURCES, *kernels.DEPENDS]
+    for path in paths:
+        real = os.path.realpath(path)
+        assert os.path.isfile(real), path
+        assert os.path.commonpath([real, os.path.realpath(PKG)]) == os.path.realpath(PKG), path
+    assert os.path.basename(build.SRC) == "akort.c"
+
+
+def test_reads_no_file_of_ako_tpu():
+    """Importing the port and coding an image on both entropy paths
+    opens no file under ako_tpu/ (an audit hook records every open)."""
+    code = (
+        "import os, sys\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda ev, args: opened.append(str(args[0])) if ev == 'open' else None)\n"
+        "import numpy as np\n"
+        "import ako_tpu_torch\n"
+        "from ako_tpu_torch.runtime import build\n"
+        "build.load()\n"
+        "img = np.arange(24 * 20 * 3, dtype=np.uint8).reshape(24, 20, 3)\n"
+        "for de in (False, True):\n"
+        "    blob = ako_tpu_torch.encode(img, device='cpu', device_entropy=de)\n"
+        "    ako_tpu_torch.decode(blob, device='cpu', device_entropy=de)\n"
+        "ref = os.path.realpath('ako_tpu') + os.sep\n"
+        "bad = [p for p in opened if os.path.realpath(p).startswith(ref)]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stderr
+
+
 def test_corpus_matches_reference():
     got = corpus.corpus(42, 2, 40, 56, 4)
     ref = ref_corpus.corpus(42, 2, 40, 56, 4)
