@@ -11,7 +11,7 @@
 // truncating division in the bias+shift form of ops/intmath.py, and an
 // int16 wrap at every store. Unlike the Pallas kernels these also take
 // odd dimensions (the fake last row / column of library/lifting.c:43-76),
-// so every level of a tile runs here.
+// so they take every level of any tile.
 //
 // What bounds it: bytes. Each pass reads about 2 B and writes about 2 B
 // per coefficient and does a few dozen integer operations on them, far
@@ -24,12 +24,16 @@
 // neighbouring high-pass (forward) or even (inverse) taps its own
 // output needs, so no thread waits on another; neighbouring threads
 // take neighbouring columns, so loads and stores coalesce and the
-// recomputed taps come from L1. In the fused wiring these kernels take
-// only the levels whose planes do not fit a block's shared memory; the
-// rest of the pyramid, with colour and quantize fused, is one launch of
-// lift_pyramid.cu. The V-only pair (K1v/K2v) is one such V pass per call, one thread per
-// (row pair, column), so it moves the same bytes per pass; the split
-// wiring adds torch transposes between its three calls per level.
+// recomputed taps come from L1. The codec's fused wiring no longer calls
+// K1/K2: the levels whose planes do not fit a pyramid block run one
+// launch each of lift_level.cu, the rest one launch of lift_pyramid.cu,
+// with colour and quantize fused in both. K1/K2 serve the per-level API
+// (ops/lift_kernels.py lift2d_level / unlift2d_level, which
+// ops/lifting.py forward_tile / inverse_tile take). The V-only pair
+// (K1v/K2v) is one such V pass per call, one thread per (row pair,
+// column), so it moves the same bytes per pass; the split wiring, which
+// runs every level through it, adds torch transposes between its three
+// calls per level.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,7 +1,8 @@
-// C integer semantics and the edge rules shared by the lift kernels
-// (lift2d.cu, lift_pyramid.cu): one copy of the truncating power-of-two
-// divisions of ops/intmath.py, the int16 store wrap and the wrap-mode tap
-// substitutions of ops/wavelets.py.
+// C integer semantics, the edge rules, the lifting steps, the colour
+// transforms and the quantizer shared by the lift kernels (lift2d.cu,
+// lift_pyramid.cu, lift_level.cu): one copy of the truncating power-of-two
+// divisions of ops/intmath.py, the int16 store wrap, the wrap-mode tap
+// substitutions of ops/wavelets.py and the transforms of ops/colorspace.py.
 
 #pragma once
 
@@ -11,6 +12,8 @@ namespace ako {
 
 enum { DD137 = 0, CDF53 = 1, HAAR = 2 };
 enum { CLAMP = 0, MIRROR = 1, REPEAT = 2, ZERO = 3 };
+enum { YCOCG = 0, SUBTRACT_G = 1, COLOR_NONE = 2, YCOCG_Q = 3 };
+enum { PREDICT = 0, UPDATE = 1, UNDO_UPDATE = 2, UNDO_PREDICT = 3 };
 
 __device__ __forceinline__ int div2(int x) { return (x + ((x >> 31) & 1)) >> 1; }
 __device__ __forceinline__ int div4(int x) { return (x + ((x >> 31) & 3)) >> 2; }
@@ -40,5 +43,126 @@ __device__ __forceinline__ int tap(int i, int d, int n, int wrap) {
     if (wrap == MIRROR) return i - 1;
     return i - (n - 2);  // REPEAT
 }
+
+// The lifting steps on one line of a level: pair m = (even 2m, odd 2m+1)
+// of n pairs at line[(2 * (m - base) + {0, 1}) * step], so a line that
+// holds only pairs from `base` on (lift_level.cu's windows) takes global
+// pair indices. A fake odd sample (k >= n_real) is the even one. EDGE: k
+// is within two pairs of an end, and the taps follow the wrap rules; else
+// every tap is in the line. Every substituted tap lies within the taps
+// of an inner pair (predict: k-1 .. k+2, update: k-2 .. k+1).
+template <int WAV, int KIND, bool EDGE>
+__device__ __forceinline__ void lift_step(int16_t* line, int step, int k, int n, int n_real,
+                                          int wrap, int base = 0) {
+    // the edge taps' loads are unconditional (a zero tap reads the pair
+    // itself and drops it), so a step's loads go out back to back
+    auto at = [&](int m, int odd) -> int { return line[(2 * (m - base) + odd) * step]; };
+    auto ev = [&](int d) -> int {
+        if (!EDGE) return at(k + d, 0);
+        const int m = tap(k, d, n, wrap);
+        const int v = at(m < 0 ? k : m, 0);
+        return m < 0 ? 0 : v;
+    };
+    auto hp = [&](int d) -> int {
+        if (!EDGE) return at(k + d, 1);
+        const int m = tap(k, d, n, wrap);
+        const int v = at(m < 0 ? k : m, 1);
+        return m < 0 ? 0 : v;
+    };
+    int16_t* even = line + 2 * (k - base) * step;
+    int16_t* odd = even + step;
+    if (KIND == PREDICT || KIND == UNDO_PREDICT) {
+        const int e = *even, o_slot = *odd;  // a fake odd slot is padding: read, then dropped
+        const int o = (KIND == UNDO_PREDICT || k < n_real) ? o_slot : e;
+        int r;
+        if (WAV == HAAR) r = KIND == PREDICT ? o - e : o + e;
+        else if (WAV == CDF53) r = KIND == PREDICT ? o - div2(e + ev(1)) : o + div2(e + ev(1));
+        else {
+            const int t = div16(ev(-1) + ev(2) - 9 * (e + ev(1)));
+            r = KIND == PREDICT ? o + t : o - t;
+        }
+        *odd = (int16_t)r;
+    } else {
+        if (WAV == HAAR) return;
+        const int h = *odd;
+        const int t = WAV == CDF53 ? div4(hp(-1) + h) : div32(-hp(-2) - hp(1) + 9 * (hp(-1) + h));
+        *even = (int16_t)(KIND == UPDATE ? *even + t : *even - t);
+    }
+}
+
+// The first three planes of a pixel (r, g, b) after the forward colour
+// transform `color` (not COLOR_NONE).
+__device__ __forceinline__ void colour_yuv(int r, int g, int b, int color, int* out) {
+    if (color == SUBTRACT_G) {
+        out[0] = g;
+        out[1] = wrap16(r - g);
+        out[2] = wrap16(b - g);
+        return;
+    }
+    const int co = wrap16(r - b);
+    const int tmp = wrap16(b + div2(co));
+    const int cg = wrap16(g - tmp);
+    const int y = wrap16(tmp + div2(cg));
+    out[0] = color == YCOCG_Q ? wrap16(y * 2) : y;
+    out[1] = co;
+    out[2] = cg;
+}
+
+// Channel ch of one pixel of C channels after discard-non-visible and the
+// forward colour transform (ops/colorspace.py to_planar_yuv).
+__device__ __forceinline__ int colour_fwd(const uint8_t* px, int C, int ch, int color, int discard) {
+    const bool hide = discard && (C == 2 || C == 4) && px[C - 1] == 0;
+    auto val = [&](int k) -> int { return hide && k < C - 1 ? 0 : px[k]; };
+    if (C < 3 || ch >= 3 || color == COLOR_NONE) return val(ch);
+    int yuv[3];
+    colour_yuv(val(0), val(1), val(2), color, yuv);
+    return ch == 0 ? yuv[0] : ch == 1 ? yuv[1] : yuv[2];
+}
+
+__device__ __forceinline__ uint8_t saturate(int x) { return (uint8_t)min(max(x, 0), 255); }
+
+// The saturated u8 pixel v[0..C) from its planar values val(0..C) after
+// the inverse colour transform (ops/colorspace.py to_interleaved_u8).
+template <class V>
+__device__ __forceinline__ void colour_inv(const V& val, int C, int color, uint8_t* v) {
+    int k0 = 0;
+    if (C >= 3 && color != COLOR_NONE) {
+        int y = val(0);
+        const int u = val(1), vv = val(2);
+        int rr, gg, bb;
+        if (color == SUBTRACT_G) {
+            rr = wrap16(u + y);
+            gg = y;
+            bb = wrap16(vv + y);
+        } else {
+            if (color == YCOCG_Q) y = wrap16(div2(y));
+            const int tmp = wrap16(y - div2(vv));
+            gg = wrap16(vv + tmp);
+            bb = wrap16(tmp - div2(u));
+            rr = wrap16(bb + u);
+        }
+        v[0] = saturate(rr);
+        v[1] = saturate(gg);
+        v[2] = saturate(bb);
+        k0 = 3;
+    }
+    for (int k = k0; k < C; ++k) v[k] = saturate(val(k));
+}
+
+// C's truncating x / qd for |x| <= 32768 and qd >= 1. For 1 < qd < 2^16,
+// floor(|x| / qd) is the high word of |x| * ceil(2^32 / qd): the
+// product's error stays under |x| / 2^32 < 1 / qd, so one multiply
+// replaces the division.
+struct Divider {
+    int qd;
+    unsigned m;
+    __device__ explicit Divider(int qd_)
+        : qd(qd_), m(qd_ > 1 && qd_ < 65536 ? (unsigned)(((1ull << 32) + qd_ - 1) / qd_) : 0u) {}
+    __device__ __forceinline__ int operator()(int x) const {
+        if (m == 0) return qd == 1 ? x : x / qd;
+        const int f = (int)__umulhi((unsigned)abs(x), m);
+        return x < 0 ? -f : f;
+    }
+};
 
 }  // namespace ako

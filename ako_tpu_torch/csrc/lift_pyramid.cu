@@ -59,9 +59,11 @@
 //   the serial work.
 // The per-level q/g, wavelets and offsets are a struct passed by value
 // (PyramidArgs, the kernel's parameter space): no device table per call.
-// Planes too large for a block start at a later level
-// (ops/lift_kernels.py pyramid_start); the levels before it run through
-// lift2d.cu.
+// The lifting steps (lift_step), the colour transforms and the quantizer
+// are lift_common.cuh's, shared with lift_level.cu. Planes too large for
+// a block start at a later level (ops/lift_kernels.py pyramid_start); the
+// levels before it run one lift_level / unlift_level launch each
+// (lift_level.cu).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -102,51 +104,6 @@ constexpr int kFwdThreads = 512;
 constexpr int kInvThreads = 512;
 constexpr int kMaxCluster = 8;  // portable thread-block cluster size
 constexpr int kMaxSmem = 232448;  // 227 KB, a block's limit on sm_90
-
-enum { YCOCG = 0, SUBTRACT_G = 1, COLOR_NONE = 2, YCOCG_Q = 3 };
-enum { PREDICT = 0, UPDATE = 1, UNDO_UPDATE = 2, UNDO_PREDICT = 3 };
-
-// The lifting steps on one line of a level: sample m at line[m * step],
-// pair k = (even 2k, odd 2k+1), n pairs. A fake odd sample (k >= n_real)
-// is the even one. EDGE: k is within two pairs of an end, and the taps
-// follow the wrap rules; else every tap is in the line.
-template <int WAV, int KIND, bool EDGE>
-__device__ __forceinline__ void lift_step(int16_t* line, int step, int k, int n, int n_real,
-                                          int wrap) {
-    // the edge taps' loads are unconditional (a zero tap reads sample 0
-    // and drops it), so a step's loads go out back to back
-    auto ev = [&](int d) -> int {
-        if (!EDGE) return line[2 * (k + d) * step];
-        const int m = tap(k, d, n, wrap);
-        const int v = line[2 * max(m, 0) * step];
-        return m < 0 ? 0 : v;
-    };
-    auto hp = [&](int d) -> int {
-        if (!EDGE) return line[(2 * (k + d) + 1) * step];
-        const int m = tap(k, d, n, wrap);
-        const int v = line[(2 * max(m, 0) + 1) * step];
-        return m < 0 ? 0 : v;
-    };
-    int16_t* even = line + 2 * k * step;
-    int16_t* odd = line + (2 * k + 1) * step;
-    if (KIND == PREDICT || KIND == UNDO_PREDICT) {
-        const int e = *even, o_slot = *odd;  // a fake odd slot is padding: read, then dropped
-        const int o = (KIND == UNDO_PREDICT || k < n_real) ? o_slot : e;
-        int r;
-        if (WAV == HAAR) r = KIND == PREDICT ? o - e : o + e;
-        else if (WAV == CDF53) r = KIND == PREDICT ? o - div2(e + ev(1)) : o + div2(e + ev(1));
-        else {
-            const int t = div16(ev(-1) + ev(2) - 9 * (e + ev(1)));
-            r = KIND == PREDICT ? o + t : o - t;
-        }
-        *odd = (int16_t)r;
-    } else {
-        if (WAV == HAAR) return;
-        const int h = *odd;
-        const int t = WAV == CDF53 ? div4(hp(-1) + h) : div32(-hp(-2) - hp(1) + 9 * (hp(-1) + h));
-        *even = (int16_t)(KIND == UPDATE ? *even + t : *even - t);
-    }
-}
 
 // floor(a / b) for 0 <= a < 2^20 and 1 <= b < 2^20: the reciprocal and
 // the product rounded toward zero fall short of a / b by less than one,
@@ -239,41 +196,6 @@ __device__ void inv_level(int16_t* p, int planes, int plane_size, int pitch, int
 }
 
 __device__ __forceinline__ int level_dim(int d, int s) { return (d + (1 << s) - 1) >> s; }
-
-// The block's channel of one pixel after discard-non-visible and the
-// forward colour transform (ops/colorspace.py to_planar_yuv).
-__device__ __forceinline__ int colour_fwd(const uint8_t* px, int C, int ch, int color, int discard) {
-    const bool hide = discard && (C == 2 || C == 4) && px[C - 1] == 0;
-    auto val = [&](int k) -> int { return hide && k < C - 1 ? 0 : px[k]; };
-    if (C < 3 || ch >= 3 || color == COLOR_NONE) return val(ch);
-    const int r = val(0), g = val(1), b = val(2);
-    if (color == SUBTRACT_G) return ch == 0 ? g : wrap16((ch == 1 ? r : b) - g);
-    const int co = wrap16(r - b);
-    const int tmp = wrap16(b + div2(co));
-    const int cg = wrap16(g - tmp);
-    if (ch == 1) return co;
-    if (ch == 2) return cg;
-    const int y = wrap16(tmp + div2(cg));
-    return color == YCOCG_Q ? wrap16(y * 2) : y;
-}
-
-__device__ __forceinline__ uint8_t saturate(int x) { return (uint8_t)min(max(x, 0), 255); }
-
-// C's truncating x / qd for |x| <= 32768 and qd >= 1. For 1 < qd < 2^16,
-// floor(|x| / qd) is the high word of |x| * ceil(2^32 / qd): the
-// product's error stays under |x| / 2^32 < 1 / qd, so one multiply
-// replaces the division.
-struct Divider {
-    int qd;
-    unsigned m;
-    __device__ explicit Divider(int qd_)
-        : qd(qd_), m(qd_ > 1 && qd_ < 65536 ? (unsigned)(((1ull << 32) + qd_ - 1) / qd_) : 0u) {}
-    __device__ __forceinline__ int operator()(int x) const {
-        if (m == 0) return qd == 1 ? x : x / qd;
-        const int f = (int)__umulhi((unsigned)abs(x), m);
-        return x < 0 ? -f : f;
-    }
-};
 
 __global__ void __launch_bounds__(kFwdThreads)
     lift_pyramid(const PyramidArgs a, const void* __restrict__ src, int16_t* __restrict__ out) {
@@ -393,38 +315,14 @@ __global__ void __launch_bounds__(kInvThreads)
     for (Walk it(max(r1 - r0, 1), w); r1 > r0 && it.p < 1; it.next()) {
         const int r = r0 + it.r, off = r * a.pitch + it.c, idx = r * w + it.c;
         auto val = [&](int k) -> int { return cluster.map_shared_rank(p, k)[off]; };
-        uint8_t v[4];
-        int k0 = 0;
-        if (C >= 3 && a.color != COLOR_NONE) {
-            int y = val(0);
-            const int u = val(1), vv = val(2);
-            int rr, gg, bb;
-            if (a.color == SUBTRACT_G) {
-                rr = wrap16(u + y);
-                gg = y;
-                bb = wrap16(vv + y);
-            } else {
-                if (a.color == YCOCG_Q) y = wrap16(div2(y));
-                const int tmp = wrap16(y - div2(vv));
-                gg = wrap16(vv + tmp);
-                bb = wrap16(tmp - div2(u));
-                rr = wrap16(bb + u);
-            }
-            v[0] = saturate(rr);
-            v[1] = saturate(gg);
-            v[2] = saturate(bb);
-            k0 = 3;
-        }
+        uint8_t v[kMaxCluster];
+        colour_inv(val, C, a.color, v);
         if (C == 4) {
-            if (k0 == 0)
-                for (int k = 0; k < 3; ++k) v[k] = saturate(val(k));
-            v[3] = saturate(val(3));
             reinterpret_cast<uint32_t*>(out)[idx] =
                 v[0] | (v[1] << 8) | (v[2] << 16) | ((uint32_t)v[3] << 24);
         } else {
             uint8_t* o = out + (size_t)idx * C;
-            for (int k = 0; k < k0; ++k) o[k] = v[k];
-            for (int k = k0; k < C; ++k) o[k] = saturate(val(k));
+            for (int k = 0; k < C; ++k) o[k] = v[k];
         }
     }
     cluster.sync();  // the other blocks may still read this block's plane

@@ -7,12 +7,20 @@ ako_tpu/ops/pallas_lift.py, with their plain torch versions.
   order fused (forward), or the dequantize and the inverse colour
   transform fused (inverse). The fused wiring's main path
   (ops/lifting.py forward_tiles / inverse_tiles).
+- Levels too large for a pyramid block: `forward_levels` /
+  `inverse_levels`, one launch of csrc/lift_level.cu per level
+  (`lift_level` / `unlift_level`), every channel of a tile's region in
+  one CTA, with the colour transform at level 0, quantize/gate and wire
+  order fused (forward), or the dequantize and at level 0 the inverse
+  colour transform fused (inverse). The fused wiring runs them on the
+  levels before `pyramid_start`, and on every level when it is None.
 - One 2-D level per call, in the two wirings of pallas_lift.py: "fused",
-  one K1 (K2) call per level, csrc/lift2d.cu ako_lift2d / ako_unlift2d,
-  for the levels whose planes do not fit a block's shared memory; and
-  "split", three V-only K1v (K2v) calls per level with torch transposes
-  between them, wired as pallas_lift.py:167-172 and :242-247 (the H pass
-  is transpose -> V-lift -> transpose).
+  one K1 (K2) call per level, csrc/lift2d.cu ako_lift2d / ako_unlift2d
+  (`lift2d_level` / `unlift2d_level`, the per-level API that
+  lifting.forward_tile / inverse_tile take; the codec's fused route does
+  not call them); and "split", three V-only K1v (K2v) calls per level
+  with torch transposes between them, wired as pallas_lift.py:167-172
+  and :242-247 (the H pass is transpose -> V-lift -> transpose).
 
 The wiring is `mode`, read per call from AKO_TORCH_LIFT_MODE when not
 given (the counterpart of AKO_TPU_PALLAS_MODE). A CUDA tensor launches
@@ -42,6 +50,7 @@ from ako_tpu_torch.runtime import kernels
 #: kernel launches per wrapper (one per call that reaches the card)
 LAUNCHES = {
     "lift2d": 0, "unlift2d": 0, "vlift": 0, "vunlift": 0, "lift_pyramid": 0, "unlift_pyramid": 0,
+    "lift_level": 0, "unlift_level": 0,
 }
 
 #: shared memory a pyramid block may take: at most 64 KB keeps three
@@ -231,8 +240,8 @@ def pyramid_start(schedule: LiftSchedule, channels: int) -> int | None:
     SMEM_BYTES of a block's shared memory (len(schedule.levels) when only
     the LP planes fit), or None when not even those fit or the tile has
     more channels than a cluster takes. A pure function of the shape and
-    channel count: the levels before it run one lift2d_level /
-    unlift2d_level call each."""
+    channel count: the levels before it run one lift_level /
+    unlift_level launch each."""
     if channels > kernels.MAX_CLUSTER:
         return None
     total = len(schedule.levels)
@@ -432,3 +441,245 @@ def inverse_pyramid(coeffs, schedule: LiftSchedule, start: int, wavelet: Wavelet
                                torch.cuda.current_stream().cuda_stream)
     LAUNCHES["unlift_pyramid"] += 1
     return out
+
+
+# ---------------------------------------------------------------------
+# Levels too large for a pyramid block
+
+
+#: the level kernels' warps (csrc/lift_level.cu kThreads / 32), and the
+#: shared memory a CTA may take so that two fit an SM of an H100 (228 KB
+#: an SM, of which 1 KB is reserved per CTA)
+_LEVEL_WARPS = 16
+LEVEL_SMEM_BYTES = 233472 // 2 - 1024
+#: a level CTA's region, (quadrant rows, quadrant columns), largest first:
+#: 64 columns make a warp's row of int16 stores 128 bytes
+LEVEL_REGIONS = ((32, 64), (16, 64), (16, 32), (8, 32), (8, 16), (4, 16), (4, 8), (2, 8))
+#: halo pairs on each side of a region (csrc/lift_level.cu halo())
+LEVEL_HALO = {Wavelet.DD137: 3, Wavelet.CDF53: 1, Wavelet.HAAR: 0}
+
+
+def level_layout(channels: int, region: tuple, wavelet_eff: Wavelet, stage: bool) -> tuple:
+    """The shared memory of a lift_level / unlift_level CTA, (pitch, plane,
+    stage, smem): int16 per window row, the window's 2 * (rw + 2 halo)
+    samples and room for the 16-byte copies' shift of up to 6 samples, a
+    multiple of 8; int16 per channel's window of 2 * (rh + 2 halo) rows;
+    bytes per staging row of u8 pixels (the window's columns and 32 bytes
+    for the 16-byte copies' ends, a multiple of 16), two a warp for the
+    forward from u8 tiles (`stage`); and the CTA's bytes."""
+    hl = LEVEL_HALO[Wavelet(wavelet_eff)]
+    cols, rows = 2 * (region[1] + 2 * hl), 2 * (region[0] + 2 * hl)
+    pitch = -(-(cols + 6) // 8) * 8
+    row_stage = -(-(cols * channels + 32) // 16) * 16
+    smem = 2 * channels * rows * pitch + (2 * _LEVEL_WARPS * row_stage if stage else 0)
+    return pitch, rows * pitch, row_stage, smem
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def level_region(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet, tiles: int,
+                 sms: int) -> tuple:
+    """The region of a lift_level / unlift_level CTA on level k of `tiles`
+    tiles on a card of `sms` SMs: the first of LEVEL_REGIONS whose
+    CTA, staging included, fits LEVEL_SMEM_BYTES and whose grid loads the
+    SMs evenly: from half the SMs to all of them (a CTA an SM at most), or
+    at least two CTAs for every SM; else the smallest that fits (the most
+    CTAs on a small plane). A grid of one to two CTAs an SM leaves some
+    SMs two CTAs' work and the rest one, and each halving of the region
+    adds halo (a 16x64 region reads 1.5x its samples with DD 13/7, an 8x32
+    one 2.1x): on the default whole tile and an H100 SXM's 132 SMs this
+    takes 16x64 at levels 0 and 1 and 8x32 at level 2, the fastest of the
+    list there (chip_probe.py levels). A pure function of the shape and
+    the card."""
+    lvl = schedule.levels[k]
+    weff = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+    fits = [r for r in LEVEL_REGIONS if level_layout(channels, r, weff, True)[3] <= LEVEL_SMEM_BYTES]
+    if not fits or channels > kernels.MAX_LEVEL_CHANNELS:
+        raise ValueError(f"lift_level: no region fits {channels} channels")
+    for rh, rw in fits:
+        ctas = tiles * -(-lvl.target_h // rh) * -(-lvl.target_w // rw)
+        if sms // 2 <= ctas <= sms or ctas >= 2 * sms:
+            return rh, rw
+    return fits[-1]
+
+
+@functools.lru_cache(maxsize=256)
+def _level_args(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet, wrap: Wrap, qg,
+                color: Color, discard: bool, ll_stride: int, region: tuple):
+    """The kernels' LevelArgs for level k of one shape group (built once
+    per settings combination) with CTAs of `region`; q/g None for the
+    inverse, which stages no u8 rows."""
+    coeffs = schedule.coeff_count(channels)
+    if channels > kernels.MAX_LEVEL_CHANNELS or coeffs >= 1 << 31:
+        raise ValueError(f"lift_level: {channels} channels, {coeffs} coefficients exceed the "
+                         "kernel's tables")
+    lvl = schedule.levels[k]
+    a = kernels.LevelArgs()
+    a.channels, a.height, a.width = channels, lvl.current_h, lvl.current_w
+    a.rh, a.rw = region
+    a.wavelet = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+    a.wrap, a.color, a.discard, a.u8 = wrap, color, discard, k == 0
+    a.coeffs, a.off, a.ll_stride = coeffs, level_offsets(schedule, channels)[k], ll_stride
+    a.pitch, a.plane, a.stage, a.smem = level_layout(channels, region, a.wavelet,
+                                                     k == 0 and qg is not None)
+    if qg is not None:
+        qs, gs = qg[k]
+        a.q[:channels] = qs
+        a.g[:channels] = gs
+    return a
+
+
+def _check_ll(ll, shape, name: str) -> None:
+    """An LL input or output: int16 (T, C, th, tw), each tile's planes
+    contiguous (tiles may be apart, as in the streams' LP head)."""
+    c, th, tw = shape
+    if (ll.dtype != torch.int16 or tuple(ll.shape[1:]) != shape
+            or tuple(ll.stride()[1:]) != (th * tw, tw, 1) or ll.stride(0) < c * th * tw):
+        raise ValueError(f"{name}: expected int16 (T, {c}, {th}, {tw}) planes with contiguous "
+                         f"tiles, got {ll.dtype} {tuple(ll.shape)} strides {ll.stride()}")
+
+
+def lp_view(stream, schedule: LiftSchedule, channels: int):
+    """The (T, C, lp_h, lp_w) LP planes at the head of (T, coeff_count)
+    streams, as a view."""
+    return stream[:, : channels * schedule.lp_h * schedule.lp_w].view(
+        stream.shape[0], channels, schedule.lp_h, schedule.lp_w)
+
+
+def forward_levels_plain(x, stream, schedule: LiftSchedule, levels: range, wavelet: Wavelet,
+                         wrap: Wrap, qg, color: Color, discard: bool):
+    """The plain torch version of forward_levels (and of lift_level for
+    one level), on any device: to_planar_yuv, lift_levels and, when the
+    levels end at the schedule's last, store_lp."""
+    planes = to_planar_yuv(x, color, discard) if levels.start == 0 else x
+    ll = lift_levels(planes, stream, schedule, levels, wavelet, wrap, qg, wavelets.lift2d)
+    if levels.stop == len(schedule.levels):
+        store_lp(stream, ll)
+    return ll
+
+
+def inverse_levels_plain(ll, coeffs, schedule: LiftSchedule, levels: range, wavelet: Wavelet,
+                         wrap: Wrap, channels: int, color: Color):
+    """The plain torch version of inverse_levels (and of unlift_level for
+    one level), on any device: unlift_levels and, from level 0,
+    to_interleaved_u8."""
+    planes = unlift_levels(ll, coeffs, schedule, levels, wavelet, wrap, wavelets.unlift2d)
+    if levels.start == 0:
+        return to_interleaved_u8(planes, color, channels).contiguous()
+    return planes
+
+
+def lift_level(x, stream, schedule: LiftSchedule, k: int, wavelet: Wavelet, wrap: Wrap, qg,
+               color: Color, discard: bool):
+    """Level k of every tile into `stream`, the (T, coeff_count) int16
+    streams: its q head and C, B, D quantized and gated by `qg` at their
+    wire offsets; returns the level's (T, C, th, tw) LL, at the
+    schedule's last level a view of the streams' LP head, where it is
+    stored. x is the (T, tile_h, tile_w, C) u8 tiles when k is 0 (colour
+    transform `color` and discard-non-visible applied to them), else the
+    contiguous (T, C, h, w) int16 LL of level k - 1. One lift_level
+    launch, its CTAs' region level_region's."""
+    last = k == len(schedule.levels) - 1
+    if not _on_card(x, "lift_level"):
+        return forward_levels_plain(x, stream, schedule, range(k, k + 1), wavelet, wrap, qg,
+                                    color, discard)
+    lvl = schedule.levels[k]
+    channels = x.shape[-1] if k == 0 else x.shape[1]
+    h, w = lvl.current_h, lvl.current_w
+    shape, dtype = ((h, w, channels), torch.uint8) if k == 0 else ((channels, h, w), torch.int16)
+    if x.dtype != dtype or tuple(x.shape[1:]) != shape or not x.is_contiguous():
+        raise ValueError(f"lift_level: expected contiguous {dtype} (T, {shape}), got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    n = x.shape[0]
+    _check_stream(stream, n, schedule, channels, "lift_level")
+    if stream.device != x.device:
+        raise ValueError("lift_level: the stream is not on the tiles' device")
+    if last:
+        ll = lp_view(stream, schedule, channels)
+    else:
+        ll = x.new_empty((n, channels, lvl.target_h, lvl.target_w), dtype=torch.int16)
+    args = _level_args(schedule, k, channels, wavelet, wrap, tuple(qg), color, discard,
+                       ll.stride(0),
+                       level_region(schedule, k, channels, wavelet, n, sm_count(x.device)))
+    with torch.cuda.device(x.device):
+        kernels.lift_level(args, x.data_ptr(), stream.data_ptr(), ll.data_ptr(), n,
+                           torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["lift_level"] += 1
+    return ll
+
+
+def unlift_level(ll, coeffs, schedule: LiftSchedule, k: int, wavelet: Wavelet, wrap: Wrap,
+                 channels: int, color: Color):
+    """Inverse of lift_level: the (T, C, th, tw) int16 LL of level k (each
+    tile's planes contiguous, e.g. lp_view of the streams) and its C, B, D
+    from the (T, coeff_count) streams, dequantized by their q heads ->
+    the (T, C, h, w) int16 plane of level k, or at level 0 the (T, tile_h,
+    tile_w, C) u8 tiles (inverse colour transform `color`, saturated).
+    One unlift_level launch."""
+    if not _on_card(coeffs, "unlift_level"):
+        return inverse_levels_plain(ll, coeffs, schedule, range(k, k + 1), wavelet, wrap,
+                                    channels, color)
+    lvl = schedule.levels[k]
+    n = coeffs.shape[0]
+    _check_stream(coeffs, n, schedule, channels, "unlift_level")
+    _check_ll(ll, (channels, lvl.target_h, lvl.target_w), "unlift_level")
+    if ll.device != coeffs.device or ll.shape[0] != n:
+        raise ValueError("unlift_level: ll does not match the streams")
+    h, w = lvl.current_h, lvl.current_w
+    if k == 0:
+        out = torch.empty((n, h, w, channels), dtype=torch.uint8, device=coeffs.device)
+    else:
+        out = torch.empty((n, channels, h, w), dtype=torch.int16, device=coeffs.device)
+    args = _level_args(schedule, k, channels, wavelet, wrap, None, color, False, ll.stride(0),
+                       level_region(schedule, k, channels, wavelet, n, sm_count(coeffs.device)))
+    with torch.cuda.device(coeffs.device):
+        kernels.unlift_level(args, ll.data_ptr(), coeffs.data_ptr(), out.data_ptr(), n,
+                             torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["unlift_level"] += 1
+    return out
+
+
+def _check_levels(schedule: LiftSchedule, levels: range, name: str) -> None:
+    if not len(levels) or levels.step != 1 or levels.start < 0 or levels.stop > len(schedule.levels):
+        raise ValueError(f"{name}: levels {levels} are not a run of the schedule's "
+                         f"{len(schedule.levels)}")
+
+
+def forward_levels(x, stream, schedule: LiftSchedule, levels: range, wavelet: Wavelet, wrap: Wrap,
+                   qg, color: Color, discard: bool):
+    """Lift `levels` (a run of the schedule's, encode order) of every tile
+    into `stream`, each level's q head and quantized, gated C, B, D at
+    their wire offsets, and return the last level's (T, C, th, tw) LL;
+    when the levels end at the schedule's last, that LL is the LP planes
+    and is stored at the head of the stream too. x is as lift_level's for
+    the first level. On the card one lift_level launch per level; the
+    plain version is to_planar_yuv + lift_levels (+ store_lp)."""
+    _check_levels(schedule, levels, "forward_levels")
+    if not _on_card(x, "forward_levels"):
+        return forward_levels_plain(x, stream, schedule, levels, wavelet, wrap, qg, color, discard)
+    for k in levels:
+        x = lift_level(x, stream, schedule, k, wavelet, wrap, qg, color, discard)
+    return x
+
+
+def inverse_levels(ll, coeffs, schedule: LiftSchedule, levels: range, wavelet: Wavelet,
+                   wrap: Wrap, channels: int, color: Color):
+    """Inverse of forward_levels: from the (T, C, th, tw) LL below the last
+    of `levels` (each tile's planes contiguous, e.g. lp_view of the
+    streams), each level largest index first, its C, B, D dequantized
+    from the (T, coeff_count) streams by their q heads. Returns the
+    (T, C, h, w) int16 planes of the first level, or the (T, tile_h,
+    tile_w, C) u8 tiles when that is level 0. On the card one
+    unlift_level launch per level; the plain version is unlift_levels (+
+    to_interleaved_u8)."""
+    _check_levels(schedule, levels, "inverse_levels")
+    if not _on_card(coeffs, "inverse_levels"):
+        return inverse_levels_plain(ll, coeffs, schedule, levels, wavelet, wrap, channels, color)
+    for k in reversed(levels):
+        ll = unlift_level(ll, coeffs, schedule, k, wavelet, wrap, channels, color)
+    return ll

@@ -6,14 +6,17 @@ The reference's per-tile / per-level / per-channel scalar recursion
 - `forward_tiles` / `inverse_tiles`, the codec's route from u8 tiles to
   the serialized coefficient streams and back. In the fused wiring
   (AKO_TORCH_LIFT_MODE, default) every level from `pyramid_start` on is
-  one lift_pyramid / unlift_pyramid launch with the colour transform,
-  quantize/gate and wire order fused (ops/lift_kernels.py); the levels
-  before it (planes too large for a block's shared memory) run one
-  kernel call each. In the split wiring every level runs through the
-  V-only kernels.
+  one lift_pyramid / unlift_pyramid launch, and each level before it
+  (planes too large for a pyramid block; every level when pyramid_start
+  is None) one lift_level / unlift_level launch; the colour transform,
+  quantize/gate, wire order and the dequantize are fused into whichever
+  kernel takes level 0 and each level (ops/lift_kernels.py), so no torch
+  op runs between the staged tiles and the streams, nor between the
+  streams and the pixels. In the split wiring every level runs through
+  the V-only kernels.
 - `forward_tile` / `inverse_tile`, every level per level, on planes
-  after the colour transform: the split wiring's route, and the
-  counterpart of ako_tpu/ops/lifting.py.
+  after the colour transform: the split wiring's route (and a tile with
+  no lift level), and the counterpart of ako_tpu/ops/lifting.py.
 
 Quantization + noise gate apply to the highpass quadrants
 (library/lifting.c:154-168), and the stream is in exact wire order
@@ -32,12 +35,15 @@ from ako_tpu_torch.core.geometry import LiftSchedule
 from ako_tpu_torch.core.settings import Color, Wavelet, Wrap
 from ako_tpu_torch.ops.colorspace import to_interleaved_u8, to_planar_yuv
 from ako_tpu_torch.ops.lift_kernels import (
+    forward_levels,
     forward_pyramid,
+    inverse_levels,
     inverse_pyramid,
     lift2d_level,
     lift_levels,
     lift_mode,
     load_lp,
+    lp_view,
     pyramid_start,
     store_lp,
     unlift2d_level,
@@ -79,23 +85,24 @@ def forward_tiles(tiles_u8, schedule: LiftSchedule, wavelet: Wavelet, wrap: Wrap
                   color: Color, discard: bool):
     """(T, tile_h, tile_w, C) u8 tiles -> (T, coeff_count) int16 streams:
     colour transform, lift, quantize/gate. In the fused wiring, levels
-    [0, pyramid_start) run per level after a torch colour transform and
-    the rest in one forward_pyramid launch (every level per level when
-    pyramid_start is None, and in the split wiring)."""
+    [0, pyramid_start) run one forward_levels launch each, from the u8
+    tiles, and the rest one forward_pyramid launch (every level through
+    forward_levels when pyramid_start is None). In the split wiring, and
+    for a tile with no level, a torch colour transform and forward_tile."""
     channels = tiles_u8.shape[-1]
-    start = pyramid_start(schedule, channels) if lift_mode() == "fused" else None
-    if start != 0:
+    levels = len(schedule.levels)
+    if lift_mode() == "split" or not levels:
         planes = to_planar_yuv(tiles_u8, color, discard).contiguous()
-        if start is None:
-            return forward_tile(planes, schedule, wavelet, wrap, qg)
+        return forward_tile(planes, schedule, wavelet, wrap, qg)
+    start = pyramid_start(schedule, channels)
     stream = torch.empty((tiles_u8.shape[0], schedule.coeff_count(channels)),
                          dtype=torch.int16, device=tiles_u8.device)
-    if start == 0:
-        forward_pyramid(tiles_u8.contiguous(), stream, schedule, 0, wavelet, wrap, qg, color,
-                        discard)
-    else:
-        ll = lift_levels(planes, stream, schedule, range(start), wavelet, wrap, qg, lift2d_level)
-        forward_pyramid(ll, stream, schedule, start, wavelet, wrap, qg, color, discard)
+    x = tiles_u8.contiguous()
+    if start != 0:
+        x = forward_levels(x, stream, schedule, range(levels if start is None else start),
+                           wavelet, wrap, qg, color, discard)
+    if start is not None:
+        forward_pyramid(x, stream, schedule, start, wavelet, wrap, qg, color, discard)
     return stream
 
 
@@ -103,15 +110,22 @@ def inverse_tiles(coeffs, schedule: LiftSchedule, wavelet: Wavelet, wrap: Wrap, 
                   color: Color):
     """(T, coeff_count) int16 streams -> (T, tile_h, tile_w, C) u8 tiles:
     dequantize, unlift, inverse colour transform. In the fused wiring,
-    the levels from pyramid_start are one inverse_pyramid launch, the
-    levels before it run per level and the colour transform in torch."""
-    start = pyramid_start(schedule, channels) if lift_mode() == "fused" else None
+    the levels from pyramid_start are one inverse_pyramid launch and the
+    levels before it one inverse_levels launch each, the last with the
+    inverse colour transform (every level through inverse_levels, from
+    the streams' LP head, when pyramid_start is None). In the split
+    wiring, and for a tile with no level, inverse_tile and a torch
+    colour transform."""
+    levels = len(schedule.levels)
     coeffs = coeffs.contiguous()
-    if start is None:
+    if lift_mode() == "split" or not levels:
         planes = inverse_tile(coeffs, schedule, wavelet, wrap, channels)
+        return to_interleaved_u8(planes, color, channels).contiguous()
+    start = pyramid_start(schedule, channels)
+    if start == 0:
+        return inverse_pyramid(coeffs, schedule, 0, wavelet, wrap, channels, color)
+    if start is None:
+        ll, start = lp_view(coeffs, schedule, channels), levels
     else:
-        out = inverse_pyramid(coeffs, schedule, start, wavelet, wrap, channels, color)
-        if start == 0:
-            return out
-        planes = unlift_levels(out, coeffs, schedule, range(start), wavelet, wrap, unlift2d_level)
-    return to_interleaved_u8(planes, color, channels).contiguous()
+        ll = inverse_pyramid(coeffs, schedule, start, wavelet, wrap, channels, color)
+    return inverse_levels(ll, coeffs, schedule, range(start), wavelet, wrap, channels, color)

@@ -1,14 +1,17 @@
 """Build-and-load for the port's Hopper kernels: the per-level lift
-kernels (csrc/lift2d.cu), the whole-pyramid lift kernels
-(csrc/lift_pyramid.cu), the Kagari tokenize + pack (csrc/kagari_encode.cu)
-and the Kagari block decoder (csrc/kagari_decode.cu).
+kernels of the per-level API and the split wiring (csrc/lift2d.cu), the
+whole-pyramid lift kernels (csrc/lift_pyramid.cu), the one-launch level
+kernels for planes too large for a pyramid block (csrc/lift_level.cu), the
+Kagari tokenize + pack (csrc/kagari_encode.cu) and the Kagari block
+decoder (csrc/kagari_decode.cu).
 
 At first use one `nvcc -c` per source, all started together, then one
 link build a shared library with a plain C interface in this package's
 `_build/` directory, cached by the mtime of the sources and the header
 they share; ctypes binds it. Device pointers and the CUDA stream are
-passed as integers (c_void_p), the pyramid kernels' table as a pointer
-to a PyramidArgs that the C side passes to the kernel by value. Nothing
+passed as integers (c_void_p), the pyramid and level kernels' tables as
+a pointer to a PyramidArgs or LevelArgs that the C side passes to the
+kernel by value. Nothing
 here runs at import: the CPU tests import this module on machines with
 no nvcc and no card.
 """
@@ -26,7 +29,8 @@ from ako_tpu_torch.runtime.build import BUILD_DIR
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [
     os.path.join(_PKG, "csrc", f)
-    for f in ("lift2d.cu", "lift_pyramid.cu", "kagari_encode.cu", "kagari_decode.cu")
+    for f in ("lift2d.cu", "lift_pyramid.cu", "lift_level.cu", "kagari_encode.cu",
+              "kagari_decode.cu")
 ]
 #: what the library is rebuilt after: the sources and the header they include
 DEPENDS = [*SOURCES, os.path.join(_PKG, "csrc", "lift_common.cuh")]
@@ -41,6 +45,8 @@ NVCC_FLAGS = [
 MAX_LEVELS = 16
 MAX_CHANNELS = 16
 MAX_CLUSTER = 8
+#: channels of csrc/lift_level.cu's table
+MAX_LEVEL_CHANNELS = 16
 
 
 class PyramidArgs(ctypes.Structure):
@@ -55,6 +61,20 @@ class PyramidArgs(ctypes.Structure):
         ("off", ctypes.c_int * MAX_LEVELS),
         ("q", (ctypes.c_int * MAX_CHANNELS) * MAX_LEVELS),
         ("g", (ctypes.c_int * MAX_CHANNELS) * MAX_LEVELS),
+    ]
+
+
+class LevelArgs(ctypes.Structure):
+    """csrc/lift_level.cu LevelArgs, field for field (all int)."""
+
+    _fields_ = [
+        *((name, ctypes.c_int) for name in (
+            "channels", "height", "width", "rh", "rw", "wavelet", "wrap", "color", "discard",
+            "u8", "coeffs", "off", "ll_stride",
+        )),
+        ("q", ctypes.c_int * MAX_LEVEL_CHANNELS),
+        ("g", ctypes.c_int * MAX_LEVEL_CHANNELS),
+        *((name, ctypes.c_int) for name in ("pitch", "plane", "stage", "smem")),
     ]
 
 
@@ -78,6 +98,8 @@ _SIGNATURES = {
     "ako_kagari_decode": [_P, _LL] + [_P] * 6 + [_I, _I, _I, _I, _P],
     "ako_lift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
     "ako_unlift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
+    "ako_lift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
+    "ako_unlift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
 }
 
 
@@ -193,3 +215,16 @@ def unlift_pyramid(args, coeffs, dst, tiles, stream) -> None:
     """Launch the inverse pyramid (one block per tile) on `stream`."""
     _check(load().ako_unlift_pyramid(ctypes.byref(args), coeffs, dst, tiles, stream),
            "ako_unlift_pyramid")
+
+
+def lift_level(args, src, out, ll, tiles, stream) -> None:
+    """Launch one forward level (one CTA per tile and region) on `stream`;
+    `args` is a LevelArgs, the rest device pointers and the tile count,
+    already checked by the caller."""
+    _check(load().ako_lift_level(ctypes.byref(args), src, out, ll, tiles, stream), "ako_lift_level")
+
+
+def unlift_level(args, ll, coeffs, dst, tiles, stream) -> None:
+    """Launch one inverse level on `stream` (see lift_level)."""
+    _check(load().ako_unlift_level(ctypes.byref(args), ll, coeffs, dst, tiles, stream),
+           "ako_unlift_level")

@@ -4,13 +4,19 @@ comparison with another checkout, and where kernel K4's time goes.
 
     python3 chip_probe.py compare OTHER   # OTHER: the root of another checkout
     python3 chip_probe.py k4 [OTHER]
+    python3 chip_probe.py levels [OTHER]
 
 compare: the device-entropy north star (128-px tiles, fused wiring) in
 turns OTHER, this, this, OTHER, each in its own process: encode and
 decode medians (two of 7 runs each), one profiled encode and decode
 (wall, host enqueue, device busy ms, device ms per kernel), their event
-stages on the host clock, and K4 alone (CUDA events). OTHER is unpacked
-with `git archive` into a directory that git ignores (build/).
+stages on the host clock, and K4 alone (CUDA events); then the same for
+the default whole-image tile, its encode.forward_streams and
+decode.stream_pixels calls (host enqueue and device span medians, one
+profiled call's device busy ms, device kernels and top-level torch ops),
+and its decode's device events one by one (start and ms).
+OTHER is unpacked with `git archive` into a directory that git ignores
+(build/).
 
 k4: variants of csrc/kagari_decode.cu, made by editing its source and
 built with nvcc side by side, timed on the north star's decode inputs
@@ -23,7 +29,24 @@ at 128-px tiles, q=16 and lossless (device ms: the profiler's median of
   one_cta    the first CTA alone: one CTA's chain of 128 steps
   other      OTHER's kagari_decode.cu as it is, when OTHER is given
 Each variant that computes the function is checked against the plain
-version. Every line carries the card's name and power limit.
+version.
+
+levels: variants of csrc/lift_level.cu with 512, 256 and 128 threads a
+CTA (kThreads edited in the source), and OTHER's lift_level.cu as it is
+when OTHER is given (its LevelArgs a leading part of this one's), built
+with nvcc side by side, on the default whole tile's levels before its
+pyramid start (the north star, 1024x1280 RGBA, q=16): for each variant,
+level and region of ops/lift_kernels.py LEVEL_REGIONS whose CTA the
+kernel takes, the CTAs, lift_level's and unlift_level's device ms (the
+profiler's median of 20 launches), each checked against the plain
+version; and K1/K2 (lift2d.cu) on the same levels for comparison. Then
+the route the level kernels replaced (the torch colour transform and
+quantize ops around K1, the dequantize and colour ops around K2) against
+forward_levels / inverse_levels, on the whole tile's levels 0-2, the
+north star's 256-px tiles' level 0 and 80 random 9-channel 128-px tiles
+(every level): device busy ms of one profiled call and its device
+kernels, each route checked against the other. Every line carries the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -68,6 +91,43 @@ for direction, fn in calls.items():
                       "stages": cs._stage_ms(fn)}
 parts, n, _ = cs.entropy_inputs(blob, dev)[0]
 out["k4_event_ms"] = round(cs._event_ms(lambda: kd.kagari_decode_device(*parts, n)), 4)
+
+from ako_tpu_torch.decode import stream_pixels
+from ako_tpu_torch.encode import checked_settings, forward_streams
+
+sw = P.Settings()
+bw = P.encode(img, sw, device=dev, device_entropy=True)
+whole = {"encode_ms": round(cs._median_ms(lambda: P.encode(img, sw, device=dev, device_entropy=True)), 3),
+         "decode_ms": round(cs._median_ms(lambda: P.decode(bw, device=dev, device_entropy=True)), 3)}
+for direction, fn in (("encode", lambda: P.encode(img, sw, device=dev, device_entropy=True)),
+                      ("decode", lambda: P.decode(bw, device=dev, device_entropy=True))):
+    r = cs._profile_window(fn)
+    whole[direction] = {"wall": round(r["wall"], 3), "enqueue": round(r["enqueue"], 3),
+                        "busy": round(r["busy"], 4), "kernels": r["kernels"], "ops": r["ops"],
+                        "per": {k: round(v, 4) for k, v in r["per"].items()}}
+h, w, ch = img.shape
+cw = checked_settings(sw)
+tiles = torch.from_numpy(img[None].copy()).to(dev)
+streams = forward_streams(tiles, w, h, ch, cw)
+for name, fn in (("forward_streams", lambda: forward_streams(tiles, w, h, ch, cw)),
+                 ("stream_pixels", lambda: stream_pixels(streams, w, h, ch, cw))):
+    r = cs._profile_window(fn)
+    whole[name] = {"enqueue": round(cs._enqueue_ms(fn), 3), "span": round(cs._span_ms(fn), 4),
+                   "busy": round(r["busy"], 4), "kernels": r["kernels"], "ops": r["ops"],
+                   "per": {k: round(v, 4) for k, v in r["per"].items()}}
+# the whole tile's decode, event by event: (device event, ms from the
+# first device event to its start, its ms)
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    P.decode(bw, device=dev, device_entropy=True)
+    torch.cuda.synchronize()
+events = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+whole["decode_events"] = [(name[:48], round((a - events[0][0]) / 1e3, 4), round((b - a) / 1e3, 4))
+                          for a, b, name in events]
+out["default_whole"] = whole
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
@@ -177,10 +237,203 @@ def k4(other, card: str) -> None:
             print(f"k4 {setting} {name}: (profiler ms, event ms) {times} [{card}]", flush=True)
 
 
+LEVEL_THREADS = (512, 256, 128)
+
+
+def _level_sources(other):
+    """{variant: ctypes library}: csrc/lift_level.cu with kThreads edited
+    ("t512", "t256", "t128"), and OTHER's as it is ("other")."""
+    from ako_tpu_torch.runtime import kernels
+
+    csrc = os.path.join(ROOT, "ako_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "lift_level.cu")).read()
+    old = "constexpr int kThreads = 512;"
+    if old not in src:
+        raise RuntimeError(f"levels: the source has no {old!r}")
+    variants = {f"t{t}": (src.replace(old, f"constexpr int kThreads = {t};"), csrc)
+                for t in LEVEL_THREADS}
+    if other:
+        ocsrc = os.path.join(other, "ako_tpu_torch", "csrc")
+        variants["other"] = (open(os.path.join(ocsrc, "lift_level.cu")).read(), ocsrc)
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for name, (text, inc) in variants.items():
+        cu, so = os.path.join(OUT, f"level_{name}.cu"), os.path.join(OUT, f"level_{name}.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = (subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", inc, "-shared", "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the level variant {name}:\n{log}")
+        lib = ctypes.CDLL(so)
+        for fn_name in ("ako_lift_level", "ako_unlift_level"):
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = kernels._SIGNATURES[fn_name]
+        regs = [x.split("info    :")[-1].strip() for x in log.splitlines() if "registers" in x]
+        print(f"levels {name}: {regs}", flush=True)
+        libs[name] = lib
+    return libs
+
+
+def levels(other, card: str) -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import checked_settings, tile_qg
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops import wavelets
+    from ako_tpu_torch.utils.corpus import corpus
+
+    import ako_tpu_torch as P
+
+    libs = _level_sources(other)
+    dev = torch.device("cuda:0")
+    img = corpus(42, 1, 1280, 1024, 4)[0]
+    h, w, ch = img.shape
+    s = checked_settings(P.Settings(quantization=16))
+    schedule = geometry.lift_schedule(w, h)
+    start = lk.pyramid_start(schedule, ch)
+    qg = tuple(tile_qg(w, h, ch, s.quantization, s.gate, s.chroma_loss))
+    fwd = (s.wavelet, s.wrap, qg, s.color, bool(s.discard_non_visible))
+    inv = (s.wavelet, s.wrap, ch, s.color)
+    x = torch.from_numpy(np.ascontiguousarray(img[None])).to(dev)
+    ref_stream = torch.zeros((1, schedule.coeff_count(ch)), dtype=torch.int16, device=dev)
+    xs = [x]
+    for k in range(start):
+        xs.append(lk.forward_levels_plain(xs[-1], ref_stream, schedule, range(k, k + 1), *fwd))
+    cur = torch.cuda.current_stream().cuda_stream
+    for k in range(start):
+        lvl = schedule.levels[k]
+        weff = wavelets.effective_wavelet(s.wavelet, lvl.target_w, lvl.target_h)
+        planes = lk.to_planar_yuv(x, s.color, fwd[4]).contiguous() if k == 0 else xs[k]
+        k1 = cs._launch_ms(lambda: lk.lift2d_level(weff, s.wrap, planes, lvl, "fused"), "lift_h") + \
+            cs._launch_ms(lambda: lk.lift2d_level(weff, s.wrap, planes, lvl, "fused"), "lift_v")
+        quads = lk.wavelets.lift2d(weff, s.wrap, planes, lvl)
+        k2 = cs._launch_ms(lambda: lk.unlift2d_level(weff, s.wrap, *quads, lvl, "fused"), "unlift_v") + \
+            cs._launch_ms(lambda: lk.unlift2d_level(weff, s.wrap, *quads, lvl, "fused"), "unlift_h")
+        print(f"levels level {k} {lvl.current_h}x{lvl.current_w}x{ch}: K1 {k1:.4f} ms, K2 {k2:.4f} ms "
+              f"(lift2d.cu, profiler) [{card}]", flush=True)
+        ref_out = lk.inverse_levels_plain(xs[k + 1], ref_stream, schedule, range(k, k + 1), *inv)
+        for variant, lib in libs.items():
+            for region in lk.LEVEL_REGIONS:
+                stream = torch.zeros_like(ref_stream)
+                ll = torch.empty_like(xs[k + 1])
+                out = torch.empty_like(ref_out)
+                fa = lk._level_args(schedule, k, ch, s.wavelet, s.wrap, qg, s.color, fwd[4],
+                                    ll.stride(0), region)
+                ia = lk._level_args(schedule, k, ch, s.wavelet, s.wrap, None, s.color, False,
+                                    ll.stride(0), region)
+
+                def lift():
+                    rc = lib.ako_lift_level(ctypes.byref(fa), xs[k].data_ptr(), stream.data_ptr(),
+                                            ll.data_ptr(), 1, cur)
+                    if rc:
+                        raise RuntimeError(f"lift_level: cudaError {rc}")
+
+                def unlift():
+                    rc = lib.ako_unlift_level(ctypes.byref(ia), xs[k + 1].data_ptr(),
+                                              ref_stream.data_ptr(), out.data_ptr(), 1, cur)
+                    if rc:
+                        raise RuntimeError(f"unlift_level: cudaError {rc}")
+
+                try:
+                    lift()
+                    unlift()
+                except RuntimeError as e:
+                    print(f"levels {variant} level {k} region {region}: not taken ({e})", flush=True)
+                    continue
+                torch.cuda.synchronize()
+                chunk = slice(lk.level_offsets(schedule, ch)[k],
+                              lk.level_offsets(schedule, ch)[k] + ch * (1 + 3 * lvl.target_h * lvl.target_w))
+                if not (torch.equal(ll, xs[k + 1]) and torch.equal(stream[:, chunk], ref_stream[:, chunk])
+                        and torch.equal(out, ref_out)):
+                    raise AssertionError(f"levels {variant} level {k} region {region} != plain")
+                ctas = -(-lvl.target_h // region[0]) * -(-lvl.target_w // region[1])
+                print(f"levels {variant} level {k} region {region}: {ctas} CTAs, lift_level "
+                      f"{cs._launch_ms(lift, 'lift_level'):.4f} ms, unlift_level "
+                      f"{cs._launch_ms(unlift, 'unlift_level'):.4f} ms [{card}]", flush=True)
+    level_routes(dev, img, s, card)
+
+
+def level_routes(dev, img, s, card) -> None:
+    """The route the level kernels replaced against forward_levels /
+    inverse_levels (see the module's doc) on three groups."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import tile_qg
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops.colorspace import to_interleaved_u8, to_planar_yuv
+
+    h, w, _ = img.shape
+    rng = np.random.default_rng(9)
+    groups = [
+        ("whole tile levels 0-2", img[None], range(3)),
+        ("256-px tiles level 0", np.stack([img[y : y + 256, x : x + 256]
+                                           for y in range(0, h, 256) for x in range(0, w, 256)]),
+         range(1)),
+        ("9-channel 128-px tiles", rng.integers(0, 256, size=(80, 128, 128, 9), dtype=np.uint8),
+         None),
+    ]
+    for name, tiles, levels in groups:
+        n, th, tw, ch = tiles.shape
+        schedule = geometry.lift_schedule(tw, th)
+        levels = levels or range(len(schedule.levels))
+        last = levels.stop == len(schedule.levels)
+        qg = tuple(tile_qg(tw, th, ch, s.quantization, s.gate, s.chroma_loss))
+        x = torch.from_numpy(np.ascontiguousarray(tiles)).to(dev)
+        old_s, new_s = (torch.zeros((n, schedule.coeff_count(ch)), dtype=torch.int16, device=dev)
+                        for _ in range(2))
+        discard = bool(s.discard_non_visible)
+
+        def old_fwd():
+            planes = to_planar_yuv(x, s.color, discard).contiguous()
+            ll = lk.lift_levels(planes, old_s, schedule, levels, s.wavelet, s.wrap, qg,
+                                lk.lift2d_level)
+            if last:
+                lk.store_lp(old_s, ll)
+            return ll
+
+        def new_fwd():
+            return lk.forward_levels(x, new_s, schedule, levels, s.wavelet, s.wrap, qg, s.color,
+                                     discard)
+
+        top = old_fwd().contiguous()
+        if not (torch.equal(new_fwd(), top) and torch.equal(old_s, new_s)):
+            raise AssertionError(f"routes: forward_levels != the K1 route on {name}")
+
+        def old_inv():
+            planes = lk.unlift_levels(top, old_s, schedule, levels, s.wavelet, s.wrap,
+                                      lk.unlift2d_level)
+            return to_interleaved_u8(planes, s.color, ch).contiguous()
+
+        def new_inv():
+            return lk.inverse_levels(top, new_s, schedule, levels, s.wavelet, s.wrap, ch, s.color)
+
+        if not torch.equal(old_inv(), new_inv()):
+            raise AssertionError(f"routes: inverse_levels != the K2 route on {name}")
+        for label, fn in (("K1 route", old_fwd), ("forward_levels", new_fwd),
+                          ("K2 route", old_inv), ("inverse_levels", new_inv)):
+            r = cs._profile_window(fn)
+            print(f"routes {name} ({n} tiles {tw}x{th}x{ch}, levels {levels.start}-"
+                  f"{levels.stop - 1}): {label} device busy {r['busy']:.4f} ms, "
+                  f"{r['kernels']} device kernels [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in ("compare", "k4"):
+    if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in (
+            "compare", "k4", "levels"):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -194,6 +447,8 @@ def main() -> int:
             print(__doc__, file=sys.stderr)
             return 2
         compare(other, card)
+    elif sys.argv[1] == "levels":
+        levels(other, card)
     else:
         k4(other, card)
     return 0

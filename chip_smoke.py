@@ -9,8 +9,9 @@ Phases, each raising on failure (so the run exits non-zero and prints
 no result line):
   1. device   - a CUDA card is present; print its name and power limit
   2. build    - one nvcc per source (csrc/lift2d.cu, lift_pyramid.cu,
-                kagari_encode.cu, kagari_decode.cu), all started
-                together, then a link; cc builds the port's csrc/akort.c
+                lift_level.cu, kagari_encode.cu, kagari_decode.cu), all
+                started together, then a link; cc builds the port's
+                csrc/akort.c
   3. kernels  - every kernel equals its plain torch version bit for bit
                 on the card: K1/K2 and K1v/K2v on every wavelet x wrap
                 at the north star's 128-px level planes (and transposed
@@ -22,6 +23,14 @@ no result line):
                 and the whole tile's route from its start level, the
                 inverse on random streams whose q heads are
                 0, 1 and above 1 and whose dequantize wraps;
+                lift_level / unlift_level on every wavelet x wrap at the
+                whole tile's levels 0-2, 256-px tiles' level 0, odd
+                sides, a 3x100000 tile (every level and the LP head),
+                1, 2, 3, 4 and 9 channels, every colour and discard,
+                small planes (a last region narrower than its halo,
+                REPEAT's window wider than the line), rows loaded by
+                cp.async and one sample at a time, the inverse on
+                streams whose q heads wrap;
                 K3 (bytes and totals) on the north star's 80 streams, the
                 whole-image tile's 5.2 M-value stream, lossless q=0
                 streams, edge streams (runs, forced flushes and -32768
@@ -45,16 +54,19 @@ no result line):
                 kernel of three launches) beside its plain version's
                 torch ops; and
                 over the default whole tile's device-entropy encode and
-                decode, the only place the fused wiring still runs K1/K2
+                decode, where the fused wiring runs lift_level /
+                unlift_level on levels 0-2
   7. timings  - encode/decode ms and MP/s, per-stage host times,
                 per-level kernel time against the plain torch version
-                (K1/K2 on the whole tile's levels before pyramid_start,
-                K1v/K2v on the north star's), and the pyramid kernels'
-                device ms per start level and per tile count
+                (lift_level / unlift_level and K1/K2 on the whole tile's
+                levels before pyramid_start, K1v/K2v on the north
+                star's), and the pyramid kernels' device ms per start
+                level and per tile count
   8. streams  - device ms and host enqueue ms of encode.forward_streams
                 and decode.stream_pixels on the north star's 128-px tile
-                group: kernel launches, torch ops, copies and host waits
-                for the device, from torch.profiler
+                group and on the default whole tile: kernel launches,
+                device kernels, torch ops, copies and host waits for the
+                device, from torch.profiler
 
 The second-to-last stdout line is the card's name and power limit from
 nvidia-smi, before it a JSON line with each kernel's launches, error,
@@ -107,19 +119,24 @@ REPLACES = {
     "kagari_encode": "ako_tpu/ops/kagari_device.py:665",
     "lift_pyramid": "ako_tpu/ops/pallas_lift.py:90",
     "unlift_pyramid": "ako_tpu/ops/pallas_lift.py:184",
+    "lift_level": "ako_tpu/ops/pallas_lift.py:90",
+    "unlift_level": "ako_tpu/ops/pallas_lift.py:184",
 }
 SOURCES = {k: "ako_tpu_torch/csrc/lift2d.cu" for k in REPLACES}
 SOURCES["kagari_decode"] = "ako_tpu_torch/csrc/kagari_decode.cu"
 SOURCES["kagari_encode"] = "ako_tpu_torch/csrc/kagari_encode.cu"
 SOURCES["lift_pyramid"] = SOURCES["unlift_pyramid"] = "ako_tpu_torch/csrc/lift_pyramid.cu"
+SOURCES["lift_level"] = SOURCES["unlift_level"] = "ako_tpu_torch/csrc/lift_level.cu"
 #: the (path, setting) whose profiled run gives each kernel's JSON row:
 #: the fused device-entropy north star at 128-px tiles, but K1v/K2v run
-#: only in the split wiring, and K1/K2 only on the levels of the default
-#: whole tile before pyramid_start
+#: only in the split wiring, and lift_level / unlift_level only on the
+#: levels of the default whole tile before pyramid_start. K1/K2 run on no
+#: path of the codec: their rows are timed by kernel_times alone on the
+#: whole tile's levels 0-2, and their launches are 0.
 ROW_RUN = {k: ("device_fused", "north_t128") for k in REPLACES}
 ROW_RUN.update(vlift=("device_split", "north_t128"), vunlift=("device_split", "north_t128"),
-               lift2d=("device_fused", "default_whole"),
-               unlift2d=("device_fused", "default_whole"))
+               **{k: ("device_fused", "default_whole")
+                  for k in ("lift2d", "unlift2d", "lift_level", "unlift_level")})
 #: profiler kernel names -> kernel of the JSON line
 DEVICE_KERNELS = {
     "lift_h": "lift2d", "lift_v": "lift2d", "unlift_v": "unlift2d", "unlift_h": "unlift2d",
@@ -127,6 +144,7 @@ DEVICE_KERNELS = {
     "kagari_encode_runs": "kagari_encode", "kagari_encode_bits": "kagari_encode",
     "kagari_encode_pack": "kagari_encode",
     "lift_pyramid": "lift_pyramid", "unlift_pyramid": "unlift_pyramid",
+    "lift_level": "lift_level", "unlift_level": "unlift_level",
 }
 #: a kernel's name in a profiler event, demangled ("ns::lift_h<0>(...)")
 #: or mangled ("...6lift_hILi0E...")
@@ -183,13 +201,15 @@ def phase_build():
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", kernels.build_log))
     stack = max((int(b) for b in re.findall(r"(\d+) bytes stack frame", kernels.build_log)),
                 default=0)
-    log(f"build: nvcc lift2d.cu, lift_pyramid.cu, kagari_encode.cu, kagari_decode.cu "
+    log(f"build: nvcc lift2d.cu, lift_pyramid.cu, lift_level.cu, kagari_encode.cu, "
+        f"kagari_decode.cu "
         f"{t_cuda:.2f} s, cc csrc/akort.c "
         f"{t_akort:.2f} s; ptxas max registers {max(regs, default=0)}, spill stores {spills} B, "
         f"largest stack frame {stack} B")
     lines = kernels.build_log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and ("pyramid" in line or "kagari" in line):
+        if "Compiling entry function" in line and any(
+                k in line for k in ("pyramid", "kagari", "lift_level", "unlift_level")):
             log("  ptxas: " + " | ".join(part.strip() for part in lines[i : i + 4]))
 
 
@@ -359,6 +379,75 @@ def phase_pyramid_kernels(dev) -> dict:
     log(f"kernels: lift_pyramid/unlift_pyramid equal to plain on {len(cases)} cases "
         f"({len(PYRAMID_SHAPES)} tile shapes x 3 wavelets x 4 wraps x their start levels, "
         "4 colours, 1-4 channels, and the 1024x1280 tile from its start level)")
+    return err
+
+
+#: (tiles, w, h, channels, levels or None for every level) of
+#: phase_level_kernels: the whole tile's levels 0-2, 256-px tiles' level
+#: 0, odd sides, a thin tile (its one level and the LP head), 9 channels
+#: (every level: no pyramid), and small planes whose level_region is
+#: small too, where a last region is narrower than its halo and REPEAT's
+#: window is wider than the line (64x48: rows of 16-byte multiples at
+#: every level, for the cp.async loads)
+LEVEL_SHAPES = [(1, 1024, 1280, 4, range(3)), (20, 256, 256, 3, range(1)),
+                (3, 301, 257, 3, range(2)), (1, 100000, 3, 4, None), (2, 40, 24, 9, None),
+                (2, 53, 37, 1, None), (2, 33, 17, 2, None), (2, 301, 257, 4, range(2)),
+                (2, 64, 48, 3, None)]
+
+
+def phase_level_kernels(dev) -> dict:
+    """lift_level / unlift_level against their plain versions
+    (forward_levels_plain / inverse_levels_plain) on the same inputs on
+    the card, every wavelet x wrap on each of LEVEL_SHAPES with the
+    colour, discard and q cycling; the inverse on random streams whose q
+    heads wrap, from the LL the pyramid would hand it (or the LP head).
+    Returns the largest absolute difference per kernel (must be 0)."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.core.settings import Color, Wavelet, Wrap
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops.quantization import level_qg
+
+    rng = np.random.default_rng(7)
+    colours = [Color.YCOCG_Q, Color.YCOCG, Color.SUBTRACT_G, Color.NONE]
+    pairs = list(itertools.product([Wavelet.DD137, Wavelet.CDF53, Wavelet.HAAR], list(Wrap)))
+    err = {"lift_level": 0, "unlift_level": 0}
+    cases = 0
+    for n, w, h, ch, levels in LEVEL_SHAPES:
+        schedule = geometry.lift_schedule(w, h)
+        levels = levels or range(len(schedule.levels))
+        for i, (wavelet, wrap) in enumerate(pairs):
+            color, discard, q = colours[i % 4], i % 2 == 1, (0, 1, 16)[i % 3]
+            qg = level_qg(schedule, ch, q, 3, 2)
+            tiles = rng.integers(0, 256, size=(n, h, w, ch))
+            if discard:
+                tiles[..., -1][rng.random(tiles.shape[:-1]) < 0.3] = 0
+            x = torch.from_numpy(tiles.astype(np.uint8)).to(dev)
+            got = torch.zeros((n, schedule.coeff_count(ch)), dtype=torch.int16, device=dev)
+            ref = torch.zeros_like(got)
+            fwd = (wavelet, wrap, qg, color, discard)
+            ll = lk.forward_levels(x, got, schedule, levels, *fwd)
+            ll_ref = lk.forward_levels_plain(x, ref, schedule, levels, *fwd)
+            e_fwd = max(_max_err(got, ref), _max_err(ll, ll_ref))
+            stream = _random_streams(rng, dev, n, schedule, ch)
+            if levels.stop == len(schedule.levels):
+                top = lk.lp_view(stream, schedule, ch)
+            else:
+                lvl = schedule.levels[levels.stop]
+                top = _rand16(rng, (n, ch, lvl.current_h, lvl.current_w), dev)
+            inv = (wavelet, wrap, ch, color)
+            e_inv = _max_err(lk.inverse_levels(top, stream, schedule, levels, *inv),
+                             lk.inverse_levels_plain(top, stream, schedule, levels, *inv))
+            err["lift_level"] = max(err["lift_level"], e_fwd)
+            err["unlift_level"] = max(err["unlift_level"], e_inv)
+            cases += 1
+            if e_fwd or e_inv:
+                raise AssertionError(
+                    f"level kernels != plain for {n} tiles {w}x{h}x{ch} levels {levels}, "
+                    f"{wavelet.name} {wrap.name} {color.name} discard {discard} q {q}: "
+                    f"lift_level {e_fwd}, unlift_level {e_inv}")
+    torch.cuda.synchronize()
+    log(f"kernels: lift_level/unlift_level equal to plain on {cases} cases "
+        f"({len(LEVEL_SHAPES)} shapes x 3 wavelets x 4 wraps, 4 colours, 1-4 and 9 channels)")
     return err
 
 
@@ -601,17 +690,18 @@ def oracle_decode(blob):
 
 
 def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
-    """Per shape group: in the fused wiring one K1 (K2) call per level
-    before pyramid_start and one lift_pyramid (unlift_pyramid) launch, in
-    the split wiring three K1v (K2v) calls per level; one K3 per shape
-    group of a device-entropy encode, one K4 per shape group of its
-    decode."""
+    """Per shape group: in the fused wiring one lift_level (unlift_level)
+    launch per level before pyramid_start (every level when it is None)
+    and one lift_pyramid (unlift_pyramid) launch, no K1/K2 call; in the
+    split wiring three K1v (K2v) calls per level; one K3 per shape group
+    of a device-entropy encode, one K4 per shape group of its decode."""
     from ako_tpu_torch.core import geometry
     from ako_tpu_torch.ops.lift_kernels import pyramid_start
 
     h, w, ch = img.shape
     out = dict.fromkeys(("lift2d", "unlift2d", "vlift", "vunlift", "kagari_encode",
-                         "kagari_decode", "lift_pyramid", "unlift_pyramid"), 0)
+                         "kagari_decode", "lift_pyramid", "unlift_pyramid", "lift_level",
+                         "unlift_level"), 0)
     for s in settings.values():
         for tw, th in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)):
             schedule = geometry.lift_schedule(tw, th)
@@ -622,8 +712,8 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
             else:
                 start = pyramid_start(schedule, ch)
                 per_level = levels if start is None else start
-                out["lift2d"] += per_level
-                out["unlift2d"] += per_level
+                out["lift_level"] += per_level
+                out["unlift_level"] += per_level
                 out["lift_pyramid"] += start is not None
                 out["unlift_pyramid"] += start is not None
             out["kagari_encode"] += device_entropy
@@ -667,8 +757,10 @@ def phase_north_star(P, dev, img, oracle) -> dict:
         if launches[path] != want:
             raise AssertionError(f"{path}: launch counts {launches[path]}, expected {want}")
         north = expected_launches(img, {"north_t128": settings["north_t128"]}, device_entropy, mode)
-        if mode == "fused" and (north["lift2d"], north["unlift2d"]) != (0, 0):
+        if mode == "fused" and (north["lift_level"], north["unlift_level"]) != (0, 0):
             raise AssertionError(f"{path}: north_t128 expects per-level launches: {north}")
+        if mode == "fused" and (launches[path]["lift2d"], launches[path]["unlift2d"]) != (0, 0):
+            raise AssertionError(f"{path}: the fused wiring called K1/K2: {launches[path]}")
         if device_entropy:
             from ako_tpu_torch.core import geometry
 
@@ -799,37 +891,46 @@ def _span_ms(fn) -> float:
     return statistics.median(times)
 
 
-def phase_streams(P, dev, img, card) -> None:
+def phase_streams(P, dev, img, card) -> dict:
     """encode.forward_streams and decode.stream_pixels on the north
-    star's 128-px tile group (80 RGBA tiles): median host enqueue ms and
-    device span (CUDA events), the port's kernel launches per call, and
-    under torch.profiler one warm call's device busy ms, wall ms, device
-    kernels and copies, host waits for the stream and top-level torch
-    ops. Uses only what every version of the port has, so that it can
-    be imported against an older checkout's package to compare."""
+    star's 128-px tile group (80 RGBA tiles) and on the default whole
+    tile (one 1024x1280 tile): median host enqueue ms and device span
+    (CUDA events), the port's kernel launches per call, and under
+    torch.profiler one warm call's device busy ms, wall ms, device ms per
+    kernel, device kernels and copies, host waits for the stream and
+    top-level torch ops. Uses only what every version of the port has,
+    so that it can be imported against an older checkout's package to
+    compare; returns {(setting, call): numbers}."""
     from ako_tpu_torch.decode import stream_pixels
     from ako_tpu_torch.encode import checked_settings, forward_streams
 
-    s = checked_settings(P.Settings(quantization=16, tiles_dimension=128))
-    t = s.tiles_dimension
     h, w, ch = img.shape
-    batch = [img[y : y + t, x : x + t] for y in range(0, h, t) for x in range(0, w, t)]
-    tiles = torch.from_numpy(np.stack(batch)).to(dev)
-    streams = forward_streams(tiles, t, t, ch, s)
-    for name, fn in (("forward_streams", lambda: forward_streams(tiles, t, t, ch, s)),
-                     ("stream_pixels", lambda: stream_pixels(streams, t, t, ch, s))):
-        enqueue = _enqueue_ms(fn)
-        span = _span_ms(fn)
-        before = sum(all_launches().values())
-        fn()
-        launches = sum(all_launches().values()) - before
-        r = _profile_window(fn)
-        log(f"streams {name} on {tuple(tiles.shape)}: host enqueue {enqueue:.3f} ms, device span "
-            f"{span:.4f} ms (medians of {RUNS}), {launches} port kernel launches; profiled call: "
-            f"enqueue {r['enqueue']:.3f} ms, wall {r['wall']:.3f} ms, "
-            f"device busy {r['busy']:.4f} ms, {r['kernels']} device kernels, {r['copies']} device "
-            f"copies, {r['waits']} host waits for the stream, {r['ops']} top-level torch ops "
-            f"[{card}]")
+    out = {}
+    for setting, s in (("north_t128", P.Settings(quantization=16, tiles_dimension=128)),
+                       ("default_whole", P.Settings())):
+        s = checked_settings(s)
+        t = s.tiles_dimension
+        tw, th = (t, t) if t else (w, h)
+        batch = [img[y : y + th, x : x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+        tiles = torch.from_numpy(np.stack(batch)).to(dev)
+        streams = forward_streams(tiles, tw, th, ch, s)
+        for name, fn in (("forward_streams", lambda: forward_streams(tiles, tw, th, ch, s)),
+                         ("stream_pixels", lambda: stream_pixels(streams, tw, th, ch, s))):
+            enqueue = _enqueue_ms(fn)
+            span = _span_ms(fn)
+            before = sum(all_launches().values())
+            fn()
+            launches = sum(all_launches().values()) - before
+            r = _profile_window(fn)
+            per = {k: round(v, 4) for k, v in sorted(r["per"].items())}
+            out[(setting, name)] = {"enqueue": enqueue, "span": span, "launches": launches, **r}
+            log(f"streams {setting} {name} on {tuple(tiles.shape)}: host enqueue {enqueue:.3f} ms, "
+                f"device span {span:.4f} ms (medians of {RUNS}), {launches} port kernel launches; "
+                f"profiled call: enqueue {r['enqueue']:.3f} ms, wall {r['wall']:.3f} ms, "
+                f"device busy {r['busy']:.4f} ms {per}, {r['kernels']} device kernels, "
+                f"{r['copies']} device copies, {r['waits']} host waits for the stream, "
+                f"{r['ops']} top-level torch ops [{card}]")
+    return out
 
 
 def phase_profile(P, dev, img, card) -> dict:
@@ -973,8 +1074,9 @@ def k3_times(P, dev, img, card) -> tuple:
 
 def bounds_ms(img, blob) -> dict:
     """Least time per north-star image for each kernel on the run of
-    ROW_RUN (128-px tiles; K1/K2: the whole tile's levels before
-    pyramid_start): {kernel: (ms, "bytes" or "operations")}, the larger of
+    ROW_RUN (128-px tiles; K1/K2 and lift_level / unlift_level: the whole
+    tile's levels before pyramid_start): {kernel: (ms, "bytes" or
+    "operations")}, the larger of
     the bytes it must move (each input read once, each output written
     once) over the card's memory rate and its integer operations over the
     32-bit scalar rate."""
@@ -1005,7 +1107,18 @@ def bounds_ms(img, blob) -> dict:
         plane = lvl.current_h * lvl.current_w
         b["lift2d"] += ch * 2 * (plane + 4 * lvl.target_h * lvl.target_w)
         ops["lift2d"] += ch * plane * 2 * LIFT_OPS
-    for k, same in (("unlift2d", "lift2d"), ("vunlift", "vlift"), ("unlift_pyramid", "lift_pyramid")):
+    # lift_level / unlift_level: the u8 tile read once, the levels' q
+    # heads and C, B, D before pyramid_start written once, and the LL at
+    # pyramid_start (the LP planes when it is None) written once
+    start = pyramid_start(whole, ch)
+    before = whole.levels[: len(whole.levels) if start is None else start]
+    ll_at = (whole.lp_h * whole.lp_w if start is None or start == len(whole.levels)
+             else whole.levels[start].current_h * whole.levels[start].current_w)
+    b["lift_level"] = (h * w * ch + 2 * ch * sum(1 + 3 * lvl.target_h * lvl.target_w for lvl in before)
+                       + 2 * ch * ll_at)
+    ops["lift_level"] = sum(ch * lvl.current_h * lvl.current_w * 2 * LIFT_OPS for lvl in before)
+    for k, same in (("unlift2d", "lift2d"), ("vunlift", "vlift"), ("unlift_pyramid", "lift_pyramid"),
+                    ("unlift_level", "lift_level")):
         b[k], ops[k] = b[same], ops[same]
     # K4: the compressed payloads, the base words and the sync records
     # (four int32 each) in, the int16 streams out
@@ -1048,6 +1161,8 @@ def phase_timings(P, dev, img, card) -> dict:
     log("kernel times, default_whole, the levels before pyramid_start (sum over levels):")
     per_level = kernel_times(P, dev, img, settings["default_whole"], card, split=False)
     log(f"  default_whole: {per_level} (kernel ms, plain ms)")
+    levels = level_times(P, dev, img, settings["default_whole"], card)
+    log(f"  default_whole level kernels: {levels} (kernel ms, plain ms)")
     log("kernel times, north_t128 split wiring (sum over levels):")
     split = kernel_times(P, dev, img, settings["north_t128"], card, split=True)
     log(f"  north_t128 split: {split} (kernel ms, plain ms)")
@@ -1056,7 +1171,52 @@ def phase_timings(P, dev, img, card) -> dict:
         pyramid[name] = pyramid_times(dev, img, settings[name], card)
         log(f"  {name} pyramids: {pyramid[name]} (kernel ms, plain ms)")
     pyramid_breakdown(dev, img, settings["north_t128"], card)
-    return {**per_level, **split, **pyramid["north_t128"]}
+    return {**per_level, **split, **pyramid["north_t128"], **levels}
+
+
+def level_times(P, dev, img, s, card) -> dict:
+    """lift_level / unlift_level against their plain versions (CUDA events
+    around back-to-back calls of forward_levels / inverse_levels) on the
+    levels of one whole-image tile before its pyramid_start, on the image
+    and its streams; and each level's device ms (profiler)."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import checked_settings, tile_qg
+    from ako_tpu_torch.ops import lift_kernels as lk
+
+    s = checked_settings(s)
+    h, w, ch = img.shape
+    schedule = geometry.lift_schedule(w, h)
+    start = lk.pyramid_start(schedule, ch)
+    levels = range(len(schedule.levels) if start is None else start)
+    qg = tuple(tile_qg(w, h, ch, s.quantization, s.gate, s.chroma_loss))
+    x = torch.from_numpy(np.ascontiguousarray(img[None])).to(dev)
+    stream = torch.zeros((1, schedule.coeff_count(ch)), dtype=torch.int16, device=dev)
+    fwd = (s.wavelet, s.wrap, qg, s.color, bool(s.discard_non_visible))
+    inv = (s.wavelet, s.wrap, ch, s.color)
+    ll = lk.forward_levels(x, stream, schedule, levels, *fwd)
+    row = {
+        "lift_level": (
+            _event_ms(lambda: lk.forward_levels(x, stream, schedule, levels, *fwd)),
+            _event_ms(lambda: lk.forward_levels_plain(x, stream, schedule, levels, *fwd), iters=5),
+        ),
+        "unlift_level": (
+            _event_ms(lambda: lk.inverse_levels(ll, stream, schedule, levels, *inv)),
+            _event_ms(lambda: lk.inverse_levels_plain(ll, stream, schedule, levels, *inv),
+                      iters=5),
+        ),
+    }
+    xs = [x]
+    for k in levels:
+        xs.append(lk.lift_level(xs[-1], stream, schedule, k, *fwd))
+    for k in levels:
+        lvl = schedule.levels[k]
+        region = lk.level_region(schedule, k, ch, s.wavelet, 1, lk.sm_count(dev))
+        fw = _launch_ms(lambda: lk.lift_level(xs[k], stream, schedule, k, *fwd), "lift_level")
+        iv = _launch_ms(lambda: lk.unlift_level(xs[k + 1], stream, schedule, k, *inv),
+                        "unlift_level")
+        log(f"  level {k} {lvl.current_h}x{lvl.current_w}x{ch} region {region}: lift_level "
+            f"{fw:.4f} ms, unlift_level {iv:.4f} ms (profiler) [{card}]")
+    return {k: (round(v[0], 4), round(v[1], 4)) for k, v in row.items()}
 
 
 def _launch_ms(fn, name: str, iters: int = 20) -> float:
@@ -1183,6 +1343,7 @@ def main() -> int:
     err = phase_lift_kernels(dev, [(320, 128, 128), (3, 127, 97), (3, 5, 9), (1, 1280, 1024)])
     err.update(phase_vlift_kernels(dev, vlift_shapes(img, 128)))
     err.update(phase_pyramid_kernels(dev))
+    err.update(phase_level_kernels(dev))
     err["kagari_encode"] = phase_k3(P, dev, img)
     err["kagari_decode"] = phase_k4(dev, oracle["north_t128"][0])
     phase_goldens(P, dev)
