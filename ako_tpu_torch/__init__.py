@@ -7,12 +7,15 @@ the reference C codec's). The colour transform and the dyadic integer
 lift run on the card through hand-written CUDA kernels: in the fused
 wiring of AKO_TORCH_LIFT_MODE (the default) one whole-pyramid launch
 per tile-shape group each way (csrc/lift_pyramid.cu, colour and
-quantize/gate fused), after per-level launches (csrc/lift2d.cu) for
-planes too large for a block; in the split wiring per-level V-only
-launches. With `device_entropy` (the default on the card)
-Kagari coding runs there too: tokenize and pack as one CUDA kernel
-(csrc/kagari_encode.cu), the block-parallel decode as another
-(csrc/kagari_decode.cu) from host sync records; otherwise, and for the
+quantize/gate fused), after one launch a level (csrc/lift_level.cu,
+colour, quantize/gate and the dequantize fused) for the planes too large
+for a block; in the split wiring per-level V-only launches
+(csrc/lift2d.cu). With `device_entropy` (the default on the card)
+Kagari coding runs there too: tokenize and pack as one launch of one
+CUDA kernel per shape group (csrc/kagari_encode.cu), the block-parallel
+decode as another (csrc/kagari_decode.cu) from host sync records;
+MANBAVARAN under AKO_TPU_MANBAVARAN=1 codes on the host only (the device
+rANS coder is not ported). Otherwise, and for the
 container, the port's copy of the native C runtime (csrc/akort.c)
 codes on the host. The package imports torch and numpy, never JAX, and
 reads no file of ako_tpu.

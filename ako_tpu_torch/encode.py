@@ -12,7 +12,8 @@ Two paths, as in ako_tpu's encode (ako_tpu/encode.py:962-1003):
   is already on the device.
 - host entropy (device_entropy=False; ako_tpu/encode.py:333-375 then
   :983-1003): the (T, coeff_count) int16 streams come back once and the
-  host Kagari coder (akort.c) compresses each tile.
+  host coder (akort.c) compresses each tile: Kagari, or rANS for
+  MANBAVARAN under AKO_TPU_MANBAVARAN=1 (runtime/kagari.py).
 
 The host assembles the container. Blob bytes are identical to
 ako_tpu's and the reference encoder's for every settings combination.
@@ -280,9 +281,15 @@ def encode(
     s = checked_settings(settings)
     image_h, image_w, channels = image.shape
     head = container.head_write(channels, image_w, image_h, s)
-    kagari = effective_method(s.compression) == Compression.KAGARI
+    method = effective_method(s.compression)
 
-    if device_entropy and kagari:
+    if device_entropy and method == Compression.MANBAVARAN:
+        # ako_tpu codes these tiles with its device rANS encoder, which
+        # the port does not have yet; no host coder stands in for it
+        raise NotImplementedError(
+            "device-entropy MANBAVARAN (AKO_TPU_MANBAVARAN=1) needs the device rANS coder K6, "
+            "ROADMAP item 5; pass device_entropy=False")
+    if device_entropy and method == Compression.KAGARI:
         # KAGARI and the reserved MANBAVARAN flag (Kagari bytes)
         grid, dispatched = dispatch_tiles_fused(image, s, dev, events, events_user)
         return head + b"".join(collect_tiles_blocks(grid, dispatched, events, events_user))
@@ -294,8 +301,8 @@ def encode(
     total = len(grid)
     for t, values in zip(grid, streams):
         fire(events, t.index, total, Event.COMPRESSION_START, events_user)
-        if kagari:
-            block = compress_block(values, tile_stream_bytes(t, s, channels))
+        if s.compression != Compression.NONE:
+            block = compress_block(values, tile_stream_bytes(t, s, channels), s.compression)
             if block is None:
                 raise AkoError(Status.ERROR, "incompressible tile")
             blocks.append(block)

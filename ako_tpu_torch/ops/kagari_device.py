@@ -7,11 +7,12 @@ passes over whole coefficient streams, batched over a leading tile
 dimension:
 
   encode
-    On a CUDA tensor this is kernel K3 (csrc/kagari_encode.cu): each
-    chunk of K3_CHUNK positions of a stream is one CTA, which takes the
-    last mismatch and the bit offset of its stream's earlier chunks as
-    carries (three short launches), tokenizes, and packs its codes in
-    shared memory. The plain version below (torch ops on int32/int64;
+    On a CUDA tensor this is kernel K3 (csrc/kagari_encode.cu), one
+    launch a call: each chunk of K3_CHUNK positions of a stream is one
+    CTA, which takes the last mismatch and the bit offset of its stream's
+    earlier chunks by decoupled look-back over descriptors in a scratch
+    the wrapper keeps per device and stream (encode_scratch), tokenizes,
+    and packs its codes. The plain version below (torch ops on int32/int64;
     torch's uint32 lacks shifts and compares on the CPU) is what a CPU
     tensor takes and what K3 is checked against on the card:
     1. zigzag + RLE tokenization: the run structure comes from a
@@ -77,14 +78,21 @@ _SPILL_SLOTS = 1024
 #: positions per CTA of kernel K3 (csrc/kagari_encode.cu kChunk)
 K3_CHUNK = 4096
 
+#: K3's descriptor epochs run 1 .. K3_EPOCHS - 1; the scratch is made
+#: anew when they run out
+K3_EPOCHS = 1 << 31
+
 #: kernel K4's CTA: lanes (threads) of one tile, and the most pool words
 #: it stages in shared memory (csrc/kagari_decode.cu kLanes, kSpanWords)
 K4_LANES = 64
 K4_SPAN_WORDS = 4096
 
-#: kernel launches per wrapper (one per call that reaches the card; a
-#: kagari_encode call is K3's three grid launches)
+#: kernel launches per wrapper (one per call that reaches the card)
 LAUNCHES = {"kagari_encode": 0, "kagari_decode": 0}
+
+#: K3's scratch per (device index, stream): [int64 tensor, rows it
+#: holds, chunks it holds, last epoch]
+_SCRATCH: dict = {}
 
 
 def _exclusive_cumsum(x):
@@ -209,14 +217,38 @@ def kagari_size_device(values):
     return (nbits.sum(dim=-1, dtype=torch.int64) + 7) >> 3
 
 
-def encode_layout(rows: int, n: int, budget_bytes: int) -> tuple:
-    """Kernel K3's launch arithmetic for `rows` streams of n values:
-    (chunks per row, 32-bit words per output row, int32 scratch words).
-    A row's output is ceil(budget_bytes / 4) words, so rows start on
-    word boundaries and the caller's (rows, budget_bytes) bytes are a
-    view of them."""
-    chunks = -(-n // K3_CHUNK)
-    return chunks, -(-budget_bytes // 4), 2 * rows * chunks
+def encode_layout(n: int, budget_bytes: int) -> tuple:
+    """Kernel K3's layout for streams of n values: (chunks per row,
+    32-bit words per output row). A row's output is ceil(budget_bytes /
+    4) words, so rows start on word boundaries and the caller's (rows,
+    budget_bytes) bytes are a view of them."""
+    return -(-n // K3_CHUNK), -(-budget_bytes // 4)
+
+
+def scratch_words(rows: int, chunks: int) -> int:
+    """64-bit words of K3's scratch for up to `rows` rows and `chunks`
+    chunks in all (csrc/kagari_encode.cu ako_kagari_encode): two
+    descriptors and two side-array entries a chunk, then the 32-bit
+    ticket and one 32-bit counter a row."""
+    return 4 * chunks + (rows + 2) // 2
+
+
+def encode_scratch(device, stream: int, rows: int, chunks: int) -> list:
+    """K3's scratch for a call on (device, stream), and the call's epoch
+    taken: [tensor, rows held, chunks held, epoch]. Made zeroed once,
+    made again larger when a call needs more, or when the epochs run
+    out; otherwise reused as it is (the epoch makes the earlier calls'
+    descriptors stale)."""
+    key = (device.index, stream)
+    s = _SCRATCH.get(key)
+    if s is None or rows > s[1] or chunks > s[2] or s[3] + 1 >= K3_EPOCHS:
+        rows = max(rows, s[1] if s else 0)
+        chunks = max(chunks, s[2] if s else 0)
+        s = [torch.zeros((scratch_words(rows, chunks),), dtype=torch.int64, device=device),
+             rows, chunks, 0]
+        _SCRATCH[key] = s
+    s[3] += 1
+    return s
 
 
 def kagari_encode_device(values, capacity_bytes: int, budget_bytes: int | None = None):
@@ -227,8 +259,8 @@ def kagari_encode_device(values, capacity_bytes: int, budget_bytes: int | None =
     cover only `budget_bytes` (default capacity_bytes), so callers fall
     back to the host coder whenever total_bytes > budget_bytes.
 
-    A CUDA tensor launches kernel K3; its bytes are a view of rows of
-    ceil(budget_bytes / 4) words. A CPU tensor takes the plain version
+    A CUDA tensor launches kernel K3 once; its bytes are a view of rows
+    of ceil(budget_bytes / 4) words. A CPU tensor takes the plain version
     (tokenize + pack_bits)."""
     if budget_bytes is None:
         budget_bytes = capacity_bytes
@@ -246,15 +278,17 @@ def kagari_encode_device(values, capacity_bytes: int, budget_bytes: int | None =
         raise ValueError(f"kagari_encode_device: budget {budget_bytes} bytes")
     batch = tuple(values.shape[:-1])
     rows = math.prod(batch)
-    _, row_words, scratch_ints = encode_layout(rows, n, budget_bytes)
-    out =torch.empty((rows, row_words * 4), dtype=torch.uint8, device=values.device)
+    chunks, row_words = encode_layout(n, budget_bytes)
+    out = torch.empty((rows, row_words * 4), dtype=torch.uint8, device=values.device)
     totals = torch.empty((rows,), dtype=torch.int64, device=values.device)
     if rows:
-        scratch = torch.empty((scratch_ints,), dtype=torch.int32, device=values.device)
         with torch.cuda.device(values.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            scratch, rows_cap, chunks_cap, epoch = encode_scratch(values.device, stream, rows,
+                                                                  rows * chunks)
             kernels.kagari_encode(values.data_ptr(), out.data_ptr(), totals.data_ptr(),
-                                  scratch.data_ptr(), scratch_ints, rows, n, row_words,
-                                  torch.cuda.current_stream().cuda_stream)
+                                  scratch.data_ptr(), scratch.numel(), rows_cap, chunks_cap, epoch,
+                                  rows, n, row_words, stream)
         LAUNCHES["kagari_encode"] += 1
     return out[:, :budget_bytes].reshape(batch + (budget_bytes,)), totals.reshape(batch)
 

@@ -33,6 +33,7 @@ _SIGNATURES = {
     "akort_gate": (_I32, [_I32, _I32] + [ctypes.c_uint64] * 4),
     "akort_kagari_encode": (_SZ, [_P, _SZ, _P, _SZ]),
     "akort_kagari_decode": (_SZ, [_SZ, _P, _SZ, _P, _SZ]),
+    "akort_manba_encode": (_SZ, [_P, _SZ, _P, _SZ]),
     "akort_manba_decode": (_SZ, [_SZ, _P, _SZ, _P, _SZ]),
     "akort_kagari_sync": (_SZ, [_SZ, _P, _SZ, _SZ, _SZ, _P, _P, _P, _P, _P]),
     "akort_tile_encode_block": (

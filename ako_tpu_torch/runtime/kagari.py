@@ -7,15 +7,17 @@ coefficient stream; these functions translate it to/from the
 container's compressed blocks.
 
 MANBAVARAN: the reference reserves the enum value but ignores it, so a
-"manbavaran" blob carries Kagari bytes under the reserved flag; the
-port writes those parity bytes. Its decoder also reads ako_tpu's real
-rANS payloads (the AKO_TPU_MANBAVARAN extension): a payload that passes
-the rANS magic and model checks decodes as rANS, anything else as
-Kagari, as in ako_tpu/runtime/kagari.py.
+"manbavaran" blob carries Kagari bytes under the reserved flag; by
+default the port writes those parity bytes. With AKO_TPU_MANBAVARAN=1
+the reserved method is ako_tpu's static-model rANS coder
+(akort.c:akort_manba_encode), as in ako_tpu/runtime/kagari.py. The
+decoder reads both: a payload that passes the rANS magic and model
+checks decodes as rANS, anything else as Kagari.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -26,11 +28,35 @@ from ako_tpu_torch.runtime.build import load
 BLOCK_HEAD = struct.Struct("<I")
 
 
+def manba_enabled() -> bool:
+    return os.environ.get("AKO_TPU_MANBAVARAN") == "1"
+
+
 def effective_method(method: Compression) -> Compression:
     """The coder actually used inside blocks for a settings-level
-    method: KAGARI for KAGARI and the reserved MANBAVARAN (the reference
-    always writes Kagari bytes), NONE for raw blocks."""
+    method: KAGARI for the reserved MANBAVARAN unless the extension is
+    enabled (the reference always writes Kagari bytes), NONE for raw
+    blocks."""
+    if method == Compression.MANBAVARAN and manba_enabled():
+        return Compression.MANBAVARAN
     return Compression.KAGARI if method != Compression.NONE else method
+
+
+def manba_encode(values: np.ndarray, output_capacity: int) -> bytes | None:
+    """rANS-encode an int16 array (the MANBAVARAN extension's payload);
+    None when it won't fit, as kagari_encode. Capacities <= 0 fail up
+    front: ctypes would wrap them into a huge size_t."""
+    if output_capacity <= 0:
+        return None
+    lib = load()
+    values = np.ascontiguousarray(values, dtype=np.int16)
+    out = np.empty(output_capacity, dtype=np.uint8)
+    n = lib.akort_manba_encode(
+        values.ctypes.data, values.nbytes, out.ctypes.data, output_capacity
+    )
+    if n == 0:
+        return None
+    return out[:n].tobytes()
 
 
 def kagari_encode(values: np.ndarray, output_capacity: int) -> bytes | None:
@@ -133,11 +159,19 @@ def manba_decode(count: int, blob: bytes | memoryview) -> np.ndarray | None:
     return out[:count]
 
 
-def compress_block(values: np.ndarray, tile_data_size: int) -> bytes | None:
-    """Kagari payload + 4-byte block head (compression.c:36-55). The
+def compress_block(
+    values: np.ndarray,
+    tile_data_size: int,
+    method: Compression = Compression.KAGARI,
+) -> bytes | None:
+    """Entropy payload + 4-byte block head (compression.c:36-55). The
     output budget equals the uncompressed tile size — incompressible
-    tiles fail, as in the reference."""
-    payload = kagari_encode(values, tile_data_size - BLOCK_HEAD.size)
+    tiles fail, as in the reference. `method` selects the coder through
+    effective_method (MANBAVARAN is rANS only under the extension)."""
+    if effective_method(method) == Compression.MANBAVARAN:
+        payload = manba_encode(values, tile_data_size - BLOCK_HEAD.size)
+    else:
+        payload = kagari_encode(values, tile_data_size - BLOCK_HEAD.size)
     if payload is None:
         return None
     return BLOCK_HEAD.pack(len(payload)) + payload

@@ -2,8 +2,8 @@
 kernels of the per-level API and the split wiring (csrc/lift2d.cu), the
 whole-pyramid lift kernels (csrc/lift_pyramid.cu), the one-launch level
 kernels for planes too large for a pyramid block (csrc/lift_level.cu), the
-Kagari tokenize + pack (csrc/kagari_encode.cu) and the Kagari block
-decoder (csrc/kagari_decode.cu).
+Kagari tokenize + pack (csrc/kagari_encode.cu, one launch a call) and the
+Kagari block decoder (csrc/kagari_decode.cu).
 
 At first use one `nvcc -c` per source, all started together, then one
 link build a shared library with a plain C interface in this package's
@@ -94,7 +94,7 @@ _SIGNATURES = {
     "ako_unlift2d": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
     "ako_vlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _P],
     "ako_vunlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _I, _P],
-    "ako_kagari_encode": [_P] * 4 + [_LL, _I, _I, _I, _P],
+    "ako_kagari_encode": [_P] * 4 + [_LL, _I, _I, ctypes.c_uint, _I, _I, _I, _P],
     "ako_kagari_decode": [_P, _LL] + [_P] * 6 + [_I, _I, _I, _I, _P],
     "ako_lift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
     "ako_unlift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
@@ -184,12 +184,14 @@ def vunlift(lp, hp, out, n, th, w, out_h, wavelet, wrap, stream) -> None:
     _check(load().ako_vunlift(lp, hp, out, n, th, w, out_h, wavelet, wrap, stream), "ako_vunlift")
 
 
-def kagari_encode(values, out, totals, scratch, scratch_ints, rows, n, row_words, stream) -> None:
-    """Launch the Kagari tokenize + pack (K3, three grid launches) on
-    `stream`."""
+def kagari_encode(values, out, totals, scratch, scratch_words, rows_cap, chunks_cap, epoch, rows,
+                  n, row_words, stream) -> None:
+    """Launch the Kagari tokenize + pack (K3, one grid launch with
+    decoupled look-back over the reused `scratch`, a new `epoch` each
+    call) on `stream`."""
     _check(
-        load().ako_kagari_encode(values, out, totals, scratch, scratch_ints, rows, n, row_words,
-                                 stream),
+        load().ako_kagari_encode(values, out, totals, scratch, scratch_words, rows_cap, chunks_cap,
+                                 epoch, rows, n, row_words, stream),
         "ako_kagari_encode",
     )
 

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Probes of the port on one CUDA card that go past chip_smoke.py: a
-comparison with another checkout, and where kernel K4's time goes.
+comparison with another checkout, and where kernels K3's, K4's and the
+level kernels' time goes.
 
     python3 chip_probe.py compare OTHER   # OTHER: the root of another checkout
+    python3 chip_probe.py k3 [OTHER]
     python3 chip_probe.py k4 [OTHER]
     python3 chip_probe.py levels [OTHER]
 
@@ -17,6 +19,18 @@ profiled call's device busy ms, device kernels and top-level torch ops),
 and its decode's device events one by one (start and ms).
 OTHER is unpacked with `git archive` into a directory that git ignores
 (build/).
+
+k3: variants of csrc/kagari_encode.cu, made by editing its source and
+built with nvcc side by side: as it is (256 threads x 16 items, five
+CTAs a SM); 512 threads x 8 items at four CTAs a SM; six, four and three
+CTAs a SM; then, to show their shares, no zero-tail CTAs, no merge of
+the shared edge words, no packing of the codes; and OTHER's
+kagari_encode.cu as it is when OTHER is given (an earlier checkout's
+three-launch kernel too). Each variant that computes the function is
+checked against the plain version; all are timed, in turns, on the
+north star's 80 streams at 128-px tiles and on the default whole tile's
+one stream: device ms a call (the profiler, every device kernel of 20
+calls) and CUDA events around 50 calls.
 
 k4: variants of csrc/kagari_decode.cu, made by editing its source and
 built with nvcc side by side, timed on the north star's decode inputs
@@ -237,6 +251,137 @@ def k4(other, card: str) -> None:
             print(f"k4 {setting} {name}: (profiler ms, event ms) {times} [{card}]", flush=True)
 
 
+#: variant name -> (old, new) source edits of csrc/kagari_encode.cu
+#: (threads a CTA, items a thread, CTAs a SM, look-back width, spin), and
+#: whether it still computes the function (the others drop a part to
+#: show its share)
+K3_VARIANTS = {
+    "t256_i16": ([], True),
+    "t512_i8": ([("kThreads = 256;", "kThreads = 512;"), ("kItems = 16;", "kItems = 8;"),
+                 ("kMinBlocks = 5;", "kMinBlocks = 4;")], True),
+    "min6": ([("kMinBlocks = 5;", "kMinBlocks = 6;")], True),
+    "min4": ([("kMinBlocks = 5;", "kMinBlocks = 4;")], True),
+    "min3": ([("kMinBlocks = 5;", "kMinBlocks = 3;")], True),
+    "no_zero": ([("        zero_tail(a, s_ticket - chunk_ctas);", "        ;")], False),
+    "no_merge": ([("        merge_edges(a, row, reinterpret_cast<uint2*>(buf));", "        ;")], False),
+    "no_pack": ([("    pack(codes, off, buf);\n", "")], False),
+}
+
+
+def _k3_sources(other):
+    """{variant: (ctypes library, chunk positions, new ABI)}: K3_VARIANTS
+    built side by side, and OTHER's kagari_encode.cu as it is ("other";
+    the three-launch kernel of earlier checkouts takes an int32 scratch
+    and no epoch)."""
+    import re
+
+    from ako_tpu_torch.runtime import kernels
+
+    src = open(os.path.join(ROOT, "ako_tpu_torch", "csrc", "kagari_encode.cu")).read()
+    texts = {}
+    for name, (edits, _) in K3_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"k3 variant {name}: the source has no {old!r}")
+            text = text.replace(old, new)
+        texts[name] = text
+    if other:
+        texts["other"] = open(os.path.join(other, "ako_tpu_torch", "csrc", "kagari_encode.cu")).read()
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu, so = os.path.join(OUT, f"k3_{name}.cu"), os.path.join(OUT, f"k3_{name}.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = (subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", so, cu],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on k3 variant {name}:\n{log}")
+        text = texts[name]
+        threads = int(re.search(r"kThreads = (\d+);", text).group(1))
+        items = int(re.search(r"kItems = (\d+);", text).group(1))
+        new_abi = "unsigned epoch" in text
+        lib = ctypes.CDLL(so)
+        lib.ako_kagari_encode.restype = ctypes.c_int
+        lib.ako_kagari_encode.argtypes = (kernels._SIGNATURES["ako_kagari_encode"] if new_abi else
+                                          [ctypes.c_void_p] * 4 + [ctypes.c_longlong] +
+                                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        regs = [x.split("info    :")[-1].strip() for x in log.splitlines() if "registers" in x]
+        print(f"k3 {name}: chunk {threads * items}, {regs}", flush=True)
+        libs[name] = (lib, threads * items, new_abi, K3_VARIANTS.get(name, (None, True))[1])
+    return libs
+
+
+def k3(other, card: str) -> None:
+    """K3's variants (and OTHER's kernel) on the north star's streams at
+    128-px tiles and on the default whole tile's stream, in turns: device
+    ms per call (the profiler: every device kernel of 20 calls, over 20)
+    and CUDA events around 50 calls, each variant checked against the
+    plain version."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import ako_tpu_torch as P
+    import chip_smoke as cs
+    from ako_tpu_torch.ops import kagari_device as kd
+    from ako_tpu_torch.utils.corpus import corpus
+
+    libs = _k3_sources(other)
+    dev = torch.device("cuda:0")
+    img = corpus(42, 1, 1280, 1024, 4)[0]
+    cur = torch.cuda.current_stream().cuda_stream
+    epoch = [0]
+    for setting in ("north_t128", "default_whole"):
+        ((streams, cap, budget),) = cs.group_streams(dev, img, cs.north_star_settings(P)[setting])
+        rows, n = streams.shape
+        ref, ref_total = cs.k3_plain(streams, budget)
+        row_words = -(-budget // 4)
+        chunks_cap = rows * -(-n // 512)
+        scratch = torch.zeros((kd.scratch_words(rows, chunks_cap),), dtype=torch.int64, device=dev)
+        old_scratch = torch.empty((2 * chunks_cap,), dtype=torch.int32, device=dev)
+        rows_out = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            lib, _, new_abi, exact = libs[name]
+            out = torch.empty((rows, row_words * 4), dtype=torch.uint8, device=dev)
+            totals = torch.empty((rows,), dtype=torch.int64, device=dev)
+
+            def call():
+                if new_abi:
+                    epoch[0] += 1
+                    rc = lib.ako_kagari_encode(streams.data_ptr(), out.data_ptr(), totals.data_ptr(),
+                                               scratch.data_ptr(), scratch.numel(), rows, chunks_cap,
+                                               epoch[0], rows, n, row_words, cur)
+                else:
+                    rc = lib.ako_kagari_encode(streams.data_ptr(), out.data_ptr(), totals.data_ptr(),
+                                               old_scratch.data_ptr(), old_scratch.numel(), rows, n,
+                                               row_words, cur)
+                if rc:
+                    raise RuntimeError(f"k3 variant {name}: cudaError {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            if exact and not (torch.equal(out[:, :budget], ref) and torch.equal(totals, ref_total)):
+                raise AssertionError(f"k3 variant {name} != plain on {setting}")
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    call()
+                torch.cuda.synchronize()
+            spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            dev_ms = sum(e.time_range.end - e.time_range.start for e in spans) / 1e3 / 20
+            rows_out[name].append((round(dev_ms, 4), round(cs._event_ms(call), 4), len(spans) // 20))
+        for name, times in rows_out.items():
+            print(f"k3 {setting} {tuple(streams.shape)} budget {budget} {name} (chunk "
+                  f"{libs[name][1]}): (profiler ms a call, event ms, device kernels a call) {times} "
+                  f"[{card}]", flush=True)
+
+
 LEVEL_THREADS = (512, 256, 128)
 
 
@@ -433,7 +578,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in (
-            "compare", "k4", "levels"):
+            "compare", "k3", "k4", "levels"):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -449,6 +594,8 @@ def main() -> int:
         compare(other, card)
     elif sys.argv[1] == "levels":
         levels(other, card)
+    elif sys.argv[1] == "k3":
+        k3(other, card)
     else:
         k4(other, card)
     return 0

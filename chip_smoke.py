@@ -34,8 +34,11 @@ no result line):
                 K3 (bytes and totals) on the north star's 80 streams, the
                 whole-image tile's 5.2 M-value stream, lossless q=0
                 streams, edge streams (runs, forced flushes and -32768
-                across its 4096-value chunks, the densest codes) and
-                budgets that cut; K4 on the north star's streams and on
+                across its 4096-value chunks, the densest codes, an
+                all-equal stream, a run of 70 chunks with a flush) and
+                budgets that cut, calls of other shapes back to back on
+                its reused scratch, and 100 repeated calls on the north
+                star's streams; K4 on the north star's streams and on
                 edge streams, on both its routes (spans staged in shared
                 memory, and spans too wide for it that read the pool)
   4. goldens  - tests/golden blobs and pixels are reproduced exactly,
@@ -50,9 +53,9 @@ no result line):
                 path's kernel launches counted from zero and exact
   6. profile  - torch.profiler over one warm north-star encode and
                 decode on each path: device time per kernel, device busy
-                and idle share; K3 alone on the north star's streams (one
-                kernel of three launches) beside its plain version's
-                torch ops; and
+                and idle share; K3 alone on the north star's streams and
+                the whole tile's (one device kernel a call, and no other
+                device work) beside its plain version's torch ops; and
                 over the default whole tile's device-entropy encode and
                 decode, where the fused wiring runs lift_level /
                 unlift_level on levels 0-2
@@ -141,8 +144,7 @@ ROW_RUN.update(vlift=("device_split", "north_t128"), vunlift=("device_split", "n
 DEVICE_KERNELS = {
     "lift_h": "lift2d", "lift_v": "lift2d", "unlift_v": "unlift2d", "unlift_h": "unlift2d",
     "vlift": "vlift", "vunlift": "vunlift", "kagari_decode": "kagari_decode",
-    "kagari_encode_runs": "kagari_encode", "kagari_encode_bits": "kagari_encode",
-    "kagari_encode_pack": "kagari_encode",
+    "kagari_encode": "kagari_encode",
     "lift_pyramid": "lift_pyramid", "unlift_pyramid": "unlift_pyramid",
     "lift_level": "lift_level", "unlift_level": "unlift_level",
 }
@@ -581,6 +583,11 @@ def k3_cases(P, dev, img) -> list:
         "-32768 at chunk starts": wrap,
         "densest codes": [32767] * 3 + [-32767] * 3,
         "full-range noise": rng.integers(-32768, 32768, size=300001),
+        "all equal": np.full(40 * c + 17, -9),
+        # 70 chunks with no mismatch (more than two look-back windows),
+        # a forced flush inside
+        "run over many chunks with a flush": np.concatenate(
+            [rng.integers(-9, 9, size=c + 100), np.full(70 * c, 4), rng.integers(-9, 9, size=c)]),
     }
     for name, v in edges.items():
         v = np.asarray(v, np.int16)
@@ -608,7 +615,8 @@ def phase_k3(P, dev, img) -> int:
     from ako_tpu_torch.ops import kagari_device as kd
 
     err, values = 0, 0
-    for name, streams, cap, budget in k3_cases(P, dev, img):
+    cases = k3_cases(P, dev, img)
+    for name, streams, cap, budget in cases:
         got, got_total = kd.kagari_encode_device(streams, cap, budget)
         ref, ref_total = k3_plain(streams, budget)
         e = max(_max_err(got, ref), int((got_total - ref_total).abs().max()))
@@ -618,6 +626,25 @@ def phase_k3(P, dev, img) -> int:
             raise AssertionError(f"K3 != plain on {name} {tuple(streams.shape)} budget {budget}: {e}")
         cut = int((ref_total > budget).sum())
         log(f"  K3 {name} {tuple(streams.shape)} budget {budget}: equal ({cut} rows past the budget)")
+
+    # the scratch is reused: calls of other shapes back to back, each
+    # call's epoch making the descriptors of the others stale
+    plains = {}
+    order = [cases[0], cases[-1], cases[2], cases[-3], cases[0], cases[2]]
+    outs = [kd.kagari_encode_device(t, cap, budget) for _, t, cap, budget in order]
+    for (name, streams, cap, budget), (got, got_total) in zip(order, outs):
+        ref, ref_total = plains.get(name) or plains.setdefault(name, k3_plain(streams, budget))
+        if not (torch.equal(got, ref) and torch.equal(got_total, ref_total)):
+            raise AssertionError(f"K3 != plain on {name} called back to back with other shapes")
+    log(f"  K3 back to back on {[tuple(t.shape) for _, t, _, _ in order]}: each equal")
+    # 100 calls on the north star's streams, each byte-equal to the first
+    name, streams, cap, budget = cases[0]
+    first = kd.kagari_encode_device(streams, cap, budget)
+    outs = [kd.kagari_encode_device(streams, cap, budget) for _ in range(100)]
+    for got, got_total in outs:
+        if not (torch.equal(got, first[0]) and torch.equal(got_total, first[1])):
+            raise AssertionError(f"K3 on {name}: a repeated call differs from the first")
+    log(f"  K3 100 repeated calls on {name} {tuple(streams.shape)}: each equal to the first")
     torch.cuda.synchronize()
     log(f"kernels: K3 equal to plain on {values} values")
     return err
@@ -965,17 +992,23 @@ def phase_profile(P, dev, img, card) -> dict:
                     per_kernel[k] = per_kernel.get(k, 0.0) + r["per"][name]
     os.environ.pop("AKO_TORCH_LIFT_MODE")
 
-    # K3 alone on the north star's streams: the kernel (three launches),
-    # then its plain version's torch ops
-    ((streams, cap, budget),) = group_streams(dev, img, settings["north_t128"])
-    r = _profile_window(lambda: kagari_encode_device(streams, cap, budget))
-    k3 = {n: round(v, 4) for n, v in r["per"].items() if DEVICE_KERNELS.get(n) == "kagari_encode"}
-    plain = _profile_window(lambda: k3_plain(streams, budget))
-    log(f"profile K3 kernel on {tuple(streams.shape)}: device ms {k3} (sum "
-        f"{sum(k3.values()):.4f}), {r['kernels']} device kernels, busy {r['busy']:.4f} ms of wall "
-        f"{r['wall']:.3f} ms, enqueue {r['enqueue']:.3f} ms; its plain version (torch ops): busy "
-        f"{plain['busy']:.3f} ms in {plain['events']} device events, enqueue "
-        f"{plain['enqueue']:.3f} ms [{card}]")
+    # K3 alone on the north star's streams and on the whole tile's: one
+    # device kernel a call and nothing else on the device (no memset, no
+    # torch op); then its plain version's torch ops
+    for setting in ("north_t128", "default_whole"):
+        ((streams, cap, budget),) = group_streams(dev, img, settings[setting])
+        r = _profile_window(lambda: kagari_encode_device(streams, cap, budget))
+        k3 = {n: round(v, 4) for n, v in r["per"].items()
+              if DEVICE_KERNELS.get(n) == "kagari_encode"}
+        if (r["events"], r["kernels"], list(r["per"])) != (1, 1, ["kagari_encode"]):
+            raise AssertionError(f"K3 call on {setting}: device work {r['per']} in {r['events']} "
+                                 "events, expected the one kernel")
+        plain = _profile_window(lambda: k3_plain(streams, budget))
+        log(f"profile K3 kernel {setting} on {tuple(streams.shape)}: device ms {k3}, "
+            f"{r['kernels']} device kernel, {r['events']} device event, busy {r['busy']:.4f} ms "
+            f"of wall {r['wall']:.3f} ms, enqueue {r['enqueue']:.3f} ms; its plain version (torch "
+            f"ops): busy {plain['busy']:.3f} ms in {plain['events']} device events, enqueue "
+            f"{plain['enqueue']:.3f} ms [{card}]")
     return {k: round(v, 4) for k, v in per_kernel.items()}
 
 
@@ -1061,14 +1094,20 @@ def k4_times(dev, blob, card) -> tuple:
 
 def k3_times(P, dev, img, card) -> tuple:
     """K3 vs its plain version on the card on the north star's streams
-    (CUDA events)."""
+    (CUDA events), and K3 on the whole tile's stream (the profiler's
+    median of 20 launches, and CUDA events)."""
     from ako_tpu_torch.ops.kagari_device import kagari_encode_device
 
-    ((streams, cap, budget),) = group_streams(dev, img, north_star_settings(P)["north_t128"])
+    settings = north_star_settings(P)
+    ((streams, cap, budget),) = group_streams(dev, img, settings["north_t128"])
     kern = _event_ms(lambda: kagari_encode_device(streams, cap, budget))
     plain = _event_ms(lambda: k3_plain(streams, budget), iters=3)
-    log(f"  K3 per image: kernel {kern:.4f} ms (CUDA events, launches included), "
+    log(f"  K3 per image: kernel {kern:.4f} ms (CUDA events, launch included), "
         f"plain {plain:.4f} ms [{card}]")
+    ((whole, wcap, wbudget),) = group_streams(dev, img, settings["default_whole"])
+    fn = lambda: kagari_encode_device(whole, wcap, wbudget)
+    log(f"  K3 whole tile {tuple(whole.shape)}: kernel {_launch_ms(fn, 'kagari_encode'):.4f} ms "
+        f"(profiler), {_event_ms(fn):.4f} ms (CUDA events) [{card}]")
     return round(kern, 4), round(plain, 4)
 
 
