@@ -14,11 +14,12 @@ for a block; in the split wiring per-level V-only launches
 Kagari coding runs there too: tokenize and pack as one launch of one
 CUDA kernel per shape group (csrc/kagari_encode.cu), the block-parallel
 decode as another (csrc/kagari_decode.cu) from host sync records;
-MANBAVARAN under AKO_TPU_MANBAVARAN=1 codes on the host only (the device
-rANS coder is not ported). Otherwise, and for the
+MANBAVARAN under AKO_TPU_MANBAVARAN=1 is rANS-coded there by two more
+(csrc/manba_encode.cu, csrc/manba_decode.cu). Otherwise, and for the
 container, the port's copy of the native C runtime (csrc/akort.c)
-codes on the host. The package imports torch and numpy, never JAX, and
-reads no file of ako_tpu.
+codes on the host; AKO_TPU_ENCODE=host / AKO_TPU_DECODE=host code every
+tile there. decode.decode_tiles_iter is the streaming decode. The
+package imports torch and numpy, never JAX, and reads no file of ako_tpu.
 """
 
 from ako_tpu_torch.core.settings import (

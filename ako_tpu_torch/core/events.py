@@ -4,7 +4,9 @@ The codec fires START/END pairs through a user callback
 `events(tile_no, total_tiles, event, user_data)` (reference
 library/ako.h:75-84). The device stage runs per tile-shape group, so
 FORMAT and WAVELET fire once per group (tile_no = the group's first
-tile) and COMPRESSION once per tile, as in ako_tpu's host-entropy path.
+tile), as in ako_tpu's device paths; AKO_TPU_EVENTS=tile and the host
+modes (AKO_TPU_ENCODE=host, AKO_TPU_DECODE=host) fire every pair per
+tile, as the reference does.
 """
 
 from __future__ import annotations

@@ -10,18 +10,29 @@ Two paths, as in ako_tpu's encode (ako_tpu/encode.py:962-1003):
   there. Only the (T,) compressed sizes and the compressed rows come
   back; tiles near the capacity take the host coder on the stream that
   is already on the device.
+- device entropy with MANBAVARAN under AKO_TPU_MANBAVARAN=1
+  (ako_tpu/encode.py:792-856): the same upload and lift, then the rANS
+  encoder (ops/manba_device.py, kernel K6e); one small record per tile
+  comes back, then only the used bytes, and the host frames each payload
+  (runtime/kagari.py manba_assemble). A tile that does not fit takes the
+  host coder on its stream.
 - host entropy (device_entropy=False; ako_tpu/encode.py:333-375 then
   :983-1003): the (T, coeff_count) int16 streams come back once and the
   host coder (akort.c) compresses each tile: Kagari, or rANS for
   MANBAVARAN under AKO_TPU_MANBAVARAN=1 (runtime/kagari.py).
 
-The host assembles the container. Blob bytes are identical to
-ako_tpu's and the reference encoder's for every settings combination.
+Two modes of ako_tpu are kept: AKO_TPU_ENCODE=host codes every tile with
+the native runtime alone (runtime/hostcodec.py), and AKO_TPU_EVENTS=tile
+with an events callback runs the device-entropy Kagari path one tile at a
+time with the reference's per-tile event pairs. The host assembles the
+container. Blob bytes are identical to ako_tpu's and the reference
+encoder's for every settings combination.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional
 
 import numpy as np
@@ -41,9 +52,18 @@ from ako_tpu_torch.core.settings import (
 from ako_tpu_torch.ops.colorspace import to_planar_yuv
 from ako_tpu_torch.ops.kagari_device import kagari_encode_device
 from ako_tpu_torch.ops.lifting import forward_tiles
+from ako_tpu_torch.ops.manba_device import manba_encode_device, unpack_record
 from ako_tpu_torch.ops.quantization import level_qg
-from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, compress_block, effective_method
+from ako_tpu_torch.runtime import hostcodec
+from ako_tpu_torch.runtime.kagari import (
+    BLOCK_HEAD,
+    MANBA_HEAD,
+    compress_block,
+    effective_method,
+    manba_assemble,
+)
 from ako_tpu_torch.utils import metrics
+from ako_tpu_torch.utils.tracing import traced
 
 #: device-entropy fallback margin: within this many bytes of capacity,
 #: the host coder decides, so the reference's exact bounds checks
@@ -57,6 +77,21 @@ def pack_budget(capacity: int, quantization: int) -> int:
     4096."""
     budget = capacity // 2 if quantization > 0 else capacity * 7 // 8
     return max(budget, 4096)
+
+
+def host_encode_mode() -> bool:
+    """AKO_TPU_ENCODE=host: every tile's colour transform, lift and
+    entropy coding run in the native runtime (runtime/hostcodec.py), one
+    tile at a time with the reference's per-tile events, and the device
+    is not used (ako_tpu/encode.py:65-74)."""
+    return os.environ.get("AKO_TPU_ENCODE") == "host"
+
+
+def tile_events_mode(events) -> bool:
+    """AKO_TPU_EVENTS=tile with an events callback: the device-entropy
+    Kagari paths run one tile at a time with the reference's per-tile
+    event pairs (ako_tpu/encode.py:737-741)."""
+    return events is not None and os.environ.get("AKO_TPU_EVENTS") == "tile"
 
 
 def resolve_device(device) -> torch.device:
@@ -172,6 +207,25 @@ def encode_tiles_device(
     return out
 
 
+def staging_source(image: np.ndarray) -> tuple:
+    """(src, fill_val): the image as a tensor to stage tiles from, without
+    its constant last channel when it has one (image_fill_val), which
+    with_fill puts back on the device."""
+    image = np.ascontiguousarray(image)  # torch takes no negative strides
+    fill_val = image_fill_val(image)
+    src = torch.from_numpy(image)
+    return (src if fill_val is None else src[..., :-1]), fill_val
+
+
+def with_fill(tiles_dev, fill_val):
+    """The staged tiles with their constant last channel appended on the
+    device (no-op when fill_val is None)."""
+    if fill_val is None:
+        return tiles_dev
+    last = tiles_dev.new_full(tiles_dev.shape[:-1] + (1,), fill_val)
+    return torch.cat([tiles_dev, last], dim=-1)
+
+
 def dispatch_tiles_fused(
     image: np.ndarray,
     s: Settings,
@@ -188,11 +242,7 @@ def dispatch_tiles_fused(
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
     total = len(grid)
-    image = np.ascontiguousarray(image)  # torch takes no negative strides
-    fill_val = image_fill_val(image)
-    src = torch.from_numpy(image)
-    if fill_val is not None:
-        src = src[..., :-1]
+    src, fill_val = staging_source(image)
 
     dispatched = []
     for (tw, th), tiles in geometry.group_by_shape(grid).items():
@@ -202,12 +252,9 @@ def dispatch_tiles_fused(
         fire(events, t0, total, Event.FORMAT_START, events_user)
         tiles_dev = stage_tiles(src, tiles, tw, th).to(device)
         fire(events, t0, total, Event.FORMAT_END, events_user)
-        if fill_val is not None:
-            last = tiles_dev.new_full(tiles_dev.shape[:-1] + (1,), fill_val)
-            tiles_dev = torch.cat([tiles_dev, last], dim=-1)
         # the stream stays on the device for the near-capacity fallback,
         # so no tile is lifted twice
-        stream = forward_streams(tiles_dev, tw, th, channels, s)
+        stream = forward_streams(with_fill(tiles_dev, fill_val), tw, th, channels, s)
         comp, totals = kagari_encode_device(stream, capacity, budget)
         dispatched.append((tiles, stream, comp, totals, capacity, budget))
     return grid, dispatched
@@ -251,6 +298,143 @@ def collect_tiles_blocks(grid, dispatched, events=None, events_user=None) -> lis
     return out
 
 
+def encode_tiles_blocks_manba(image: np.ndarray, s: Settings, device: torch.device,
+                              events=None, events_user=None) -> list:
+    """Device-entropy encode for the MANBAVARAN extension
+    (ako_tpu/encode.py:792-856): per shape group one u8 upload, the
+    colour transform, lift and quantize/gate (forward_streams), then the
+    rANS encoder (manba_encode_device). One (T, RECORD_WORDS) record comes
+    back, then only the used bytes (the group's longest rANS tail and
+    extras head); the host frames each payload (manba_assemble). A tile
+    whose payload does not fit its capacity takes the host coder on its
+    stream; both kinds are counted (utils/metrics.py).
+
+    Events per shape group as ako_tpu's: FORMAT around staging and
+    upload, WAVELET around the device work up to the record, COMPRESSION
+    around the byte download and framing."""
+    image_h, image_w, channels = image.shape
+    grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
+    total = len(grid)
+    src, fill_val = staging_source(image)
+    out: list = [None] * total
+    for (tw, th), tiles in geometry.group_by_shape(grid).items():
+        capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
+        t0 = tiles[0].index
+        fire(events, t0, total, Event.FORMAT_START, events_user)
+        tiles_dev = stage_tiles(src, tiles, tw, th).to(device)
+        fire(events, t0, total, Event.FORMAT_END, events_user)
+        fire(events, t0, total, Event.WAVELET_START, events_user)
+        stream = forward_streams(with_fill(tiles_dev, fill_val), tw, th, channels, s)
+        record, rans, extras = manba_encode_device(stream, capacity)
+        freq, x, rbytes, ebits, ok = unpack_record(record.cpu())
+        fire(events, t0, total, Event.WAVELET_END, events_user)
+        fire(events, t0, total, Event.COMPRESSION_START, events_user)
+        ebytes = (ebits + 7) // 8
+        fits = ok & (MANBA_HEAD.size + rbytes + ebytes <= capacity)
+        use = np.flatnonzero(fits)
+        fallback = np.flatnonzero(~fits)
+        if len(use):
+            rw, ew = int(rbytes[use].max()), int(ebytes[use].max())
+            rans_tail = rans[:, capacity - rw :].cpu().numpy()
+            extras_head = extras[:, :ew].cpu().numpy()
+            for i in use:
+                payload = manba_assemble(freq[i], x[i], rans_tail[i, rw - rbytes[i] :], rbytes[i],
+                                         extras_head[i], ebits[i], ok[i], capacity)
+                out[tiles[i].index] = BLOCK_HEAD.pack(len(payload)) + payload
+        if len(fallback):
+            streams = stream[torch.from_numpy(fallback).to(stream.device)].cpu().numpy()
+            for values, i in zip(streams, fallback):
+                block = compress_block(values, capacity + BLOCK_HEAD.size, s.compression)
+                if block is None:
+                    raise AkoError(Status.ERROR, "incompressible tile")
+                out[tiles[i].index] = block
+        metrics.bump(metrics.ENC_DEVICE, len(use))
+        metrics.bump(metrics.ENC_HOST_FALLBACK, len(fallback))
+        fire(events, t0, total, Event.COMPRESSION_END, events_user)
+    return out
+
+
+def wait_device(t) -> None:
+    """Wait for the device work queued on t's stream (nothing on the
+    CPU)."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def encode_tiles_blocks_tile_events(image: np.ndarray, s: Settings, device: torch.device,
+                                    events, events_user) -> list:
+    """The device-entropy Kagari encode one tile at a time, with the
+    reference's per-tile event pairs (ako.h:75-84; ako_tpu/encode.py:
+    674-734): FORMAT around staging and upload, WAVELET around the lift,
+    COMPRESSION around the pack, its download and the framing; each stage
+    boundary waits for the device. A tracing mode: the same blocks as the
+    batched path, at the cost of one dispatch a tile."""
+    image_h, image_w, channels = image.shape
+    grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
+    total = len(grid)
+    src = torch.from_numpy(np.ascontiguousarray(image))
+    out = []
+    for t in grid:
+        capacity = tile_stream_bytes(t, s, channels) - BLOCK_HEAD.size
+        budget = pack_budget(capacity, s.quantization)
+        fire(events, t.index, total, Event.FORMAT_START, events_user)
+        tiles_dev = stage_tiles(src, [t], t.w, t.h).to(device)
+        wait_device(tiles_dev)
+        fire(events, t.index, total, Event.FORMAT_END, events_user)
+        fire(events, t.index, total, Event.WAVELET_START, events_user)
+        stream = forward_streams(tiles_dev, t.w, t.h, channels, s)
+        wait_device(stream)
+        fire(events, t.index, total, Event.WAVELET_END, events_user)
+        fire(events, t.index, total, Event.COMPRESSION_START, events_user)
+        comp, totals = kagari_encode_device(stream, capacity, budget)
+        n = int(totals[0])
+        if n > budget or n >= capacity - _CAPACITY_MARGIN:
+            metrics.bump(metrics.ENC_HOST_FALLBACK)
+            block = compress_block(stream[0].cpu().numpy(), capacity + BLOCK_HEAD.size)
+            if block is None:
+                raise AkoError(Status.ERROR, "incompressible tile")
+        else:
+            metrics.bump(metrics.ENC_DEVICE)
+            block = BLOCK_HEAD.pack(n) + comp[0, :n].cpu().numpy().tobytes()
+        out.append(block)
+        fire(events, t.index, total, Event.COMPRESSION_END, events_user)
+    return out
+
+
+def encode_tiles_host(image: np.ndarray, s: Settings, events=None, events_user=None) -> list:
+    """AKO_TPU_ENCODE=host: every tile through the native runtime, with
+    the reference's per-tile events (ako_tpu/encode.py:924-960): FORMAT
+    around the colour transform, WAVELET around the lift, COMPRESSION
+    around the entropy coder. Returns the blocks in tile order."""
+    image_h, image_w, channels = image.shape
+    grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
+    total = len(grid)
+    blocks = []
+    for t in grid:
+        tile = image[t.y : t.y + t.h, t.x : t.x + t.w, :]
+        fire(events, t.index, total, Event.FORMAT_START, events_user)
+        planes = hostcodec.u8_to_planes(tile, s.color, bool(s.discard_non_visible))
+        fire(events, t.index, total, Event.FORMAT_END, events_user)
+        fire(events, t.index, total, Event.WAVELET_START, events_user)
+        if s.wavelet == Wavelet.NONE:
+            stream = np.ascontiguousarray(planes).reshape(-1)
+        else:
+            qg = tile_qg(t.w, t.h, channels, s.quantization, s.gate, s.chroma_loss)
+            stream = hostcodec.tile_lift(planes, s.wavelet, s.wrap, qg)
+        fire(events, t.index, total, Event.WAVELET_END, events_user)
+        fire(events, t.index, total, Event.COMPRESSION_START, events_user)
+        if s.compression == Compression.NONE:
+            blocks.append(stream.tobytes())
+        else:
+            block = compress_block(stream, tile_stream_bytes(t, s, channels), s.compression)
+            if block is None:
+                raise AkoError(Status.ERROR, "incompressible tile")
+            blocks.append(block)
+        fire(events, t.index, total, Event.COMPRESSION_END, events_user)
+    return blocks
+
+
+@traced
 def encode(
     image: np.ndarray,
     settings: Optional[Settings] = None,
@@ -266,7 +450,9 @@ def encode(
     the CUDA card (raises when there is none), "cpu" the plain torch
     path. `device_entropy`: Kagari coding on the device too; None means
     yes on a CUDA device and no on the CPU, as ako_tpu's rule for its
-    backend. `events` is the per-stage tracing hook (core.events)."""
+    backend. `events` is the per-stage tracing hook (core.events);
+    AKO_TPU_EVENTS=tile makes the device-entropy Kagari path fire it per
+    tile. AKO_TPU_ENCODE=host codes every tile in the native runtime."""
     if image is None:
         raise AkoError(Status.INVALID_INPUT)
     image = np.asarray(image)
@@ -281,16 +467,17 @@ def encode(
     s = checked_settings(settings)
     image_h, image_w, channels = image.shape
     head = container.head_write(channels, image_w, image_h, s)
+    if host_encode_mode():
+        return head + b"".join(encode_tiles_host(image, s, events, events_user))
     method = effective_method(s.compression)
 
     if device_entropy and method == Compression.MANBAVARAN:
-        # ako_tpu codes these tiles with its device rANS encoder, which
-        # the port does not have yet; no host coder stands in for it
-        raise NotImplementedError(
-            "device-entropy MANBAVARAN (AKO_TPU_MANBAVARAN=1) needs the device rANS coder K6, "
-            "ROADMAP item 5; pass device_entropy=False")
+        return head + b"".join(encode_tiles_blocks_manba(image, s, dev, events, events_user))
     if device_entropy and method == Compression.KAGARI:
         # KAGARI and the reserved MANBAVARAN flag (Kagari bytes)
+        if tile_events_mode(events):
+            return head + b"".join(
+                encode_tiles_blocks_tile_events(image, s, dev, events, events_user))
         grid, dispatched = dispatch_tiles_fused(image, s, dev, events, events_user)
         return head + b"".join(collect_tiles_blocks(grid, dispatched, events, events_user))
 

@@ -36,6 +36,11 @@ _SIGNATURES = {
     "akort_manba_encode": (_SZ, [_P, _SZ, _P, _SZ]),
     "akort_manba_decode": (_SZ, [_SZ, _P, _SZ, _P, _SZ]),
     "akort_kagari_sync": (_SZ, [_SZ, _P, _SZ, _SZ, _SZ, _P, _P, _P, _P, _P]),
+    "akort_manba_sync": (_SZ, [_SZ, _P, _SZ, _SZ, _P, _P, _P, _P, _P, _P, _P]),
+    "akort_u8_to_planes": (None, [_P, _I32, _I32, _I32, _I32, _I32, _P]),
+    "akort_tile_lift": (_I32, [_P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _SZ]),
+    "akort_tile_unlift": (_I32, [_P, _SZ, _I32, _I32, _I32, _I32, _I32, _P]),
+    "akort_planes_to_u8": (None, [_P, _I32, _I32, _I32, _I32, _P]),
     "akort_tile_encode_block": (
         _SZ,
         [_P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P, _SZ, _P, _SZ, _P],

@@ -59,6 +59,48 @@ def manba_encode(values: np.ndarray, output_capacity: int) -> bytes | None:
     return out[:n].tobytes()
 
 
+#: Manbavaran payload head: magic 'R', rans byte count, 17 x 12-bit
+#: model freqs, final rANS state (wire format at akort.c's coder)
+MANBA_HEAD = struct.Struct("<BI17HI")
+
+
+def manba_assemble(
+    freq,
+    x_final,
+    rans_row: np.ndarray,
+    rans_bytes: int,
+    extras_row: np.ndarray,
+    extras_bits: int,
+    ok,
+    output_capacity: int,
+) -> bytes | None:
+    """Frame the device rANS encoder's pieces
+    (ops.manba_device.manba_encode_device) into the Manbavaran payload.
+    None when the model failed, the device budget truncated a stream,
+    or the total exceeds the capacity: the caller then takes the native
+    host coder, whose accept/reject boundary is the ground truth (it may
+    still succeed when only the device budget was the limit)."""
+    if not bool(ok):
+        return None
+    rans_bytes = int(rans_bytes)
+    extras_bytes = (int(extras_bits) + 7) // 8
+    total = MANBA_HEAD.size + rans_bytes + extras_bytes
+    if (
+        total > output_capacity
+        or rans_bytes > rans_row.shape[0]
+        or extras_bytes > extras_row.shape[0]
+    ):
+        return None
+    head = MANBA_HEAD.pack(
+        0x52, rans_bytes, *[int(f) for f in np.asarray(freq)], int(x_final)
+    )
+    return (
+        head
+        + np.asarray(rans_row[:rans_bytes]).tobytes()
+        + np.asarray(extras_row[:extras_bytes]).tobytes()
+    )
+
+
 def kagari_encode(values: np.ndarray, output_capacity: int) -> bytes | None:
     """Encode an int16 array; None when the stream won't fit (the
     incompressible-tile failure mode, which the orchestrator surfaces
@@ -138,6 +180,39 @@ def kagari_sync(
     if consumed == 0:
         return None
     return bit_off, prev, consec, run, consumed, int(max_bits[0])
+
+
+def manba_sync(count: int, blob: bytes | memoryview, block: int) -> tuple | None:
+    """Scan a Manbavaran payload and return per-block sync records for
+    the device decoder (ops/manba_device.py): (x u32, rbyte u32, ebit
+    u32 arrays, freq (17,) u16, rans_off, rans_end, extras_off,
+    consumed). None on anything akort_manba_decode would reject, a
+    non-manba payload included: reference-style reserved-flag blobs fail
+    the magic check and scan as Kagari."""
+    lib = load()
+    src = np.frombuffer(blob, dtype=np.uint8)
+    n_rec = (count + block - 1) // block
+    x = np.zeros(n_rec, dtype=np.uint32)
+    rbyte = np.zeros(n_rec, dtype=np.uint32)
+    ebit = np.zeros(n_rec, dtype=np.uint32)
+    freq = np.zeros(17, dtype=np.uint16)
+    offs = np.zeros(3, dtype=np.uint32)
+    consumed = lib.akort_manba_sync(
+        count,
+        src.ctypes.data if src.size else None,
+        src.nbytes,
+        block,
+        x.ctypes.data,
+        rbyte.ctypes.data,
+        ebit.ctypes.data,
+        freq.ctypes.data,
+        offs[0:].ctypes.data,
+        offs[1:].ctypes.data,
+        offs[2:].ctypes.data,
+    )
+    if consumed == 0:
+        return None
+    return x, rbyte, ebit, freq, int(offs[0]), int(offs[1]), int(offs[2]), consumed
 
 
 def manba_decode(count: int, blob: bytes | memoryview) -> np.ndarray | None:

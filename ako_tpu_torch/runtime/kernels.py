@@ -2,8 +2,9 @@
 kernels of the per-level API and the split wiring (csrc/lift2d.cu), the
 whole-pyramid lift kernels (csrc/lift_pyramid.cu), the one-launch level
 kernels for planes too large for a pyramid block (csrc/lift_level.cu), the
-Kagari tokenize + pack (csrc/kagari_encode.cu, one launch a call) and the
-Kagari block decoder (csrc/kagari_decode.cu).
+Kagari tokenize + pack (csrc/kagari_encode.cu, one launch a call), the
+Kagari block decoder (csrc/kagari_decode.cu), and the Manbavaran rANS
+encoder and block decoder (csrc/manba_encode.cu, csrc/manba_decode.cu).
 
 At first use one `nvcc -c` per source, all started together, then one
 link build a shared library with a plain C interface in this package's
@@ -30,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [
     os.path.join(_PKG, "csrc", f)
     for f in ("lift2d.cu", "lift_pyramid.cu", "lift_level.cu", "kagari_encode.cu",
-              "kagari_decode.cu")
+              "kagari_decode.cu", "manba_encode.cu", "manba_decode.cu")
 ]
 #: what the library is rebuilt after: the sources and the header they include
 DEPENDS = [*SOURCES, os.path.join(_PKG, "csrc", "lift_common.cuh")]
@@ -100,6 +101,9 @@ _SIGNATURES = {
     "ako_unlift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
     "ako_lift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
     "ako_unlift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
+    "ako_manba_encode": [_P] * 5 + [_I, _I, _I, _I, _P],
+    "ako_manba_decode": [_P, _LL] + [_P] * 8 + [_I, _I, _I, _P],
+    "ako_manba_chain_probe": [_P, _LL, _I, _P],
 }
 
 
@@ -230,3 +234,26 @@ def unlift_level(args, ll, coeffs, dst, tiles, stream) -> None:
     """Launch one inverse level on `stream` (see lift_level)."""
     _check(load().ako_unlift_level(ctypes.byref(args), ll, coeffs, dst, tiles, stream),
            "ako_unlift_level")
+
+
+def manba_encode(values, record, scratch, rans, extras, rows, n, budget, row_words, stream) -> None:
+    """Launch the Manbavaran encoder (K6e, three launches: symbols and
+    histograms, the model, the chains beside the extras pack) on
+    `stream`."""
+    _check(load().ako_manba_encode(values, record, scratch, rans, extras, rows, n, budget,
+                                   row_words, stream), "ako_manba_encode")
+
+
+def manba_decode(pool, pool_words, base, rans_end, extras_off, x, rbyte, ebit, freq, out, tiles,
+                 blocks, n_outputs, stream) -> None:
+    """Launch the Manbavaran block decoder (K6d) on `stream`."""
+    _check(load().ako_manba_decode(pool, pool_words, base, rans_end, extras_off, x, rbyte, ebit,
+                                   freq, out, tiles, blocks, n_outputs, stream),
+           "ako_manba_decode")
+
+
+def manba_chain_probe(out, steps, freq, stream) -> None:
+    """Launch one thread of K6e's chain step `steps` times with the
+    symbol's frequency `freq` held in registers (no load on the chain):
+    the chain's latency floor per step."""
+    _check(load().ako_manba_chain_probe(out, steps, freq, stream), "ako_manba_chain_probe")

@@ -9,9 +9,9 @@ Phases, each raising on failure (so the run exits non-zero and prints
 no result line):
   1. device   - a CUDA card is present; print its name and power limit
   2. build    - one nvcc per source (csrc/lift2d.cu, lift_pyramid.cu,
-                lift_level.cu, kagari_encode.cu, kagari_decode.cu), all
-                started together, then a link; cc builds the port's
-                csrc/akort.c
+                lift_level.cu, kagari_encode.cu, kagari_decode.cu,
+                manba_encode.cu, manba_decode.cu), all started together,
+                then a link; cc builds the port's csrc/akort.c
   3. kernels  - every kernel equals its plain torch version bit for bit
                 on the card: K1/K2 and K1v/K2v on every wavelet x wrap
                 at the north star's 128-px level planes (and transposed
@@ -41,16 +41,32 @@ no result line):
                 star's streams; K4 on the north star's streams and on
                 edge streams, on both its routes (spans staged in shared
                 memory, and spans too wide for it that read the pool)
+     k6       - K6e (the Manbavaran rANS encoder: record, rANS and extras
+                bytes) and K6d (its block decoder) bit for bit against
+                their plain versions on the card: the north star's 80
+                streams at q=16 and lossless q=0, the kinds of
+                tests/test_manbavaran.py (photo, zeros, full range,
+                -32768, a single value, runs), a budget that cuts, and
+                calls of other shapes back to back; both against the
+                native coder (akort_manba_encode / akort_manba_decode)
+                there too and on the whole tile's 5,242,932-value stream,
+                where the plain chain (a torch loop over positions) is too
+                slow and is skipped
   4. goldens  - tests/golden blobs and pixels are reproduced exactly,
                 on both entropy paths
   5. north    - the north-star image (fbm corpus, seed 42, 1024x1280
                 RGBA) through encode/decode at 128-px tiles, at the
                 default whole-image tile and lossless q=0: on the host
                 entropy path, then on the device-entropy path in both
-                lift wirings (fused, split). Blobs byte-equal and pixels
-                bit-equal to the one-call native tile codec
-                (runtime/hostcodec.py); no host fallback tile; each
-                path's kernel launches counted from zero and exact
+                lift wirings (fused, split); and MANBAVARAN under
+                AKO_TPU_MANBAVARAN=1 at 128-px tiles and the whole tile
+                (north_t128_manba, default_whole_manba). Blobs byte-equal
+                and pixels bit-equal to the native tile codec
+                (runtime/hostcodec.py: the one-call Kagari codec, or the
+                per-tile colour, lift and rANS coder); no host fallback
+                tile; each path's kernel launches counted from zero and
+                exact (one manba_encode and one manba_decode per shape
+                group of a MANBAVARAN device-entropy setting)
   6. profile  - torch.profiler over one warm north-star encode and
                 decode on each path: device time per kernel, device busy
                 and idle share; K3 alone on the north star's streams and
@@ -58,13 +74,17 @@ no result line):
                 device work) beside its plain version's torch ops; and
                 over the default whole tile's device-entropy encode and
                 decode, where the fused wiring runs lift_level /
-                unlift_level on levels 0-2
+                unlift_level on levels 0-2, and over both MANBAVARAN
+                settings' device-entropy encode and decode
   7. timings  - encode/decode ms and MP/s, per-stage host times,
                 per-level kernel time against the plain torch version
                 (lift_level / unlift_level and K1/K2 on the whole tile's
                 levels before pyramid_start, K1v/K2v on the north
                 star's), and the pyramid kernels' device ms per start
-                level and per tile count
+                level and per tile count; for MANBAVARAN on both paths;
+                K6e and K6d alone against their plain versions, the
+                native coder, and the chain's latency floor (one thread
+                stepping the chain with no load on it)
   8. streams  - device ms and host enqueue ms of encode.forward_streams
                 and decode.stream_pixels on the north star's 128-px tile
                 group and on the default whole tile: kernel launches,
@@ -78,6 +98,7 @@ times and bound; the last line is the JSON result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -111,6 +132,15 @@ K4_OPS = 20
 #: the neighbours, the max and sum scans, the run counter's modulo and
 #: tests, two gamma lengths, and placing a code's parts in its words
 K3_OPS = 30
+#: integer operations per value K6e codes: the zigzag, the symbol's
+#: __clz and histogram vote, the chain step (two compares, two shifts,
+#: the multiply-high, the multiply-add, the byte stores) and the extras'
+#: scan and placement
+K6E_OPS = 25
+#: integer operations per value K6d decodes: the slot table's fields,
+#: the state update, the refill compares and merges, the extras window
+#: and the unzigzag
+K6D_OPS = 20
 #: (path name, device_entropy, lift wiring)
 PATHS = [("host", False, "fused"), ("device_fused", True, "fused"), ("device_split", True, "split")]
 REPLACES = {
@@ -124,12 +154,16 @@ REPLACES = {
     "unlift_pyramid": "ako_tpu/ops/pallas_lift.py:184",
     "lift_level": "ako_tpu/ops/pallas_lift.py:90",
     "unlift_level": "ako_tpu/ops/pallas_lift.py:184",
+    "manba_encode": "ako_tpu/ops/manba_device.py:250",
+    "manba_decode": "ako_tpu/ops/manba_device.py:96",
 }
 SOURCES = {k: "ako_tpu_torch/csrc/lift2d.cu" for k in REPLACES}
 SOURCES["kagari_decode"] = "ako_tpu_torch/csrc/kagari_decode.cu"
 SOURCES["kagari_encode"] = "ako_tpu_torch/csrc/kagari_encode.cu"
 SOURCES["lift_pyramid"] = SOURCES["unlift_pyramid"] = "ako_tpu_torch/csrc/lift_pyramid.cu"
 SOURCES["lift_level"] = SOURCES["unlift_level"] = "ako_tpu_torch/csrc/lift_level.cu"
+SOURCES["manba_encode"] = "ako_tpu_torch/csrc/manba_encode.cu"
+SOURCES["manba_decode"] = "ako_tpu_torch/csrc/manba_decode.cu"
 #: the (path, setting) whose profiled run gives each kernel's JSON row:
 #: the fused device-entropy north star at 128-px tiles, but K1v/K2v run
 #: only in the split wiring, and lift_level / unlift_level only on the
@@ -139,7 +173,9 @@ SOURCES["lift_level"] = SOURCES["unlift_level"] = "ako_tpu_torch/csrc/lift_level
 ROW_RUN = {k: ("device_fused", "north_t128") for k in REPLACES}
 ROW_RUN.update(vlift=("device_split", "north_t128"), vunlift=("device_split", "north_t128"),
                **{k: ("device_fused", "default_whole")
-                  for k in ("lift2d", "unlift2d", "lift_level", "unlift_level")})
+                  for k in ("lift2d", "unlift2d", "lift_level", "unlift_level")},
+               manba_encode=("device_fused", "north_t128_manba"),
+               manba_decode=("device_fused", "north_t128_manba"))
 #: profiler kernel names -> kernel of the JSON line
 DEVICE_KERNELS = {
     "lift_h": "lift2d", "lift_v": "lift2d", "unlift_v": "unlift2d", "unlift_h": "unlift2d",
@@ -147,6 +183,8 @@ DEVICE_KERNELS = {
     "kagari_encode": "kagari_encode",
     "lift_pyramid": "lift_pyramid", "unlift_pyramid": "unlift_pyramid",
     "lift_level": "lift_level", "unlift_level": "unlift_level",
+    "manba_stats": "manba_encode", "manba_model": "manba_encode",
+    "manba_chain_pack": "manba_encode", "manba_decode": "manba_decode",
 }
 #: a kernel's name in a profiler event, demangled ("ns::lift_h<0>(...)")
 #: or mangled ("...6lift_hILi0E...")
@@ -173,16 +211,46 @@ def north_star_settings(P):
     }
 
 
-def all_launches() -> dict:
-    from ako_tpu_torch.ops import kagari_device, lift_kernels
+def manba_settings(P):
+    """The MANBAVARAN settings of the north-star phase, each run with
+    AKO_TPU_MANBAVARAN=1 (manba_env)."""
+    m = P.Compression.MANBAVARAN
+    return {
+        "north_t128_manba": P.Settings(quantization=16, tiles_dimension=128, compression=m),
+        "default_whole_manba": P.Settings(compression=m),
+    }
 
-    return {**lift_kernels.LAUNCHES, **kagari_device.LAUNCHES}
+
+@contextlib.contextmanager
+def manba_env(on: bool = True):
+    """AKO_TPU_MANBAVARAN=1 inside the block when `on` (the MANBAVARAN
+    settings code rANS under it), and the variable as it was after."""
+    old = os.environ.get("AKO_TPU_MANBAVARAN")
+    if on:
+        os.environ["AKO_TPU_MANBAVARAN"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("AKO_TPU_MANBAVARAN", None)
+        else:
+            os.environ["AKO_TPU_MANBAVARAN"] = old
+
+
+def is_manba(name: str) -> bool:
+    return name.endswith("_manba")
+
+
+def all_launches() -> dict:
+    from ako_tpu_torch.ops import kagari_device, lift_kernels, manba_device
+
+    return {**lift_kernels.LAUNCHES, **kagari_device.LAUNCHES, **manba_device.LAUNCHES}
 
 
 def reset_launches() -> None:
-    from ako_tpu_torch.ops import kagari_device, lift_kernels
+    from ako_tpu_torch.ops import kagari_device, lift_kernels, manba_device
 
-    for counts in (lift_kernels.LAUNCHES, kagari_device.LAUNCHES):
+    for counts in (lift_kernels.LAUNCHES, kagari_device.LAUNCHES, manba_device.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -204,14 +272,14 @@ def phase_build():
     stack = max((int(b) for b in re.findall(r"(\d+) bytes stack frame", kernels.build_log)),
                 default=0)
     log(f"build: nvcc lift2d.cu, lift_pyramid.cu, lift_level.cu, kagari_encode.cu, "
-        f"kagari_decode.cu "
+        f"kagari_decode.cu, manba_encode.cu, manba_decode.cu "
         f"{t_cuda:.2f} s, cc csrc/akort.c "
         f"{t_akort:.2f} s; ptxas max registers {max(regs, default=0)}, spill stores {spills} B, "
         f"largest stack frame {stack} B")
     lines = kernels.build_log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and any(
-                k in line for k in ("pyramid", "kagari", "lift_level", "unlift_level")):
+                k in line for k in ("pyramid", "kagari", "lift_level", "unlift_level", "manba")):
             log("  ptxas: " + " | ".join(part.strip() for part in lines[i : i + 4]))
 
 
@@ -650,6 +718,150 @@ def phase_k3(P, dev, img) -> int:
     return err
 
 
+def manba_kinds() -> dict:
+    """The kinds of tests/test_manbavaran.py's device-encoder parity test
+    (one int16 stream each), and a lossy-like stream that crosses many
+    of K6e's chunks."""
+    rng = np.random.default_rng(0x2A15)
+    return {
+        "photo": (rng.normal(0, 2.2, size=21846) ** 3 / 8).astype(np.int16),
+        "zeros": np.zeros(5000, np.int16),
+        "fullrange": rng.integers(-32768, 32768, size=3000).astype(np.int16),
+        "int16min": np.tile(np.array([-32768, 7, -32768, 0], np.int16), 500),
+        "single": np.array([123], np.int16),
+        "runs": np.repeat(rng.integers(-60, 60, size=40).astype(np.int16), 173),
+        "chunks": (rng.normal(0, 3.0, size=20 * 4096 + 333) ** 3 / 9).astype(np.int16),
+    }
+
+
+def k6e_used(record, rans, extras, budget) -> tuple:
+    """K6e's outputs cut to what they define: the record, the rANS row's
+    last min(rans bytes, budget) bytes and the extras row's first
+    min(extras bytes, budget), on the host."""
+    from ako_tpu_torch.ops.manba_device import unpack_record
+
+    rec = record.cpu().numpy()
+    _, _, rb, eb, _ = unpack_record(rec)
+    rans, extras = rans.cpu().numpy(), extras.cpu().numpy()
+    rows = [(rans[i, budget - min(int(rb[i]), budget):].tobytes(),
+             extras[i, : min((int(eb[i]) + 7) // 8, budget)].tobytes()) for i in range(len(rec))]
+    return rec, rows
+
+
+def manba_payloads(record, rans, extras, capacity) -> list:
+    """The payload manba_assemble frames from each row of K6e's outputs
+    (None where it does not fit), as encode.encode_tiles_blocks_manba."""
+    from ako_tpu_torch.ops.manba_device import unpack_record
+    from ako_tpu_torch.runtime.kagari import manba_assemble
+
+    freq, x, rb, eb, ok = unpack_record(record.cpu())
+    rans, extras = rans.cpu().numpy(), extras.cpu().numpy()
+    budget = rans.shape[1]
+    return [manba_assemble(freq[i], x[i], rans[i, budget - min(int(rb[i]), budget):], rb[i],
+                           extras[i], eb[i], ok[i], capacity) for i in range(len(freq))]
+
+
+def manba_decode_inputs(payloads, n, dev):
+    """K6d's upload for payloads of n values each (as decode.py builds
+    it), on the card, with the plain version's spans."""
+    from ako_tpu_torch.decode import manba_spans, pack_manba_upload, split_manba_upload
+    from ako_tpu_torch.ops.manba_device import DECODE_BLOCK
+    from ako_tpu_torch.runtime.kagari import manba_sync
+
+    items = []
+    for p in payloads:
+        sync = manba_sync(n, p, DECODE_BLOCK)
+        if sync is None or sync[7] != len(p):
+            raise AssertionError("K6d inputs: a payload akort_manba_sync rejects")
+        items.append((None, p, sync))
+    buf, T, B = pack_manba_upload(items)
+    return split_manba_upload(torch.from_numpy(buf).to(dev), T, B), manba_spans(items)
+
+
+def k6_cases(P, dev, img) -> list:
+    """(name, streams on the card, budget) of phase_k6: the north star's
+    80 streams at q=16 and lossless, a budget that cuts them, the kinds
+    (one stream each, and three in one call)."""
+    cases = []
+    for name in ("north_t128", "lossless_t128"):
+        ((streams, cap, _),) = group_streams(dev, img, north_star_settings(P)[name])
+        cases.append((name, streams, cap))
+    cases.append(("north_t128 cut", cases[0][1], 1001))
+    for name, v in manba_kinds().items():
+        cases.append((name, torch.from_numpy(v[None]).to(dev), v.size * 2 + 64))
+    k = manba_kinds()
+    n = 3000
+    rows = np.stack([k["photo"][:n], k["fullrange"], k["int16min"][:n].repeat(2)[:n]])
+    cases.append(("three kinds in one call", torch.from_numpy(rows).to(dev), 2 * n + 64))
+    return cases
+
+
+def phase_k6(P, dev, img) -> dict:
+    """K6e and K6d against their plain versions on the card (k6_cases)
+    and against the native coder; K6e's calls of other shapes back to
+    back; the whole tile's stream against the native coder only. Returns
+    the largest absolute difference per kernel (must be 0)."""
+    from ako_tpu_torch.ops import manba_device as md
+    from ako_tpu_torch.runtime.kagari import manba_decode, manba_encode
+
+    err = {"manba_encode": 0, "manba_decode": 0}
+    cases = k6_cases(P, dev, img)
+    for name, streams, budget in cases:
+        got = md.manba_encode_device(streams, budget)
+        ref = md.manba_encode_plain(streams, budget)
+        g_rec, g_rows = k6e_used(*got, budget)
+        r_rec, r_rows = k6e_used(*ref, budget)
+        err["manba_encode"] = max(err["manba_encode"], int(np.abs(g_rec - r_rec).max()))
+        if not np.array_equal(g_rec, r_rec) or g_rows != r_rows:
+            bad = np.flatnonzero((g_rec != r_rec).any(axis=1))
+            raise AssertionError(f"K6e != plain on {name} {tuple(streams.shape)}: records of rows "
+                                 f"{bad[:5]} or the bytes differ")
+        values = streams.cpu().numpy()
+        payloads = manba_payloads(*got, budget)
+        cut = sum(p is None for p in payloads)
+        for v, p in zip(values, payloads):
+            if p is not None and p != manba_encode(v, budget):
+                raise AssertionError(f"K6e on {name}: a payload differs from akort_manba_encode")
+        log(f"  K6e {name} {tuple(streams.shape)} budget {budget}: equal to plain and to the "
+            f"native coder ({cut} rows past the budget)")
+        if cut:
+            continue
+        parts, spans = manba_decode_inputs(payloads, values.shape[1], dev)
+        got = md.manba_decode_device(*parts, values.shape[1])
+        ref = md.manba_decode_plain(*parts, values.shape[1], md.DECODE_BLOCK, *spans)
+        e = _max_err(got, ref)
+        err["manba_decode"] = max(err["manba_decode"], e)
+        if e or not np.array_equal(got.cpu().numpy(), values):
+            raise AssertionError(f"K6d != plain (or the stream) on {name}: {e}")
+        log(f"  K6d {name}: equal to plain and to the stream")
+
+    # calls of other shapes back to back
+    order = [cases[0], cases[-1], cases[3], cases[0], cases[2]]
+    outs = [md.manba_encode_device(t, b) for _, t, b in order]
+    for (name, streams, budget), got in zip(order, outs):
+        g_rec, g_rows = k6e_used(*got, budget)
+        r_rec, r_rows = k6e_used(*md.manba_encode_plain(streams, budget), budget)
+        if not np.array_equal(g_rec, r_rec) or g_rows != r_rows:
+            raise AssertionError(f"K6e != plain on {name} called back to back with other shapes")
+    log(f"  K6e back to back on {[tuple(t.shape) for _, t, _ in order]}: each equal")
+
+    # the whole tile's one stream: the native coder only
+    ((whole, cap, _),) = group_streams(dev, img, north_star_settings(P)["default_whole"])
+    v = whole.cpu().numpy()[0]
+    (payload,) = manba_payloads(*md.manba_encode_device(whole, cap), cap)
+    if payload is None or payload != manba_encode(v, cap):
+        raise AssertionError("K6e on the whole tile: the payload differs from akort_manba_encode")
+    parts, _ = manba_decode_inputs([payload], v.size, dev)
+    got = md.manba_decode_device(*parts, v.size).cpu().numpy()[0]
+    if not (np.array_equal(got, v) and np.array_equal(manba_decode(v.size, payload), v)):
+        raise AssertionError("K6d on the whole tile: differs from the stream")
+    torch.cuda.synchronize()
+    log(f"  K6e/K6d whole tile {tuple(whole.shape)}: payload equal to akort_manba_encode, values "
+        "equal to the stream (the plain chain, a torch loop over 5.2 M positions, is skipped)")
+    log(f"kernels: K6e and K6d equal to plain on {len(cases)} cases")
+    return err
+
+
 def phase_goldens(P, dev):
     img = np.load(os.path.join(GOLDEN, "image_40x48_rgb.npy"))
     cases = {
@@ -692,11 +904,40 @@ def oracle_encode(img, s):
     return b"".join(blocks)
 
 
-def oracle_decode(blob):
+def oracle_encode_manba(img, s):
+    """Blob of a MANBAVARAN setting from the native runtime alone, per
+    tile: the colour transform, the lift (runtime/hostcodec.py) and
+    akort_manba_encode, framed as encode frames."""
     from ako_tpu_torch.core import container, geometry
+    from ako_tpu_torch.encode import checked_settings, tile_qg, tile_stream_bytes
+    from ako_tpu_torch.runtime import hostcodec
+    from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, manba_encode
+
+    s = checked_settings(s)
+    h, w, ch = img.shape
+    blocks = [container.head_write(ch, w, h, s)]
+    for t in geometry.tile_grid(w, h, s.tiles_dimension):
+        planes = hostcodec.u8_to_planes(img[t.y : t.y + t.h, t.x : t.x + t.w], s.color,
+                                        bool(s.discard_non_visible))
+        qg = tile_qg(t.w, t.h, ch, s.quantization, s.gate, s.chroma_loss)
+        payload = manba_encode(hostcodec.tile_lift(planes, s.wavelet, s.wrap, qg),
+                               tile_stream_bytes(t, s, ch) - BLOCK_HEAD.size)
+        if payload is None:
+            raise AssertionError("oracle: incompressible tile")
+        blocks.append(BLOCK_HEAD.pack(len(payload)) + payload)
+    return b"".join(blocks)
+
+
+def oracle_decode(blob):
+    """Pixels from the native runtime alone: per tile the one-call Kagari
+    decode, or for a MANBAVARAN block that holds rANS akort_manba_decode,
+    the unlift and the inverse colour transform."""
+    from ako_tpu_torch.core import container, geometry
+    from ako_tpu_torch.core.settings import Compression
     from ako_tpu_torch.decode import tile_block_sizes
+    from ako_tpu_torch.runtime import hostcodec
     from ako_tpu_torch.runtime.hostcodec import tile_decode_block
-    from ako_tpu_torch.runtime.kagari import BLOCK_HEAD
+    from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, manba_decode
 
     view = memoryview(blob)
     ch, w, h, s = container.head_read(view)
@@ -707,9 +948,16 @@ def oracle_decode(blob):
         payload = view[cursor + BLOCK_HEAD.size : cursor + BLOCK_HEAD.size + size]
         cursor += BLOCK_HEAD.size + size
         tds, spacing = tile_block_sizes(t, s, ch)
-        pix = tile_decode_block(
-            payload, tds // 2, tds + spacing, t.w, t.h, ch, s.wavelet, s.wrap, s.color
-        )
+        values = None
+        if s.compression == Compression.MANBAVARAN:
+            values = manba_decode(tds // 2, payload)
+        if values is not None:
+            pix = hostcodec.planes_to_u8(
+                hostcodec.tile_unlift(values, t.w, t.h, ch, s.wavelet, s.wrap), s.color)
+        else:
+            pix = tile_decode_block(
+                payload, tds // 2, tds + spacing, t.w, t.h, ch, s.wavelet, s.wrap, s.color
+            )
         if pix is None:
             raise AssertionError("oracle: broken block")
         image[t.y : t.y + t.h, t.x : t.x + t.w] = pix
@@ -721,15 +969,18 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
     launch per level before pyramid_start (every level when it is None)
     and one lift_pyramid (unlift_pyramid) launch, no K1/K2 call; in the
     split wiring three K1v (K2v) calls per level; one K3 per shape group
-    of a device-entropy encode, one K4 per shape group of its decode."""
+    of a device-entropy encode, one K4 per shape group of its decode, or
+    for a MANBAVARAN setting (run under AKO_TPU_MANBAVARAN=1) one K6e and
+    one K6d."""
     from ako_tpu_torch.core import geometry
     from ako_tpu_torch.ops.lift_kernels import pyramid_start
 
     h, w, ch = img.shape
     out = dict.fromkeys(("lift2d", "unlift2d", "vlift", "vunlift", "kagari_encode",
                          "kagari_decode", "lift_pyramid", "unlift_pyramid", "lift_level",
-                         "unlift_level"), 0)
-    for s in settings.values():
+                         "unlift_level", "manba_encode", "manba_decode"), 0)
+    for name, s in settings.items():
+        coder = "manba" if is_manba(name) else "kagari"
         for tw, th in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)):
             schedule = geometry.lift_schedule(tw, th)
             levels = len(schedule.levels)
@@ -743,8 +994,8 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
                 out["unlift_level"] += per_level
                 out["lift_pyramid"] += start is not None
                 out["unlift_pyramid"] += start is not None
-            out["kagari_encode"] += device_entropy
-            out["kagari_decode"] += device_entropy
+            out[f"{coder}_encode"] += device_entropy
+            out[f"{coder}_decode"] += device_entropy
     return out
 
 
@@ -755,7 +1006,7 @@ def phase_north_star(P, dev, img, oracle) -> dict:
     zero host fallbacks."""
     from ako_tpu_torch.utils import metrics
 
-    settings = north_star_settings(P)
+    settings = {**north_star_settings(P), **manba_settings(P)}
     launches = {}
     for path, device_entropy, mode in PATHS:
         os.environ["AKO_TORCH_LIFT_MODE"] = mode
@@ -763,8 +1014,9 @@ def phase_north_star(P, dev, img, oracle) -> dict:
         reset_launches()
         results = {}
         for name, s in settings.items():
-            blob = P.encode(img, s, device=dev, device_entropy=device_entropy)
-            results[name] = (blob, P.decode(blob, device=dev, device_entropy=device_entropy)[0])
+            with manba_env(is_manba(name)):
+                blob = P.encode(img, s, device=dev, device_entropy=device_entropy)
+                results[name] = (blob, P.decode(blob, device=dev, device_entropy=device_entropy)[0])
         launches[path] = all_launches()
         fallbacks = metrics.fallback_summary()
 
@@ -967,18 +1219,22 @@ def phase_profile(P, dev, img, card) -> dict:
     {kernel: device ms per image} from the run of ROW_RUN."""
     from ako_tpu_torch.ops.kagari_device import kagari_encode_device
 
-    settings = north_star_settings(P)
+    settings = {**north_star_settings(P), **manba_settings(P)}
     per_kernel: dict = {}
-    runs = [(*p, "north_t128") for p in PATHS] + [("device_fused", True, "fused", "default_whole")]
+    runs = [(*p, "north_t128") for p in PATHS] + [
+        ("device_fused", True, "fused", name)
+        for name in ("default_whole", "north_t128_manba", "default_whole_manba")]
     for path, device_entropy, mode, setting in runs:
         os.environ["AKO_TORCH_LIFT_MODE"] = mode
         s = settings[setting]
-        blob = P.encode(img, s, device=dev, device_entropy=device_entropy)
+        with manba_env(is_manba(setting)):
+            blob = P.encode(img, s, device=dev, device_entropy=device_entropy)
         for direction, fn in (
             ("encode", lambda: P.encode(img, s, device=dev, device_entropy=device_entropy)),
             ("decode", lambda: P.decode(blob, device=dev, device_entropy=device_entropy)),
         ):
-            r = _profile_window(fn)
+            with manba_env(is_manba(setting)):
+                r = _profile_window(fn)
             if r["events"] == 0:
                 log("profile: the profiler shows no device time; kernel ms come from CUDA "
                     f"events around {KERNEL_ITERS} back-to-back launches")
@@ -1111,7 +1367,86 @@ def k3_times(P, dev, img, card) -> tuple:
     return round(kern, 4), round(plain, 4)
 
 
-def bounds_ms(img, blob) -> dict:
+def _once_ms(fn) -> float:
+    """Device ms of one call between CUDA events (for the plain chain,
+    a torch loop too slow to repeat)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def _host_ms(fn) -> float:
+    """Median host-clock ms of fn (the native coder), after one call."""
+    fn()
+    times = []
+    for _ in range(RUNS):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def k6_times(P, dev, img, card) -> dict:
+    """K6e and K6d on the north star's 80 streams (q=16, 128-px tiles)
+    and on the whole tile's stream: the kernels' device ms (the
+    profiler's median of 20 calls, each kernel of K6e summed; CUDA events
+    around 50 calls), the plain versions' (one call: the chain is a torch
+    loop over positions; skipped on the whole tile), the native coder's
+    host ms for the same streams (one thread, tile after tile), and the
+    chain's latency floor: one thread stepping the chain with no load on
+    it (manba_chain_probe), ns a step times the steps. Returns
+    {kernel: (kernel ms, plain ms)} on the north star."""
+    from ako_tpu_torch.ops import manba_device as md
+    from ako_tpu_torch.runtime import kernels
+    from ako_tpu_torch.runtime.kagari import manba_decode, manba_encode
+
+    out = {}
+    steps_ns = {}
+    probe = torch.zeros(2, dtype=torch.int32, device=dev)
+    for steps in (65560, 1 << 20, 5242932):
+        fn = lambda: kernels.manba_chain_probe(probe.data_ptr(), steps, 1365,
+                                               torch.cuda.current_stream().cuda_stream)
+        steps_ns[steps] = _event_ms(fn, iters=5) * 1e6 / steps
+    per_step = steps_ns[1 << 20]
+    log(f"  K6e chain alone (no load on it): {per_step:.3f} ns a step at 2^20 steps "
+        f"({ {k: round(v, 3) for k, v in steps_ns.items()} }) [{card}]")
+    for name in ("north_t128", "default_whole"):
+        ((streams, cap, _),) = group_streams(dev, img, north_star_settings(P)[name])
+        values = streams.cpu().numpy()
+        enc = lambda: md.manba_encode_device(streams, cap)
+        parts, spans = manba_decode_inputs(manba_payloads(*enc(), cap), values.shape[1], dev)
+        dec = lambda: md.manba_decode_device(*parts, values.shape[1])
+        k_enc = sum(_launch_ms(enc, k) for k in ("manba_stats", "manba_model", "manba_chain_pack"))
+        k_dec = _launch_ms(dec, "manba_decode")
+        launches = {k: round(_launch_ms(enc, k), 4)
+                    for k in ("manba_stats", "manba_model", "manba_chain_pack")}
+        e_enc, e_dec = _event_ms(enc, iters=5), _event_ms(dec)
+        payloads = [manba_encode(v, cap) for v in values]
+        n_enc = _host_ms(lambda: [manba_encode(v, cap) for v in values])
+        n_dec = _host_ms(lambda: [manba_decode(values.shape[1], p) for p in payloads])
+        floor = values.shape[1] * per_step / 1e6
+        line = (f"  K6e {name} {tuple(streams.shape)}: kernel {k_enc:.4f} ms (profiler, launches "
+                f"{launches}), {e_enc:.4f} ms (CUDA events); K6d: {k_dec:.4f} ms (profiler), "
+                f"{e_dec:.4f} ms (CUDA events); native coder on the host: encode {n_enc:.3f} ms, "
+                f"decode {n_dec:.3f} ms; chain floor {values.shape[1]} steps x {per_step:.3f} ns = "
+                f"{floor:.4f} ms")
+        if name == "north_t128":
+            p_enc = _once_ms(lambda: md.manba_encode_plain(streams, cap))
+            p_dec = _once_ms(lambda: md.manba_decode_plain(*parts, values.shape[1],
+                                                           md.DECODE_BLOCK, *spans))
+            line += f"; plain: encode {p_enc:.2f} ms, decode {p_dec:.2f} ms"
+            out = {"manba_encode": (round(k_enc, 4), round(p_enc, 4)),
+                   "manba_decode": (round(k_dec, 4), round(p_dec, 4))}
+        log(line + f" [{card}]")
+    return out
+
+
+def bounds_ms(img, blob, manba_blob) -> dict:
     """Least time per north-star image for each kernel on the run of
     ROW_RUN (128-px tiles; K1/K2 and lift_level / unlift_level: the whole
     tile's levels before pyramid_start): {kernel: (ms, "bytes" or
@@ -1171,6 +1506,15 @@ def bounds_ms(img, blob) -> dict:
     budget = pack_budget(2 * count - BLOCK_HEAD.size, 16)
     b["kagari_encode"] = 2 * tiles * count + tiles * budget + 8 * tiles
     ops["kagari_encode"] = tiles * count * K3_OPS
+    # K6e: the int16 streams in, the payloads' rANS and extras bytes and
+    # the records out; K6d: the payloads and the sync records (x, rANS
+    # byte, extras bit a block; base, ends and 17 freqs a tile) in, the
+    # int16 streams out
+    manba_payload = len(manba_blob) - container.HEAD_SIZE - BLOCK_HEAD.size * tiles
+    b["manba_encode"] = 2 * tiles * count + manba_payload + 4 * 21 * tiles
+    ops["manba_encode"] = tiles * count * K6E_OPS
+    b["manba_decode"] = manba_payload + 4 * 20 * tiles + 12 * records + 2 * tiles * count
+    ops["manba_decode"] = tiles * count * K6D_OPS
     out = {}
     for k in b:
         by_bytes, by_ops = b[k] / HBM_BYTES_PER_S * 1e3, ops[k] / SCALAR_OPS_PER_S * 1e3
@@ -1180,21 +1524,22 @@ def bounds_ms(img, blob) -> dict:
 
 def phase_timings(P, dev, img, card) -> dict:
     mp = img.shape[0] * img.shape[1] / 1e6
-    settings = north_star_settings(P)
+    settings = {**north_star_settings(P), **manba_settings(P)}
     for (path, device_entropy, mode), (name, s) in itertools.product(PATHS, settings.items()):
         if mode == "split" and name != "north_t128":
             continue
         os.environ["AKO_TORCH_LIFT_MODE"] = mode
-        blob = P.encode(img, s, device=dev, device_entropy=device_entropy)
-        enc = _median_ms(lambda: P.encode(img, s, device=dev, device_entropy=device_entropy))
-        dec = _median_ms(lambda: P.decode(blob, device=dev, device_entropy=device_entropy))
-        log(f"timing {path} {name}: encode {enc:.2f} ms ({mp / enc * 1e3:.2f} MP/s), "
-            f"decode {dec:.2f} ms ({mp / dec * 1e3:.2f} MP/s), "
-            f"encode+decode {mp / (enc + dec) * 1e3:.2f} MP/s, median of {RUNS} [{card}]")
-        stages_enc = _stage_ms(lambda cb: P.encode(img, s, cb, device=dev,
-                                                   device_entropy=device_entropy))
-        stages_dec = _stage_ms(lambda cb: P.decode(blob, cb, device=dev,
-                                                   device_entropy=device_entropy))
+        with manba_env(is_manba(name)):
+            blob = P.encode(img, s, device=dev, device_entropy=device_entropy)
+            enc = _median_ms(lambda: P.encode(img, s, device=dev, device_entropy=device_entropy))
+            dec = _median_ms(lambda: P.decode(blob, device=dev, device_entropy=device_entropy))
+            log(f"timing {path} {name}: encode {enc:.2f} ms ({mp / enc * 1e3:.2f} MP/s), "
+                f"decode {dec:.2f} ms ({mp / dec * 1e3:.2f} MP/s), "
+                f"encode+decode {mp / (enc + dec) * 1e3:.2f} MP/s, median of {RUNS} [{card}]")
+            stages_enc = _stage_ms(lambda cb: P.encode(img, s, cb, device=dev,
+                                                       device_entropy=device_entropy))
+            stages_dec = _stage_ms(lambda cb: P.decode(blob, cb, device=dev,
+                                                       device_entropy=device_entropy))
         log(f"  stages encode {stages_enc} ms, decode {stages_dec} ms (host clock)")
     os.environ.pop("AKO_TORCH_LIFT_MODE")
     log("kernel times, default_whole, the levels before pyramid_start (sum over levels):")
@@ -1378,6 +1723,12 @@ def main() -> int:
     for name, s in north_star_settings(P).items():
         blob = oracle_encode(img, s)
         oracle[name] = (blob, oracle_decode(blob))
+    for name, s in manba_settings(P).items():
+        blob = oracle_encode_manba(img, s)
+        oracle[name] = (blob, oracle_decode(blob))
+        # the same coefficients as the Kagari setting, coded otherwise
+        if not np.array_equal(oracle[name][1], oracle[name.removesuffix("_manba")][1]):
+            raise AssertionError(f"oracle {name}: pixels differ from the Kagari setting's")
 
     err = phase_lift_kernels(dev, [(320, 128, 128), (3, 127, 97), (3, 5, 9), (1, 1280, 1024)])
     err.update(phase_vlift_kernels(dev, vlift_shapes(img, 128)))
@@ -1385,14 +1736,16 @@ def main() -> int:
     err.update(phase_level_kernels(dev))
     err["kagari_encode"] = phase_k3(P, dev, img)
     err["kagari_decode"] = phase_k4(dev, oracle["north_t128"][0])
+    err.update(phase_k6(P, dev, img))
     phase_goldens(P, dev)
     launches = phase_north_star(P, dev, img, oracle)
     device_ms = phase_profile(P, dev, img, card)
     times = phase_timings(P, dev, img, card)
     times["kagari_decode"] = k4_times(dev, oracle["north_t128"][0], card)
     times["kagari_encode"] = k3_times(P, dev, img, card)
+    times.update(k6_times(P, dev, img, card))
     phase_streams(P, dev, img, card)
-    bound = bounds_ms(img, oracle["north_t128"][0])
+    bound = bounds_ms(img, oracle["north_t128"][0], oracle["north_t128_manba"][0])
     for k in REPLACES:
         if k not in device_ms:  # no device time in the profile: CUDA events
             device_ms[k] = times[k][0]

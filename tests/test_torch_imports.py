@@ -79,6 +79,42 @@ def test_builds_only_sources_of_the_port():
         assert os.path.isfile(real), path
         assert os.path.commonpath([real, os.path.realpath(PKG)]) == os.path.realpath(PKG), path
     assert os.path.basename(build.SRC) == "akort.c"
+    names = {os.path.basename(p) for p in kernels.SOURCES}
+    assert {"manba_encode.cu", "manba_decode.cu"} <= names
+
+
+def test_manba_and_api_modules_run_with_jax_blocked():
+    """The Manbavaran device coder, the host modes, per-tile events, the
+    streaming decode and the utils import and run without JAX or
+    ako_tpu."""
+    code = (
+        "import os, sys, tempfile; sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "import ako_tpu_torch\n"
+        "from ako_tpu_torch.ops import manba_device\n"
+        "from ako_tpu_torch.utils import debug, developer, tracing\n"
+        "from ako_tpu_torch.decode import decode_tiles_iter\n"
+        "img = np.arange(24 * 20 * 3, dtype=np.uint8).reshape(24, 20, 3)\n"
+        "s = ako_tpu_torch.Settings(quantization=0, tiles_dimension=16,\n"
+        "                           compression=ako_tpu_torch.Compression.MANBAVARAN)\n"
+        "os.environ['AKO_TPU_MANBAVARAN'] = '1'\n"
+        "os.environ['AKO_TPU_TRACE_DIR'] = tempfile.mkdtemp()\n"
+        "blob = ako_tpu_torch.encode(img, s, device='cpu', device_entropy=True)\n"
+        "assert (ako_tpu_torch.decode(blob, device='cpu', device_entropy=True)[0] == img).all()\n"
+        "assert os.listdir(os.environ.pop('AKO_TPU_TRACE_DIR'))\n"
+        "for mode in ('ENCODE', 'DECODE', 'EVENTS'):\n"
+        "    os.environ['AKO_TPU_' + mode] = 'tile' if mode == 'EVENTS' else 'host'\n"
+        "ev = []\n"
+        "blob2 = ako_tpu_torch.encode(img, s, lambda *a: ev.append(a), device='cpu')\n"
+        "assert blob2 == blob and len(ev) == 6 * 4\n"
+        "assert (ako_tpu_torch.decode(blob, device='cpu')[0] == img).all()\n"
+        "assert [t.index for t, _ in decode_tiles_iter(blob, 2, device='cpu')] == [0, 1, 2, 3]\n"
+        "assert not any(m == 'ako_tpu' or m.startswith('ako_tpu.') for m in sys.modules)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stderr
 
 
 def test_reads_no_file_of_ako_tpu():

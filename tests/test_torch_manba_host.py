@@ -2,7 +2,8 @@
 AKO_TPU_MANBAVARAN=1 and Compression.MANBAVARAN the port writes ako_tpu's
 rANS payloads (byte for byte, on the CPU), both packages decode them, and
 without the env both write the reference's Kagari parity bytes. The
-port's device-entropy encode has no device rANS coder yet and raises."""
+port's device-entropy encode writes the same rANS bytes
+(tests/test_torch_manba_device.py holds that path to ako_tpu's)."""
 
 import numpy as np
 import pytest
@@ -58,11 +59,11 @@ def test_manba_off_writes_kagari(name, monkeypatch):
     assert blob[container.HEAD_SIZE:] == kag[container.HEAD_SIZE:] and blob != kag
 
 
-def test_manba_device_entropy_raises(monkeypatch):
+def test_manba_device_entropy_matches_host(monkeypatch):
     monkeypatch.setenv("AKO_TPU_MANBAVARAN", "1")
     img, s = _image("gray"), CASES["gray"][1]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        ako_tpu_torch.encode(img, s, device="cpu", device_entropy=True)
+    blob = ako_tpu_torch.encode(img, s, device="cpu", device_entropy=True)
+    assert blob == ako_tpu_torch.encode(img, s, device="cpu", device_entropy=False)
     assert kagari.effective_method(Compression.MANBAVARAN) == Compression.MANBAVARAN
     monkeypatch.setenv("AKO_TPU_MANBAVARAN", "0")
     assert kagari.effective_method(Compression.MANBAVARAN) == Compression.KAGARI
