@@ -103,7 +103,11 @@ _SIGNATURES = {
     "ako_unlift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
     "ako_manba_encode": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ako_manba_decode": [_P, _LL] + [_P] * 8 + [_I, _I, _I, _P],
-    "ako_manba_chain_probe": [_P, _LL, _I, _P],
+    # measurements of K6e's chain, called through the library by
+    # chip_smoke.py and chip_probe.py; the codec never calls them
+    "ako_manba_encode_chains": [_P] * 5 + [_I, _I, _I, _I, _P],
+    "ako_manba_chain_alone": [_P, _I, _P, _P, _P],
+    "ako_manba_op_latency": [_P, _I, _P],
 }
 
 
@@ -250,10 +254,3 @@ def manba_decode(pool, pool_words, base, rans_end, extras_off, x, rbyte, ebit, f
     _check(load().ako_manba_decode(pool, pool_words, base, rans_end, extras_off, x, rbyte, ebit,
                                    freq, out, tiles, blocks, n_outputs, stream),
            "ako_manba_decode")
-
-
-def manba_chain_probe(out, steps, freq, stream) -> None:
-    """Launch one thread of K6e's chain step `steps` times with the
-    symbol's frequency `freq` held in registers (no load on the chain):
-    the chain's latency floor per step."""
-    _check(load().ako_manba_chain_probe(out, steps, freq, stream), "ako_manba_chain_probe")

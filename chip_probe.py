@@ -7,6 +7,7 @@ level kernels' time goes.
     python3 chip_probe.py k3 [OTHER]
     python3 chip_probe.py k4 [OTHER]
     python3 chip_probe.py levels [OTHER]
+    python3 chip_probe.py k6 [OTHER]
 
 compare: the device-entropy north star (128-px tiles, fused wiring) in
 turns OTHER, this, this, OTHER, each in its own process: encode and
@@ -61,14 +62,46 @@ north star's 256-px tiles' level 0 and 80 random 9-channel 128-px tiles
 (every level): device busy ms of one profiled call and its device
 kernels, each route checked against the other. Every line carries the
 card's name and power limit.
+
+k6: K6e's chain step (csrc/manba_encode.cu) in variants made by editing
+its source, built with nvcc side by side: as it is ("new": one
+multiply-high on the state as it comes in, beside the renorm compares,
+then the three candidate next states, of which the compares pick one;
+groups of eight steps, each group's entries loaded while the group
+before it runs), "no_pipe" (each group's entries loaded at its start),
+"g4" (groups of four steps), "lb1" (manba_chain_pack's launch bounds at
+one CTA a SM, which lets ptxas take more registers), "old_step" (the
+step before this one: renorm, then umulhi(2x, m) >> l, then the
+multiply-add, in the same kernel and table), and OTHER's
+manba_encode.cu as it is. For each: cuobjdump's SASS of the chain loop
+of manba_chain_pack and of the chain alone (instructions a step, the
+stall cycles the compiler's control bits set a step, the dependent path
+a step in operations and in cycles; the SASS written to
+build/probe/k6_sass_<variant>.txt); the latencies of the step's
+operations (manba_op_chain: dependent chains of the multiply-high, a
+shift by a register, a compare and select, a select, a multiply-add, an
+add and a logic operation in turns; their loops' SASS checked); then in
+turns (each variant, then again in reverse): the chain alone on the
+north star's tile 0 stream (cycles, ns and the SM clock a step from the
+card's clocks; OTHER's fixed-symbol probe where it has no such entry
+point), and K6e on the north star's 80 streams and the whole tile's
+stream (device ms of manba_chain_pack with and without the pack CTAs
+beside the chains, and of the three launches; CUDA events), every
+variant's record and rANS row checked against the plain version (north
+star) and the native coder. nvidia-smi's SM clock is read while the
+whole tile's encodes run. Last, each variant's latency bound: the
+longer of its dependent path and its instructions a step, at the SM
+clock the chain alone read, times the steps of one chain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "probe")  # ignored by git
@@ -574,11 +607,279 @@ def level_routes(dev, img, s, card) -> None:
                   f"{r['kernels']} device kernels [{card}]", flush=True)
 
 
+NEW_STEP = """    const uint32_t hi = __umulhi(x, t.a.x);
+    const bool e0 = x >= t.a.y, e1 = x >= t.a.z;
+    const uint32_t x0 = mad(hi >> t.b.y, t.a.w, x + t.b.x);
+    const uint32_t x1 = mad(hi >> t.b.z, t.a.w, (x >> 8) + t.b.x);
+    const uint32_t x2 = mad(hi >> t.b.w, t.a.w, (x >> 16) + t.b.x);
+    return e1 ? x2 : (e0 ? x1 : x0);
+"""
+PIPELINED = """    Entry ta[kGroup], tb[kGroup];
+    load_group(ta, tab, group_offsets(so, g));
+    GroupOffsets oa, ob_next = group_offsets(so, max(g - 1, 0));
+    for (;;) {
+        load_group(tb, tab, ob_next);
+        oa = group_offsets(so, max(g - 2, 0));
+        x = run_group(x, ta, xs + kGroup * g);
+        if (--g < 0) break;
+        load_group(ta, tab, oa);
+        ob_next = group_offsets(so, max(g - 2, 0));
+        x = run_group(x, tb, xs + kGroup * g);
+        if (--g < 0) break;
+    }
+"""
+#: variant name -> (old, new) source edits of csrc/manba_encode.cu; each
+#: computes the function
+K6_VARIANTS = {
+    "new": [],
+    "no_pipe": [(PIPELINED, """    for (; g >= 0; --g) {
+        Entry t[kGroup];
+        load_group(t, tab, group_offsets(so, g));
+        x = run_group(x, t, xs + kGroup * g);
+    }
+""")],
+    "old_step": [(NEW_STEP, """    const bool e0 = x >= t.a.y, e1 = x >= t.a.z;
+    x = e1 ? x >> 16 : (e0 ? x >> 8 : x);
+    const uint32_t q = __umulhi(x + x, t.a.x) >> (t.b.z - 7);
+    return x + t.b.x + q * t.a.w;
+""")],
+}
+
+
+K6_VARIANTS["g4"] = [("constexpr int kGroup = 8;", "constexpr int kGroup = 4;")]
+K6_VARIANTS["lb1"] = [("__global__ void __launch_bounds__(kThreads)\nmanba_chain_pack(",
+                       "__global__ void __launch_bounds__(kThreads, 1)\nmanba_chain_pack(")]
+
+
+def _k6_sources(other):
+    """{variant: (ctypes library, SASS text)}: K6_VARIANTS and OTHER's
+    manba_encode.cu as it is ("other"), built side by side."""
+    import chip_smoke as cs
+    from ako_tpu_torch.runtime import kernels
+
+    src = open(os.path.join(ROOT, "ako_tpu_torch", "csrc", "manba_encode.cu")).read()
+    texts = {}
+    for name, edits in K6_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"k6 variant {name}: the source has no {old!r}")
+            text = text.replace(old, new)
+        texts[name] = text
+    if other:
+        texts["other"] = open(os.path.join(other, "ako_tpu_torch", "csrc", "manba_encode.cu")).read()
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu, so = os.path.join(OUT, f"k6_{name}.cu"), os.path.join(OUT, f"k6_{name}.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = (subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", so, cu],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on k6 variant {name}:\n{log}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in kernels._SIGNATURES.items():
+            if fn.startswith("ako_manba") and hasattr(lib, fn):
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = argtypes
+        if hasattr(lib, "ako_manba_chain_probe"):  # the fixed-symbol probe of older checkouts
+            lib.ako_manba_chain_probe.restype = ctypes.c_int
+            lib.ako_manba_chain_probe.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                                  ctypes.c_void_p]
+        lines = log.splitlines()
+        regs = [" | ".join(x.split("info    :")[-1].strip() for x in lines[i : i + 4])
+                for i, x in enumerate(lines) if "Compiling entry function" in x and "chain_" in x]
+        print(f"k6 {name}: ptxas {regs}", flush=True)
+        libs[name] = (lib, cs.cuobjdump_sass(so))
+    return libs
+
+
+def k6_sass(libs, lat, card) -> dict:
+    """The chain loops' SASS account of each variant, written out and
+    summarised; returns {variant: manba_chain_pack's account}."""
+    import chip_smoke as cs
+
+    account = {}
+    os.makedirs(OUT, exist_ok=True)
+    for name, (_, sass) in libs.items():
+        funcs = cs.sass_functions(sass)
+        keep = [k for k in funcs if "chain" in k or "op_chain" in k]
+        with open(os.path.join(OUT, f"k6_sass_{name}.txt"), "w") as f:
+            for k in keep:
+                f.write(f"Function : {k}\n")
+                f.writelines(f"  {ad:#06x}  {t:<56} {c}\n" if ad is not None else f"{t}:\n"
+                             for ad, t, c in funcs[k])
+        for kernel in ("manba_chain_pack", "manba_chain_alone", "manba_chain_probe"):
+            if not any(kernel in k for k in funcs):
+                continue
+            step = cs.chain_loop_sass(sass, kernel, lat)
+            if kernel == "manba_chain_pack":
+                account[name] = step
+            per = max(step["path_cycles_per_step"], step["insns_per_step"])
+            print(f"k6 sass {name} {kernel}: loop {step['span']} of {step['steps']} steps, "
+                  f"{step['insns_per_step']:.2f} instructions a step, scheduled stalls "
+                  f"{step['stall_cycles_per_step']} cycles and {step['scoreboard_waits_per_step']} "
+                  f"scoreboard waits a step, dependent path "
+                  f"{step['path_ops_per_step']:.2f} operations / {step['path_cycles_per_step']:.2f} "
+                  f"cycles a step, bound {per:.2f} cycles a step; path {' '.join(step['path'])} "
+                  f"[{card}]", flush=True)
+    return account
+
+
+def k6_op_chains(lib, sass, card) -> dict:
+    """The operations' latencies, and each chain's loop in SASS (the ops
+    on its dependent path a loop, to check that each is the one named)."""
+    import chip_smoke as cs
+
+    lat = cs.op_latencies(lib)
+    unit = {k: 1.0 for k in cs.OP_CHAINS}
+    for k, name in enumerate(cs.OP_CHAINS):
+        funcs = [v for f, v in cs.sass_functions(sass).items() if f"manba_op_chainILi{k}E" in f]
+        loops = [lp for f in funcs for lp in cs.sass_loops(f)]
+        desc = []
+        for a, b, body in loops:
+            _, path = cs.dependent_path([t for t, _ in body], unit)
+            ops = {o: path.count(o) for o in sorted(set(path))}
+            desc.append(f"{len(body)} instructions, path {ops}")
+        print(f"k6 op {name}: {lat[name]:.3f} cycles an operation; SASS loops {desc} [{card}]",
+              flush=True)
+    return lat
+
+
+def k6(other, card: str) -> None:
+    import threading
+
+    import numpy as np
+    import torch
+
+    import ako_tpu_torch as P
+    import chip_smoke as cs
+    from ako_tpu_torch.ops import manba_device as md
+    from ako_tpu_torch.runtime.kagari import manba_encode
+    from ako_tpu_torch.utils.corpus import corpus
+
+    libs = _k6_sources(other)
+    lat = k6_op_chains(libs["new"][0], libs["new"][1], card)
+    account = k6_sass(libs, lat, card)
+    dev = torch.device("cuda:0")
+    img = corpus(42, 1, 1280, 1024, 4)[0]
+    cur = torch.cuda.current_stream().cuda_stream
+    settings = {}
+    for name in ("north_t128", "default_whole"):
+        ((streams, cap, _),) = cs.group_streams(dev, img, cs.north_star_settings(P)[name])
+        values = streams.cpu().numpy()
+        native = [manba_encode(v, cap) for v in values]
+        plain = cs.k6e_used(*md.manba_encode_plain(streams, cap), cap) if name == "north_t128" else None
+        settings[name] = (streams, cap, native, plain)
+    rows = {}
+    for name in list(libs) + list(libs)[::-1]:
+        lib = libs[name][0]
+        row = rows.setdefault(name, [])
+        res = {}
+        if hasattr(lib, "ako_manba_chain_alone"):
+            streams, cap, _, _ = settings["north_t128"]
+            rec = torch.empty((1, md.RECORD_WORDS), dtype=torch.int32, device=dev)
+            rans = torch.empty((1, cap), dtype=torch.uint8, device=dev)
+            extras = torch.empty((1, 4 * -(-cap // 4)), dtype=torch.uint8, device=dev)
+            scratch = torch.empty((-(-streams.shape[1] // md.K6_CHUNK) * md.K6_SCRATCH,),
+                                  dtype=torch.int32, device=dev)
+            if lib.ako_manba_encode(streams.data_ptr(), rec.data_ptr(), scratch.data_ptr(),
+                                    rans.data_ptr(), extras.data_ptr(), 1, streams.shape[1], cap,
+                                    -(-cap // 4), cur):
+                raise RuntimeError(f"k6 {name}: ako_manba_encode failed")
+            a = cs.chain_alone(lib, streams[0].contiguous(), rec[0])
+            res["alone"] = (round(a["cycles_per_step"], 3), round(a["ns_per_step"], 4),
+                            round(a["ghz"], 4))
+        elif hasattr(lib, "ako_manba_chain_probe"):
+            probe = torch.zeros(2, dtype=torch.int32, device=dev)
+            ms = cs._event_ms(lambda: lib.ako_manba_chain_probe(probe.data_ptr(), 65560, 1365, cur),
+                              iters=5)
+            res["fixed_symbol_probe_ns"] = round(ms * 1e6 / 65560, 4)
+        for setting, (streams, cap, native, plain) in settings.items():
+            rows_, n = streams.shape
+            row_words = -(-cap // 4)
+            rec = torch.empty((rows_, md.RECORD_WORDS), dtype=torch.int32, device=dev)
+            rans = torch.empty((rows_, cap), dtype=torch.uint8, device=dev)
+            extras = torch.empty((rows_, 4 * row_words), dtype=torch.uint8, device=dev)
+            scratch = torch.empty((rows_ * -(-n // md.K6_CHUNK) * md.K6_SCRATCH,),
+                                  dtype=torch.int32, device=dev)
+            args = (streams.data_ptr(), rec.data_ptr(), scratch.data_ptr(), rans.data_ptr(),
+                    extras.data_ptr(), rows_, n, cap, row_words, cur)
+
+            def call(fn):
+                def run():
+                    rc = fn(*args)
+                    if rc:
+                        raise RuntimeError(f"k6 {name}: cudaError {rc}")
+                return run
+
+            full = call(lib.ako_manba_encode)
+            full()
+            torch.cuda.synchronize()
+            got = cs.k6e_used(rec, rans, extras[:, :cap], cap)
+            if plain is not None and (not np.array_equal(got[0], plain[0]) or got[1] != plain[1]):
+                raise AssertionError(f"k6 variant {name} != plain on {setting}")
+            if cs.manba_payloads(rec, rans, extras[:, :cap], cap) != native:
+                raise AssertionError(f"k6 variant {name}: payloads differ from the native coder "
+                                     f"on {setting}")
+            iters = 20 if setting == "north_t128" else 5
+            r = {"chain_pack": round(cs._launch_ms(full, "manba_chain_pack", iters), 4),
+                 "stats": round(cs._launch_ms(full, "manba_stats", iters), 4),
+                 "model": round(cs._launch_ms(full, "manba_model", iters), 4),
+                 "events": round(cs._event_ms(full, iters=5), 4)}
+            if hasattr(lib, "ako_manba_encode_chains"):
+                r["chains_only"] = round(cs._launch_ms(call(lib.ako_manba_encode_chains),
+                                                       "manba_chain_pack", iters), 4)
+            r["in_situ_ns"] = round(r["chain_pack"] * 1e6 / n, 4)
+            res[setting] = r
+        row.append(res)
+        print(f"k6 {name}: {res} [{card}]", flush=True)
+    # the SM clock while the whole tile's encodes run
+    streams, cap, _, _ = settings["default_whole"]
+    done = threading.Event()
+
+    def busy():
+        while not done.is_set():
+            md.manba_encode_device(streams, cap)
+            torch.cuda.synchronize()
+
+    th = threading.Thread(target=busy)
+    th.start()
+    try:
+        time.sleep(1.0)
+        clocks = [subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+                                  "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+                  for _ in range(3)]
+    finally:
+        done.set()
+        th.join()
+    print(f"k6 nvidia-smi during the whole tile's encodes (clocks.sm, clocks.max.sm, power.draw): "
+          f"{clocks} [{card}]", flush=True)
+    for name, res in rows.items():
+        print(f"k6 summary {name}: {json.dumps(res)} [{card}]", flush=True)
+    # the latency bound of each variant: the longer of its chain loop's
+    # dependent path and its instructions a step, at the SM clock the
+    # new kernel's chain alone read
+    ghz = rows["new"][0]["alone"][2]
+    for name, step in account.items():
+        ns = max(step["path_cycles_per_step"], step["insns_per_step"]) / ghz
+        print(f"k6 bound {name}: {step['path_ops_per_step']:.2f} dependent operations / "
+              f"{step['path_cycles_per_step']:.2f} cycles and {step['insns_per_step']:.2f} "
+              f"instructions a step (schedule {step['stall_cycles_per_step']:.2f} cycles) -> "
+              f"{ns:.3f} ns a step at {ghz:.4f} GHz: north star "
+              f"{ns * settings['north_t128'][0].shape[1] / 1e6:.4f} ms, whole tile "
+              f"{ns * settings['default_whole'][0].shape[1] / 1e6:.3f} ms [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in (
-            "compare", "k3", "k4", "levels"):
+            "compare", "k3", "k4", "k6", "levels"):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -596,6 +897,8 @@ def main() -> int:
         levels(other, card)
     elif sys.argv[1] == "k3":
         k3(other, card)
+    elif sys.argv[1] == "k6":
+        k6(other, card)
     else:
         k4(other, card)
     return 0

@@ -1,9 +1,11 @@
 """ako_tpu_torch's Manbavaran coder on the device-entropy path, on the
 CPU: the plain versions of kernels K6e and K6d (ops/manba_device.py)
 against ako_tpu.ops.manba_device under JAX on the CPU and against the
-native coder (akort.c), and the codec with AKO_TPU_MANBAVARAN=1 against
-ako_tpu's blobs, pixels, fallback counts and events. Inputs come from
-numpy seeds; every comparison is exact equality."""
+native coder (akort.c), K6e's chain step emulated in Python integers on
+its packed table (csrc/manba_encode.cu) against the plain chain, and the
+codec with AKO_TPU_MANBAVARAN=1 against ako_tpu's blobs, pixels,
+fallback counts and events. Inputs come from numpy seeds; every
+comparison is exact equality."""
 
 import functools
 import importlib
@@ -188,23 +190,172 @@ def test_sym_extra_matches_reference():
     np.testing.assert_array_equal(code.numpy(), r_code)
 
 
-@pytest.mark.parametrize("f", [1, 2, 3, 5, 7, 255, 1365, 2047, 2049, 4095, 4096])
-def test_chain_divider_exact(f):
-    """K6e's divider: x / f == umulhi(2x, ceil(2^(31+l) / f)) >> l, l =
-    ceil(log2 f), for every x below 2^31 (checked at the multiples of f
-    and their neighbours up to 2^31, and at random x)."""
-    src = open(md.__file__.replace("ops/manba_device.py", "csrc/manba_encode.cu")).read()
+def _k6e_source():
+    return open(md.__file__.replace("ops/manba_device.py", "csrc/manba_encode.cu")).read()
+
+
+@pytest.mark.parametrize("lo", list(range(1, 4097, 256)))
+def test_chain_divider_exact(lo):
+    """K6e's divider on the state as it comes in: (x >> 8k) // f ==
+    umulhi(x, m) >> (l - 1 + 8k), m = ceil(2^(31+l) / f), l = ceil(log2 f),
+    for every f of [lo, lo + 256) and every k the chain reaches (k >= 1
+    when f = 1), at the multiples of f 2^8k and their neighbours, 2^23,
+    2^31 - 1 and random states below 2^31."""
+    src = _k6e_source()
     assert "((1ull << (31 + l)) + f - 1) / f" in src and "32 - __clz(f - 1)" in src
-    assert "__umulhi(x + x, t.x) >> l" in src
+    assert "__umulhi(x, t.a.x)" in src and "return e1 ? x2 : (e0 ? x1 : x0);" in src
+    assert "mad(hi >> t.b.y, t.a.w, x + t.b.x)" in src and "mad(hi >> t.b.w, t.a.w, (x >> 16) + t.b.x)" in src
+    assert "constexpr int kFlushWarps = kWarps - 1;" in src and "kWarps = kThreads / 32" in src
+    assert "constexpr int kThreads = 128;" in src
+    assert "make_uint4(cum, l - (l > 0), l + 7, l + 15)" in src
+    for f in range(lo, lo + 256):
+        l = (f - 1).bit_length() if f > 1 else 0
+        m = ((1 << (31 + l)) + f - 1) // f
+        assert m < 1 << 32
+        for k in range(0 if f > 1 else 1, 3):
+            d = f << (8 * k)
+            rng = np.random.default_rng(f * 3 + k)
+            j = rng.integers(0, (1 << 31) // d + 1, size=200, dtype=np.int64)
+            xs = np.concatenate([j * d, j * d - 1, j * d + d - 1,
+                                 rng.integers(0, 1 << 31, size=200), [1 << 23, (1 << 31) - 1]])
+            xs = xs[(xs >= 0) & (xs < 1 << 31)].astype(np.uint64)
+            q = ((xs * np.uint64(m)) >> np.uint64(32)) >> np.uint64(l - 1 + 8 * k)
+            np.testing.assert_array_equal(q, (xs >> np.uint64(8 * k)) // np.uint64(f))
+
+
+# K6e's chain in Python integers, on its table entries as the kernel
+# packs them (csrc/manba_encode.cu table_entry, chain_step, run_chunk),
+# and its bytes placed as warps 1-3 place them (flush_chunk)
+
+K6_FLUSH_THREADS = 96
+
+
+def _entry(f, cum):
     l = (f - 1).bit_length() if f > 1 else 0
     m = ((1 << (31 + l)) + f - 1) // f
-    assert m < 1 << 32
-    rng = np.random.default_rng(f)
-    k = rng.integers(0, (1 << 31) // f, size=20000, dtype=np.int64)
-    xs = np.concatenate([k * f, k * f - 1, k * f + f - 1, rng.integers(0, 1 << 31, size=20000),
-                         [0, 1, (1 << 31) - 1]])
-    xs = xs[(xs >= 0) & (xs < 1 << 31)].astype(object)
-    assert all(((2 * x * m) >> 32) >> l == x // f for x in xs)
+    z = f << 27 if f < 32 else 0xFFFFFFFF
+    return (m, f << 19, z, 4096 - f), (cum, l - (l > 0), l + 7, l + 15)
+
+
+def _step(x, t):
+    """chain_step: the state after the step at state x."""
+    (m, y, z, gain), (cum, s0, s1, s2) = t
+    hi = (x * m) >> 32
+    e0, e1 = x >= y, x >= z
+    assert e0 or y != 1 << 19  # f = 1 always renorms
+    s = s2 if e1 else s1 if e0 else s0
+    add = (x >> 16 if e1 else x >> 8 if e0 else x) + cum
+    x = (hi >> s) * gain + add
+    assert x < 1 << 31
+    return x
+
+
+def _emitted(x, t):
+    return int(x >= t[0][1]) + int(x >= t[0][2])
+
+
+def _flush(xs, ts, row, end):
+    """flush_chunk: the bytes of one chunk's steps (xs: the states
+    entering them, ts: their entries) into row downward from end, each of
+    96 threads placing its run of positions after a suffix scan of the
+    runs' counts; returns the chunk's byte count."""
+    n = len(xs)
+    run = -(-n // K6_FLUSH_THREADS)
+    ks = [_emitted(x, t) for x, t in zip(xs, ts)]
+    runs = [(min(n, t * run), min(n, t * run + run)) for t in range(K6_FLUSH_THREADS)]
+    counts = [sum(ks[lo:hi]) for lo, hi in runs]
+    for t, (lo, hi) in enumerate(runs):
+        pos = end - 1 - sum(counts[t + 1:])
+        for i in range(hi - 1, lo - 1, -1):
+            if ks[i] >= 1 and pos >= 0:
+                row[pos] = xs[i] & 0xFF
+            if ks[i] == 2 and pos >= 1:
+                row[pos - 1] = (xs[i] >> 8) & 0xFF
+            pos -= ks[i]
+    return sum(counts)
+
+
+def _emulate_chain(values, freq, budget):
+    """One stream through K6e's chain chunk by chunk, back to front:
+    (final state, byte count, the rANS row of `budget` bytes)."""
+    cum = np.concatenate([[0], np.cumsum(freq)[:-1]]).tolist()
+    # an absent symbol (f = 0) never reaches the chain; its entry has f = 1
+    tab = [_entry(max(int(f), 1), int(c)) for f, c in zip(freq, cum)]
+    sym = md.sym_extra(torch.from_numpy(values))[0].tolist()
+    n, x, end, total = len(sym), md.STATE_LO, budget, 0
+    row = [0] * budget
+    for c in range((n - 1) // md.K6_CHUNK, -1, -1):
+        ts = [tab[s] for s in sym[c * md.K6_CHUNK : (c + 1) * md.K6_CHUNK]]
+        xs = [0] * len(ts)
+        for i in range(len(ts) - 1, -1, -1):
+            xs[i] = x
+            x = _step(x, ts[i])
+        cnt = _flush(xs, ts, row, end)
+        end -= cnt
+        total += cnt
+    return x, total, bytes(row)
+
+
+def _step_kinds():
+    """Streams through the step's cases: f = 1 symbols, a dominant
+    symbol near f = 4096, and symbols of f < 16 (two renorms) beside
+    symbols of f >= 32 (chip_smoke.py k6_step_kinds)."""
+    rng = np.random.default_rng(0x6E)
+    return {
+        "f1": np.concatenate([np.zeros(9000, np.int16), np.array([-32768, 20000, 3, 900], np.int16),
+                              rng.integers(-3, 4, 9000).astype(np.int16)]),
+        "dominant": np.where(rng.random(24000) < 0.0008, 1, 0).astype(np.int16),
+        "renorm2": np.where(rng.random(20000) < 0.5, rng.integers(-32768, 32768, 20000),
+                            rng.integers(-2, 3, 20000)).astype(np.int16),
+    }
+
+
+@pytest.mark.parametrize("kind", ["photo", "zeros", "fullrange", "int16min", "single", "runs",
+                                  "tile", "f1", "dominant", "renorm2", "photo_cut"])
+def test_chain_step_emulation(kind):
+    """K6e's chain, emulated on its packed table with its bytes placed as
+    the flush warps place them, against the plain chain's state, rANS
+    row and byte count (photo_cut: a 64-byte budget the bytes overrun)."""
+    name = kind.removesuffix("_cut")
+    v = (_tile_stream() if name == "tile" else
+         _step_kinds()[name] if name in ("f1", "dominant", "renorm2") else _kind(name))
+    cap = 64 if kind.endswith("_cut") else 2 * v.size + 64
+    record, rans, _ = md.manba_encode_plain(torch.from_numpy(v[None]), cap)
+    freq, x, rb, _, _ = md.unpack_record(record)
+    if kind == "f1":
+        assert (freq[0] == 1).any()
+    if kind == "dominant":
+        assert freq[0].max() >= 4090
+    if kind == "renorm2":
+        assert ((freq[0] > 0) & (freq[0] < 16)).any() and (freq[0] >= 32).any()
+    got_x, got_count, got_row = _emulate_chain(v, freq[0], cap)
+    assert got_x == x[0]
+    assert got_count == rb[0]
+    keep = min(int(rb[0]), cap)
+    assert got_row[cap - keep:] == rans[0, cap - keep:].numpy().tobytes()
+    if kind.endswith("_cut"):
+        assert rb[0] > cap
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_chain_step_thresholds(k):
+    """K6e's step on states at both renorm thresholds (f << 19 and
+    f << 27) and beside them, for every f where such a state renorms k
+    times, against the renorm and the division done as the plain chain
+    does them."""
+    seen = 0
+    for f in range(1, 4097):
+        cum = 4096 - f  # the largest a symbol's cum can be
+        t = _entry(f, cum)
+        y, z = f << 19, f << 27
+        for x in (y - 2, y - 1, y, y + 1, z - 1, z, z + 1, 1 << 23, (1 << 31) - 1):
+            if not (1 << 23) <= x < 1 << 31 or int(x >= y) + int(x >= z) != k:
+                continue
+            xr = x >> (8 * k)
+            assert _step(x, t) == xr + cum + (xr // f) * (4096 - f), (f, x)
+            assert _emitted(x, t) == k
+            seen += 1
+    assert seen >= 40  # k = 2 only for f < 16
 
 
 # ---------------------------------------------------------------- decode
