@@ -1,17 +1,16 @@
-// One 2-D integer lift level, forward and inverse, for Hopper (sm_90a).
+// One 2-D integer lift level, forward and inverse, for Hopper (sm_90a):
+// the per-level API's K1/K2.
 //
 // Replaces the TPU kernels of ako_tpu/ops/pallas_lift.py:
 //   ako_lift2d   <- _lift2d_kernel   (pallas_lift.py:90, driven by lift2d_pallas)
 //   ako_unlift2d <- _unlift2d_kernel (pallas_lift.py:184, driven by unlift2d_pallas)
-//   ako_vlift    <- _vlift_kernel    (pallas_lift.py:127, the "split" wiring)
-//   ako_vunlift  <- _vunlift_kernel  (pallas_lift.py:211, the "split" wiring)
-// and computes what ako_tpu/ops/wavelets.py lift2d / unlift2d compute
-// (the V-only pair: one lift1d / unlift1d_pair along the rows):
+// and computes what ako_tpu/ops/wavelets.py lift2d / unlift2d compute:
 // Haar, CDF 5/3 and DD 13/7 lifting with the four wrap modes, C
 // truncating division in the bias+shift form of ops/intmath.py, and an
 // int16 wrap at every store. Unlike the Pallas kernels these also take
 // odd dimensions (the fake last row / column of library/lifting.c:43-76),
-// so they take every level of any tile.
+// so they take every level of any tile. The split wiring's V-only pair
+// (K1v/K2v, _vlift_kernel / _vunlift_kernel) is vlift.cu.
 //
 // What bounds it: bytes. Each pass reads about 2 B and writes about 2 B
 // per coefficient and does a few dozen integer operations on them, far
@@ -29,11 +28,7 @@
 // launch each of lift_level.cu, the rest one launch of lift_pyramid.cu,
 // with colour and quantize fused in both. K1/K2 serve the per-level API
 // (ops/lift_kernels.py lift2d_level / unlift2d_level, which
-// ops/lifting.py forward_tile / inverse_tile take). The V-only pair
-// (K1v/K2v) is one such V pass per call, one thread per (row pair,
-// column), so it moves the same bytes per pass; the split wiring, which
-// runs every level through it, adds torch transposes between its three
-// calls per level.
+// ops/lifting.py forward_tile / inverse_tile take).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -212,42 +207,6 @@ __global__ void unlift_h(const int16_t* __restrict__ left, const int16_t* __rest
     if (2 * j + 1 < cur_w) dst[1] = od;
 }
 
-// V-only forward lift (K1v): x (planes, h, w) -> lp, hp (planes, th, w),
-// th = ceil(h / 2); the fake last odd row (odd h) repeats the last even.
-template <int WAV>
-__global__ void vlift(const int16_t* __restrict__ x, int16_t* __restrict__ lp,
-                      int16_t* __restrict__ hp, long long total, int h, int th, int w,
-                      int wrap) {
-    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int j = (int)(idx % w);
-    const long long pr = idx / w;
-    const int i = (int)(pr % th);
-    const long long plane = pr / th;
-    const int16_t* col = x + plane * h * (long long)w + j;
-    fwd_lift<WAV>(Strided{col, 2LL * w}, OddOf{col, w, h / 2}, i, th, wrap, lp + idx, hp + idx);
-}
-
-// V-only inverse lift (K2v): lp, hp (planes, th, w) -> out (planes,
-// out_h, w), out_h = 2*th or 2*th - 1 (the fake last row dropped).
-template <int WAV>
-__global__ void vunlift(const int16_t* __restrict__ lp, const int16_t* __restrict__ hp,
-                        int16_t* __restrict__ out, long long total, int th, int w, int out_h,
-                        int wrap) {
-    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int j = (int)(idx % w);
-    const long long pr = idx / w;
-    const int i = (int)(pr % th);
-    const long long plane = pr / th;
-    const long long col = plane * th * (long long)w + j;
-    int16_t ev, od;
-    inv_lift<WAV>(Strided{lp + col, w}, Strided{hp + col, w}, i, th, wrap, &ev, &od);
-    int16_t* dst = out + (plane * out_h + 2 * i) * (long long)w + j;
-    dst[0] = ev;
-    if (2 * i + 1 < out_h) dst[w] = od;
-}
-
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long long total) {
@@ -280,23 +239,6 @@ int unlift2d_impl(const int16_t* ll, const int16_t* b, const int16_t* c, const i
     return (int)cudaGetLastError();
 }
 
-template <int WAV>
-int vlift_impl(const int16_t* x, int16_t* lp, int16_t* hp, long long n, int h, int w, int wrap,
-               cudaStream_t s) {
-    const int th = (h + 1) / 2;
-    const long long total = n * th * w;
-    vlift<WAV><<<blocks_for(total), kThreads, 0, s>>>(x, lp, hp, total, h, th, w, wrap);
-    return (int)cudaGetLastError();
-}
-
-template <int WAV>
-int vunlift_impl(const int16_t* lp, const int16_t* hp, int16_t* out, long long n, int th, int w,
-                 int out_h, int wrap, cudaStream_t s) {
-    const long long total = n * th * w;
-    vunlift<WAV><<<blocks_for(total), kThreads, 0, s>>>(lp, hp, out, total, th, w, out_h, wrap);
-    return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C interface, bound with ctypes (ako_tpu_torch/runtime/kernels.py).
@@ -326,31 +268,6 @@ extern "C" int ako_unlift2d(const int16_t* ll, const int16_t* b, const int16_t* 
         case DD137: return unlift2d_impl<DD137>(ll, b, c, d, left, right, out, n, cur_h, cur_w, wrap, s);
         case CDF53: return unlift2d_impl<CDF53>(ll, b, c, d, left, right, out, n, cur_h, cur_w, wrap, s);
         case HAAR: return unlift2d_impl<HAAR>(ll, b, c, d, left, right, out, n, cur_h, cur_w, wrap, s);
-        default: return -1;
-    }
-}
-
-// V-only levels of the split wiring: x (n, h, w) -> lp, hp (n, ceil(h/2),
-// w), and lp, hp (n, th, w) -> out (n, out_h, w) with out_h in
-// {2*th - 1, 2*th}. Same return convention as above.
-extern "C" int ako_vlift(const int16_t* x, int16_t* lp, int16_t* hp, long long n, int h, int w,
-                         int wavelet, int wrap, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (wavelet) {
-        case DD137: return vlift_impl<DD137>(x, lp, hp, n, h, w, wrap, s);
-        case CDF53: return vlift_impl<CDF53>(x, lp, hp, n, h, w, wrap, s);
-        case HAAR: return vlift_impl<HAAR>(x, lp, hp, n, h, w, wrap, s);
-        default: return -1;
-    }
-}
-
-extern "C" int ako_vunlift(const int16_t* lp, const int16_t* hp, int16_t* out, long long n,
-                           int th, int w, int out_h, int wavelet, int wrap, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (wavelet) {
-        case DD137: return vunlift_impl<DD137>(lp, hp, out, n, th, w, out_h, wrap, s);
-        case CDF53: return vunlift_impl<CDF53>(lp, hp, out, n, th, w, out_h, wrap, s);
-        case HAAR: return vunlift_impl<HAAR>(lp, hp, out, n, th, w, out_h, wrap, s);
         default: return -1;
     }
 }

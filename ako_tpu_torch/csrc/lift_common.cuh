@@ -1,8 +1,11 @@
-// C integer semantics, the edge rules, the lifting steps, the colour
-// transforms and the quantizer shared by the lift kernels (lift2d.cu,
-// lift_pyramid.cu, lift_level.cu): one copy of the truncating power-of-two
-// divisions of ops/intmath.py, the int16 store wrap, the wrap-mode tap
-// substitutions of ops/wavelets.py and the transforms of ops/colorspace.py.
+// C integer semantics, the edge rules, the lifting steps, the windows in
+// shared memory, the colour transforms and the quantizer shared by the
+// lift kernels (lift2d.cu, lift_pyramid.cu, lift_level.cu, vlift.cu): one
+// copy of the truncating power-of-two divisions of ops/intmath.py, the
+// int16 store wrap, the wrap-mode tap substitutions of ops/wavelets.py,
+// the pairs and samples a window holds (REPEAT's modulo, the fake odd
+// sample) and its 16-byte copies, and the transforms of
+// ops/colorspace.py.
 
 #pragma once
 
@@ -89,6 +92,61 @@ __device__ __forceinline__ void lift_step(int16_t* line, int step, int k, int n,
         *even = (int16_t)(KIND == UPDATE ? *even + t : *even - t);
     }
 }
+
+// Windows of a line in shared memory (lift_level.cu, vlift.cu): a CTA
+// loads a region of a line's pairs and a halo around it, and the lift
+// runs on the window.
+
+// The two rules of a window's slots. REPEAT's pair for pair index p of a
+// line of n pairs is p modulo n; the sample in pair p's even (odd = 0) or
+// odd (odd = 1) slot of a line of len samples is 2 p + odd, the fake odd
+// sample of an odd line its even one, also where it arrives as REPEAT's
+// wrapped halo.
+__device__ __forceinline__ int repeat_pair(int p, int n) { return ((p % n) + n) % n; }
+__device__ __forceinline__ int pair_sample(int p, int odd, int len) { return min(2 * p + odd, len - 1); }
+
+// The line's pair (of n) that a window holds for pair index p, and its
+// sample for sample index s (pair s >> 1, parity s & 1); -1 off the line
+// (vlift.cu's tiles, which are not clipped to the line).
+__device__ __forceinline__ int line_pair(int p, int n, bool rep) {
+    if (rep) return repeat_pair(p, n);
+    return p >= 0 && p < n ? p : -1;
+}
+__device__ __forceinline__ int line_sample(int s, int len, bool rep) {
+    const int p = line_pair(s >> 1, (len + 1) / 2, rep);
+    return p < 0 ? -1 : pair_sample(p, s & 1, len);
+}
+
+// One axis of a CTA's window: of a line of len samples (n pairs), the
+// region's pairs [r0, r1) and the window's pairs [lo, hi), the region and
+// its halo, clipped to the line or, for REPEAT, taken modulo n.
+struct Axis {
+    int len, n, r0, r1, lo, hi;
+    bool rep;
+    __device__ Axis(int len_, int region, int idx, int halo_, bool rep_)
+        : len(len_), n((len_ + 1) / 2), rep(rep_) {
+        r0 = idx * region;
+        r1 = min(r0 + region, n);
+        lo = rep ? r0 - halo_ : max(r0 - halo_, 0);
+        hi = rep ? r1 + halo_ : min(r1 + halo_, n);
+    }
+    // the line's pair at window pair i (the window lies on the line but
+    // for REPEAT's)
+    __device__ __forceinline__ int pair(int i) const { return rep ? repeat_pair(lo + i, n) : lo + i; }
+    // the line's sample at window slot j (pair lo + j/2, parity j & 1)
+    __device__ __forceinline__ int sample(int j) const { return pair_sample(pair(j >> 1), j & 1, len); }
+    __device__ __forceinline__ bool edge(int k) const { return !rep && (k < 2 || k >= n - 2); }
+};
+
+// 16-byte copies from device memory into shared memory, in flight until
+// waited for.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // The first three planes of a pixel (r, g, b) after the forward colour
 // transform `color` (not COLOR_NONE).

@@ -120,32 +120,6 @@ __device__ constexpr int pr(int wav) { return wav == DD137 ? 1 : 0; }
 __device__ constexpr int ul(int wav) { return wav == DD137 ? 1 : 0; }
 __device__ constexpr int ur(int wav) { return wav == DD137 ? 2 : wav == CDF53 ? 1 : 0; }
 
-// One axis of a CTA's window: of a line of len samples (n pairs), the
-// region's pairs [r0, r1) and the window's pairs [lo, hi), the region and
-// its halo, clipped to the line or, for REPEAT, taken modulo n.
-struct Axis {
-    int len, n, r0, r1, lo, hi;
-    bool rep;
-    __device__ Axis(int len_, int region, int idx, int halo_, bool rep_)
-        : len(len_), n((len_ + 1) / 2), rep(rep_) {
-        r0 = idx * region;
-        r1 = min(r0 + region, n);
-        lo = rep ? r0 - halo_ : max(r0 - halo_, 0);
-        hi = rep ? r1 + halo_ : min(r1 + halo_, n);
-    }
-    // the line's pair at window pair i
-    __device__ __forceinline__ int pair(int i) const {
-        const int g = lo + i;
-        return rep ? ((g % n) + n) % n : g;
-    }
-    // the line's sample at window slot j (pair lo + j/2, parity j & 1):
-    // the fake odd sample of an odd line is its even one
-    __device__ __forceinline__ int sample(int j) const {
-        return min(2 * pair(j >> 1) + (j & 1), len - 1);
-    }
-    __device__ __forceinline__ bool edge(int k) const { return !rep && (k < 2 || k >= n - 2); }
-};
-
 // One step along the rows of a window: rows [0, per) of each channel's
 // plane, pairs [k0, k1) of axis x. A warp takes a row and its lanes
 // consecutive pairs (4 bytes apart: no bank conflict). Ends with
@@ -201,14 +175,6 @@ struct Region {
     __device__ explicit Region(const LevelArgs& a)
         : Region(a, ((a.width + 1) / 2 + a.rw - 1) / a.rw, ((a.height + 1) / 2 + a.rh - 1) / a.rh) {}
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 template <int WAV>
 __global__ void __launch_bounds__(kThreads)

@@ -18,9 +18,12 @@ ako_tpu/ops/pallas_lift.py, with their plain torch versions.
   one K1 (K2) call per level, csrc/lift2d.cu ako_lift2d / ako_unlift2d
   (`lift2d_level` / `unlift2d_level`, the per-level API that
   lifting.forward_tile / inverse_tile take; the codec's fused route does
-  not call them); and "split", three V-only K1v (K2v) calls per level
-  with torch transposes between them, wired as pallas_lift.py:167-172
-  and :242-247 (the H pass is transpose -> V-lift -> transpose).
+  not call them); and "split", the V-only K1v (K2v) of csrc/vlift.cu,
+  wired as pallas_lift.py:167-172 and :242-247 computes it (the H pass is
+  transpose -> V-lift -> transpose there), but with no transpose: the H
+  pass lifts the stored plane along axis -1, and a level's two V passes
+  along -2 share one launch (`vlift_level` / `vlift_pair`,
+  `vunlift_level` / `vunlift_pair`), two launches a level each way.
 
 The wiring is `mode`, read per call from AKO_TORCH_LIFT_MODE when not
 given (the counterpart of AKO_TPU_PALLAS_MODE). A CUDA tensor launches
@@ -91,17 +94,13 @@ def _on_card(t, name: str) -> bool:
     return True
 
 
-def _t(x):
-    return x.transpose(-1, -2).contiguous()
-
-
 def lift2d_level(weff: Wavelet, wrap: Wrap, x, level, mode: str | None = None):
     """x: (..., current_h, current_w) int16 -> (ll, b, c, d), each
     (..., target_h, target_w) int16; what ops.wavelets.lift2d returns."""
     if lift_mode(mode) == "split":
-        lp_t, hp_t = vlift_level(weff, wrap, _t(x))
-        ll, c = vlift_level(weff, wrap, _t(lp_t))
-        b, d = vlift_level(weff, wrap, _t(hp_t))
+        # the H pass along -1, then both halves' V passes in one launch
+        lp, hp = vlift_level(weff, wrap, x, axis=-1)
+        (ll, c), (b, d) = vlift_pair(weff, wrap, lp, hp)
         return ll, b, c, d
     if not _on_card(x, "lift2d_level"):
         return wavelets.lift2d(weff, wrap, x, level)
@@ -126,9 +125,9 @@ def unlift2d_level(weff: Wavelet, wrap: Wrap, ll, b, c, d, level, mode: str | No
     """Quadrants (..., target_h, target_w) int16 -> plane (...,
     current_h, current_w) int16; what ops.wavelets.unlift2d returns."""
     if lift_mode(mode) == "split":
-        left = vunlift_level(weff, wrap, ll, c, level.current_h)
-        right = vunlift_level(weff, wrap, b, d, level.current_h)
-        return _t(vunlift_level(weff, wrap, _t(left), _t(right), level.current_w))
+        # both halves' V passes in one launch, then the H pass along -1
+        left, right = vunlift_pair(weff, wrap, (ll, c), (b, d), level.current_h)
+        return vunlift_level(weff, wrap, left, right, level.current_w, axis=-1)
     if not _on_card(ll, "unlift2d_level"):
         return wavelets.unlift2d(weff, wrap, ll, b, c, d, level)
     th, tw = level.target_h, level.target_w
@@ -151,43 +150,93 @@ def unlift2d_level(weff: Wavelet, wrap: Wrap, ll, b, c, d, level, mode: str | No
     return out
 
 
-def vlift_level(wavelet: Wavelet, wrap: Wrap, x):
-    """x: (..., h, w) int16 -> (lp, hp), each (..., ceil(h/2), w) int16;
-    what ops.wavelets.vlift returns."""
-    if not _on_card(x, "vlift_level"):
-        return wavelets.vlift(wavelet, wrap, x)
+@functools.lru_cache(maxsize=256)
+def _vlift_args(n: int, h: int, w: int, axis: int, wavelet: Wavelet, wrap: Wrap, groups: int):
+    """The kernels' VliftArgs for `groups` calls on n planes (h, w) along
+    `axis` (built once per shape)."""
+    a = kernels.VliftArgs()
+    a.n, a.h, a.w, a.axis = n, h, w, 1 if axis == -1 else 0
+    a.wavelet, a.wrap, a.groups = wavelet, wrap, groups
+    return a
+
+
+def _check_axis(axis: int) -> None:
+    if axis not in (-1, -2):
+        raise ValueError(f"V-only lift: axis {axis}, expected -1 or -2")
+
+
+def _vlift(wavelet: Wavelet, wrap: Wrap, xs, axis: int):
+    """K1v on the same-shape planes `xs` (one or two calls): one launch on
+    the card, the plain version on the CPU."""
+    _check_axis(axis)
+    if not _on_card(xs[0], "vlift_level"):
+        return [wavelets.vlift(wavelet, wrap, x, axis) for x in xs]
+    x = xs[0]
     h, w = x.shape[-2:]
-    _check(x, (h, w), "vlift_level")
-    lp, hp = (x.new_empty(x.shape[:-2] + ((h + 1) // 2, w)) for _ in range(2))
+    for t in xs:
+        _check(t, (h, w), "vlift_level")
+        if t.device != x.device or t.shape != x.shape:
+            raise ValueError("vlift_pair: the planes do not match")
+    shape = x.shape[:-2] + (((h + 1) // 2, w) if axis == -2 else (h, (w + 1) // 2))
+    outs = [(x.new_empty(shape), x.new_empty(shape)) for _ in xs]
+    args = _vlift_args(math.prod(x.shape[:-2]), h, w, axis, wavelet, wrap, len(xs))
     with torch.cuda.device(x.device):
-        kernels.vlift(
-            x.data_ptr(), lp.data_ptr(), hp.data_ptr(), math.prod(x.shape[:-2]), h, w,
-            int(wavelet), int(wrap), torch.cuda.current_stream().cuda_stream,
-        )
+        kernels.vlift(args, [t.data_ptr() for t in xs], [t.data_ptr() for o in outs for t in o],
+                      torch.cuda.current_stream().cuda_stream)
     LAUNCHES["vlift"] += 1
-    return lp, hp
+    return outs
 
 
-def vunlift_level(wavelet: Wavelet, wrap: Wrap, lp, hp, out_h: int):
-    """lp, hp (..., th, w) int16 -> (..., out_h, w) int16, out_h = 2*th
-    or 2*th - 1; what ops.wavelets.vunlift returns."""
-    if not _on_card(lp, "vunlift_level"):
-        return wavelets.vunlift(wavelet, wrap, lp, hp, out_h)
-    th, w = lp.shape[-2:]
-    _check(lp, (th, w), "vunlift_level lp")
-    _check(hp, (th, w), "vunlift_level hp")
-    if hp.device != lp.device or hp.shape != lp.shape:
-        raise ValueError("vunlift_level: hp does not match lp")
-    if out_h not in (2 * th - 1, 2 * th):
-        raise ValueError(f"vunlift_level: out_h {out_h} does not fit {th} rows")
-    out = lp.new_empty(lp.shape[:-2] + (out_h, w))
-    with torch.cuda.device(lp.device):
-        kernels.vunlift(
-            lp.data_ptr(), hp.data_ptr(), out.data_ptr(), math.prod(lp.shape[:-2]), th, w,
-            out_h, int(wavelet), int(wrap), torch.cuda.current_stream().cuda_stream,
-        )
+def _vunlift(wavelet: Wavelet, wrap: Wrap, pairs, out_len: int, axis: int):
+    """K2v on the same-shape (lp, hp) `pairs` (one or two calls): one
+    launch on the card, the plain version on the CPU."""
+    _check_axis(axis)
+    if not _on_card(pairs[0][0], "vunlift_level"):
+        return [wavelets.vunlift(wavelet, wrap, lp, hp, out_len, axis) for lp, hp in pairs]
+    lp0 = pairs[0][0]
+    shape = tuple(lp0.shape[-2:])
+    for lp, hp in pairs:
+        _check(lp, shape, "vunlift_level lp")
+        _check(hp, shape, "vunlift_level hp")
+        if any(t.device != lp0.device or t.shape != lp0.shape for t in (lp, hp)):
+            raise ValueError("vunlift_level: hp does not match lp")
+    t = shape[axis]
+    if out_len not in (2 * t - 1, 2 * t):
+        raise ValueError(f"vunlift_level: out_len {out_len} does not fit {t} pairs")
+    h, w = (out_len, shape[1]) if axis == -2 else (shape[0], out_len)
+    outs = [lp0.new_empty(lp0.shape[:-2] + (h, w)) for _ in pairs]
+    args = _vlift_args(math.prod(lp0.shape[:-2]), h, w, axis, wavelet, wrap, len(pairs))
+    with torch.cuda.device(lp0.device):
+        kernels.vunlift(args, [x.data_ptr() for p in pairs for x in p], [o.data_ptr() for o in outs],
+                        torch.cuda.current_stream().cuda_stream)
     LAUNCHES["vunlift"] += 1
-    return out
+    return outs
+
+
+def vlift_level(wavelet: Wavelet, wrap: Wrap, x, axis: int = -2):
+    """x: (..., h, w) int16 -> (lp, hp), each (..., ceil(h/2), w) along
+    the rows (axis -2) or (..., h, ceil(w/2)) along the columns (axis -1),
+    int16; what ops.wavelets.vlift returns. One K1v launch."""
+    return _vlift(wavelet, wrap, (x,), axis)[0]
+
+
+def vlift_pair(wavelet: Wavelet, wrap: Wrap, x0, x1, axis: int = -2):
+    """vlift_level of two planes of one shape, ((lp0, hp0), (lp1, hp1)),
+    in one K1v launch."""
+    return tuple(_vlift(wavelet, wrap, (x0, x1), axis))
+
+
+def vunlift_level(wavelet: Wavelet, wrap: Wrap, lp, hp, out_len: int, axis: int = -2):
+    """lp, hp (..., th, w) int16 -> (..., out_len, w) int16 (axis -2), or
+    (..., h, tw) -> (..., h, out_len) (axis -1), out_len = 2*t or 2*t - 1;
+    what ops.wavelets.vunlift returns. One K2v launch."""
+    return _vunlift(wavelet, wrap, ((lp, hp),), out_len, axis)[0]
+
+
+def vunlift_pair(wavelet: Wavelet, wrap: Wrap, pair0, pair1, out_len: int, axis: int = -2):
+    """vunlift_level of two (lp, hp) pairs of one shape, (out0, out1), in
+    one K2v launch."""
+    return tuple(_vunlift(wavelet, wrap, (pair0, pair1), out_len, axis))
 
 
 # ---------------------------------------------------------------------

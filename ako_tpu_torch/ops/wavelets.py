@@ -175,12 +175,14 @@ def lift2d(wavelet_eff: Wavelet, wrap: Wrap, x, level):
     return ll, b, c, d
 
 
-def vlift(wavelet: Wavelet, wrap: Wrap, x):
-    """Forward lift along the rows (axis -2) of planes x (..., h, w)
-    int16 -> (lp, hp), each (..., ceil(h/2), w) int16. An odd h gets
-    the fake last odd row (the last even row): the V-only level of the
-    split wiring (ako_tpu/ops/pallas_lift.py _vlift), on any height."""
-    return lift1d(wavelet, wrap, x, x.shape[-2] % 2, axis=-2)
+def vlift(wavelet: Wavelet, wrap: Wrap, x, axis: int = -2):
+    """Forward lift along `axis` of planes x (..., h, w) int16 -> (lp,
+    hp): along the rows (axis -2) each (..., ceil(h/2), w), along the
+    columns (axis -1) each (..., h, ceil(w/2)), int16. An odd length gets
+    the fake last odd sample (the last even one): the V-only level of the
+    split wiring (ako_tpu/ops/pallas_lift.py _vlift), on any length;
+    along -1 it is vlift of the transposed planes, transposed back."""
+    return lift1d(wavelet, wrap, x, x.shape[axis] % 2, axis=axis)
 
 
 # ---------------------------------------------------------------------
@@ -217,14 +219,15 @@ def unlift1d_pair(wavelet: Wavelet, wrap: Wrap, lp, hp, axis: int):
     return ev, od
 
 
-def vunlift(wavelet: Wavelet, wrap: Wrap, lp, hp, out_h: int):
+def vunlift(wavelet: Wavelet, wrap: Wrap, lp, hp, out_len: int, axis: int = -2):
     """Inverse of vlift: lp, hp (..., th, w) -> rows interleaved into
-    (..., out_h, w) int16, out_h = 2*th or 2*th - 1 (the fake last row
-    dropped)."""
-    ev, od = unlift1d_pair(wavelet, wrap, lp, hp, axis=-2)
-    if out_h % 2:
-        od = _sl(od, 0, -1, -2)
-    return _interleave(ev, od, axis=-2)
+    (..., out_len, w) int16 (axis -2), or (..., h, tw) -> columns
+    interleaved into (..., h, out_len) (axis -1); out_len = 2*t or
+    2*t - 1 (the fake last sample dropped)."""
+    ev, od = unlift1d_pair(wavelet, wrap, lp, hp, axis=axis)
+    if out_len % 2:
+        od = _sl(od, 0, -1, axis)
+    return _interleave(ev, od, axis=axis)
 
 
 def unlift2d(wavelet_eff: Wavelet, wrap: Wrap, ll, b, c, d, level):

@@ -1,6 +1,7 @@
 """Build-and-load for the port's Hopper kernels: the per-level lift
-kernels of the per-level API and the split wiring (csrc/lift2d.cu), the
-whole-pyramid lift kernels (csrc/lift_pyramid.cu), the one-launch level
+kernels of the per-level API (csrc/lift2d.cu), the split wiring's V-only
+lifts along either axis (csrc/vlift.cu), the whole-pyramid lift kernels
+(csrc/lift_pyramid.cu), the one-launch level
 kernels for planes too large for a pyramid block (csrc/lift_level.cu), the
 Kagari tokenize + pack (csrc/kagari_encode.cu, one launch a call), the
 Kagari block decoder (csrc/kagari_decode.cu), and the Manbavaran rANS
@@ -11,8 +12,8 @@ link build a shared library with a plain C interface in this package's
 `_build/` directory, cached by the mtime of the sources and the header
 they share; ctypes binds it. Device pointers and the CUDA stream are
 passed as integers (c_void_p), the pyramid and level kernels' tables as
-a pointer to a PyramidArgs or LevelArgs that the C side passes to the
-kernel by value. Nothing
+a pointer to a PyramidArgs, LevelArgs or VliftArgs (with a VliftPtrs)
+that the C side passes to the kernel by value. Nothing
 here runs at import: the CPU tests import this module on machines with
 no nvcc and no card.
 """
@@ -30,7 +31,7 @@ from ako_tpu_torch.runtime.build import BUILD_DIR
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [
     os.path.join(_PKG, "csrc", f)
-    for f in ("lift2d.cu", "lift_pyramid.cu", "lift_level.cu", "kagari_encode.cu",
+    for f in ("lift2d.cu", "vlift.cu", "lift_pyramid.cu", "lift_level.cu", "kagari_encode.cu",
               "kagari_decode.cu", "manba_encode.cu", "manba_decode.cu")
 ]
 #: what the library is rebuilt after: the sources and the header they include
@@ -79,6 +80,18 @@ class LevelArgs(ctypes.Structure):
     ]
 
 
+class VliftArgs(ctypes.Structure):
+    """csrc/vlift.cu VliftArgs, field for field (all int)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in ("n", "h", "w", "axis", "wavelet", "wrap", "groups")]
+
+
+class VliftPtrs(ctypes.Structure):
+    """csrc/vlift.cu VliftPtrs: a launch's device pointers."""
+
+    _fields_ = [("in_", ctypes.c_void_p * 4), ("out", ctypes.c_void_p * 4)]
+
+
 _lock = threading.Lock()
 _lib = None
 #: nvcc's output from this process's build (ptxas register and spill
@@ -93,8 +106,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "ako_lift2d": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
     "ako_unlift2d": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
-    "ako_vlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _P],
-    "ako_vunlift": [_P] * 3 + [_LL, _I, _I, _I, _I, _I, _P],
+    "ako_vlift": [ctypes.POINTER(VliftArgs), ctypes.POINTER(VliftPtrs), _P],
+    "ako_vunlift": [ctypes.POINTER(VliftArgs), ctypes.POINTER(VliftPtrs), _P],
     "ako_kagari_encode": [_P] * 4 + [_LL, _I, _I, ctypes.c_uint, _I, _I, _I, _P],
     "ako_kagari_decode": [_P, _LL] + [_P] * 6 + [_I, _I, _I, _I, _P],
     "ako_lift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
@@ -108,6 +121,8 @@ _SIGNATURES = {
     "ako_manba_encode_chains": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ako_manba_chain_alone": [_P, _I, _P, _P, _P],
     "ako_manba_op_latency": [_P, _I, _P],
+    # the launch floor, an empty kernel (chip_smoke.py, chip_probe.py)
+    "ako_launch_floor": [_P],
 }
 
 
@@ -182,14 +197,32 @@ def unlift2d(ll, b, c, d, left, right, out, n, cur_h, cur_w, wavelet, wrap, stre
     )
 
 
-def vlift(x, lp, hp, n, h, w, wavelet, wrap, stream) -> None:
-    """Launch the V-only forward lift (K1v) on `stream`."""
-    _check(load().ako_vlift(x, lp, hp, n, h, w, wavelet, wrap, stream), "ako_vlift")
+def _ptrs(ins, outs) -> VliftPtrs:
+    p = VliftPtrs()
+    p.in_[: len(ins)] = ins
+    p.out[: len(outs)] = outs
+    return p
 
 
-def vunlift(lp, hp, out, n, th, w, out_h, wavelet, wrap, stream) -> None:
-    """Launch the V-only inverse lift (K2v) on `stream`."""
-    _check(load().ako_vunlift(lp, hp, out, n, th, w, out_h, wavelet, wrap, stream), "ako_vunlift")
+def vlift(args, ins, outs, stream) -> None:
+    """Launch the V-only forward lift (K1v) on `stream`: `args` a
+    VliftArgs, `ins` its calls' input pointers, `outs` their (lp, hp)
+    pointers in call order, already checked by the caller."""
+    _check(load().ako_vlift(ctypes.byref(args), ctypes.byref(_ptrs(ins, outs)), stream),
+           "ako_vlift")
+
+
+def vunlift(args, ins, outs, stream) -> None:
+    """Launch the V-only inverse lift (K2v) on `stream`: `ins` the calls'
+    (lp, hp) pointers in call order, `outs` their planes' (see vlift)."""
+    _check(load().ako_vunlift(ctypes.byref(args), ctypes.byref(_ptrs(ins, outs)), stream),
+           "ako_vunlift")
+
+
+def launch_floor(stream) -> None:
+    """Launch the empty kernel on `stream` (a measurement; the codec never
+    calls it)."""
+    _check(load().ako_launch_floor(stream), "ako_launch_floor")
 
 
 def kagari_encode(values, out, totals, scratch, scratch_words, rows_cap, chunks_cap, epoch, rows,

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Probes of the port on one CUDA card that go past chip_smoke.py: a
-comparison with another checkout, and where kernels K3's, K4's and the
-level kernels' time goes.
+comparison with another checkout, and where kernels K3's, K4's, K6e's,
+the level kernels' and the split wiring's K1v/K2v time goes.
 
     python3 chip_probe.py compare OTHER   # OTHER: the root of another checkout
     python3 chip_probe.py k3 [OTHER]
     python3 chip_probe.py k4 [OTHER]
     python3 chip_probe.py levels [OTHER]
     python3 chip_probe.py k6 [OTHER]
+    python3 chip_probe.py split [OTHER]
+    python3 chip_probe.py profiler
 
 compare: the device-entropy north star (128-px tiles, fused wiring) in
 turns OTHER, this, this, OTHER, each in its own process: encode and
@@ -92,6 +94,52 @@ star) and the native coder. nvidia-smi's SM clock is read while the
 whole tile's encodes run. Last, each variant's latency bound: the
 longer of its dependent path and its instructions a step, at the SM
 clock the chain alone read, times the steps of one chain.
+
+split: the split wiring's K1v/K2v (csrc/vlift.cu) on the north star's
+128-px tile group (80 RGBA tiles, 320 planes), level by level, in turns
+(other, this, this_3, this_3, this, other): "this" as the wiring runs
+them (the pass along -1, then both halves' passes along -2 in one
+launch: two launches a level each way), "this_3" the same kernels in
+three launches a level (one call a launch), and "other" OTHER's K1v/K2v
+(built from its csrc/lift2d.cu) wired as its split wiring was, with the
+torch transposes between its three launches a level. For each: the
+device ms a level of the K1v (K2v) launches and of all device work
+(busy), and its device kernels (the profiler over 20 calls; every
+variant checked against the plain version); the sums over the levels.
+Then the launch floor, an empty kernel's device ms (median of 50); then
+variants of csrc/vlift.cu made by editing its source (runs a CTA: 8 as
+it is, 4, 2; "mem_only", the tiles' loads and stores without the lift;
+"setup_only", each CTA's index arithmetic alone; "load_only", up to the
+tile's load and its barrier),
+in turns, each checked against the plain version (but mem_only), with a
+torch clone of the level's plane beside them, their SASS written to
+build/probe/vlift_sass_<variant>.txt; and
+encode.forward_streams / decode.stream_pixels and the device-entropy
+encode / decode in AKO_TORCH_LIFT_MODE=split on OTHER's checkout and
+this one, each in its own process, in turns (other, this, this,
+other): device busy, wall, device kernels and device ms per kernel of
+one profiled call, host enqueue and device span medians, and the
+streams' and pixels' digests, which must agree.
+
+profiler: how often torch.profiler records a short window's device work
+as the process ages, in two child processes, one with CUPTI kept up
+across windows as torch leaves it (TEARDOWN_CUPTI=0), one with CUPTI torn
+down after each window (=1, as chip_smoke.py sets it). Each child: the
+host's launch calls and the device events of one split level; then 10
+windows a case, in turns, at the start and after 100 s: K3 alone on the
+north star's 80 streams, the fused wiring's forward_streams on its 80
+tiles (one lift_pyramid launch), one empty kernel (csrc/vlift.cu
+launch_floor) and one torch op, each in a window as
+chip_smoke._profile_window makes it (a warm call, then one call and a
+synchronize under the profiler; "as_is"), with 2 ms of host sleep
+between the profiler's start and the call ("settle"), and with the
+device activity alone ("cuda_only"): the windows that recorded none of
+the call's device events, fewer, and all of them. Between the two, every
+10 s for 100 s: the host's realtime clock against its monotonic one, and
+one window around a torch op, an empty kernel and K3 padded by 0, 0.05,
+0.5 and 2 s of host sleep at each end: its device events, its host
+launch calls, and the first device event's start less the first launch
+call's.
 """
 
 from __future__ import annotations
@@ -99,6 +147,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -875,11 +924,528 @@ def k6(other, card: str) -> None:
               f"{ns * settings['default_whole'][0].shape[1] / 1e6:.3f} ms [{card}]", flush=True)
 
 
+SPLIT_CHILD = r'''
+import hashlib, json, os, sys
+sys.path.insert(0, sys.argv[1])
+os.environ["AKO_TORCH_LIFT_MODE"] = "split"
+import numpy as np
+import torch
+import chip_smoke as cs
+import ako_tpu_torch as P
+from ako_tpu_torch.decode import stream_pixels
+from ako_tpu_torch.encode import checked_settings, forward_streams
+from ako_tpu_torch.utils.corpus import corpus
+
+assert os.path.dirname(P.__file__).startswith(sys.argv[1]), P.__file__
+dev = torch.device("cuda:0")
+img = corpus(42, 1, 1280, 1024, 4)[0]
+north = P.Settings(quantization=16, tiles_dimension=128)
+s = checked_settings(north)
+tiles = torch.from_numpy(np.stack([img[y : y + 128, x : x + 128] for y in range(0, 1280, 128)
+                                   for x in range(0, 1024, 128)])).to(dev)
+streams = forward_streams(tiles, 128, 128, 4, s)
+pixels = stream_pixels(streams, 128, 128, 4, s)
+out = {"streams": hashlib.sha256(streams.cpu().numpy().tobytes()).hexdigest()[:16],
+       "pixels": hashlib.sha256(pixels.cpu().numpy().tobytes()).hexdigest()[:16]}
+blob = P.encode(img, north, device=dev, device_entropy=True)
+for name, fn in (("forward_streams", lambda: forward_streams(tiles, 128, 128, 4, s)),
+                 ("stream_pixels", lambda: stream_pixels(streams, 128, 128, 4, s)),
+                 ("encode", lambda: P.encode(img, north, device=dev, device_entropy=True)),
+                 ("decode", lambda: P.decode(blob, device=dev, device_entropy=True))):
+    r = cs._profile_window(fn)
+    out[name] = {"busy": round(r["busy"], 4), "wall": round(r["wall"], 3), "kernels": r["kernels"],
+                 "copies": r["copies"], "ops": r["ops"],
+                 "per": {k: round(v, 4) for k, v in sorted(r["per"].items())}}
+    if name in ("forward_streams", "stream_pixels"):
+        out[name]["enqueue"] = round(cs._enqueue_ms(fn), 3)
+        out[name]["span"] = round(cs._span_ms(fn), 4)
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+#: variant name -> ((old, new) source edits of csrc/vlift.cu, whether it
+#: still computes the function): runs a CTA (8 as it is: 256 threads at
+#: most; 4, 2); and, to show where a launch's time goes, the tiles' loads
+#: and stores without the lift (mem_only), each CTA's index arithmetic
+#: alone (setup_only), and up to the tile's load and its barrier
+#: (load_only)
+_RUNS = "constexpr int kMaxRuns = 8;"
+VLIFT_VARIANTS = {
+    "runs8": ([], True),
+    "runs4": ([(_RUNS, "constexpr int kMaxRuns = 4;")], True),
+    "runs2": ([(_RUNS, "constexpr int kMaxRuns = 2;")], True),
+    "mem_only": ([("    int h[kRun + 3];  // high-pass values of pairs a - 2 .. a + kRun\n",
+                   "    for (int j = 0; j < kRun; ++j) { lp[j] = ev[j + 3]; hp[j] = od[j + 3]; }\n"
+                   "    return;\n    int h[kRun + 3];\n"),
+                  ("    int e[kRun + 3];  // even samples of pairs a - 1 .. a + kRun + 1\n",
+                   "    for (int j = 0; j < kRun; ++j) { ev[j] = lo[j + 3]; od[j] = hi[j + 3]; }\n"
+                   "    return;\n    int e[kRun + 3];\n"),
+                  ("__device__ void lift_edge(EV ev, OD od, int a, int n, Scratch s, int* lp, int* hp) {\n",
+                   "__device__ void lift_edge(EV ev, OD od, int a, int n, Scratch s, int* lp, int* hp) {\n"
+                   "    for (int j = 0; j < kRun; ++j) { lp[j] = ev(a + j); hp[j] = od(a + j); }\n"
+                   "    if (n > 0) return;\n"),
+                  ("__device__ void unlift_edge(LO lo, HI hi, int a, int n, Scratch s, int* ev, int* od) {\n",
+                   "__device__ void unlift_edge(LO lo, HI hi, int a, int n, Scratch s, int* ev, int* od) {\n"
+                   "    for (int j = 0; j < kRun; ++j) { ev[j] = lo(a + j); od[j] = hi(a + j); }\n"
+                   "    if (n > 0) return;\n")],
+                 False),
+    "setup_only": ([("    int ev[kWin], od[kWin], lp[kRun], hp[kRun];\n",
+                     "    if (a.n > 0) return;\n    int ev[kWin], od[kWin], lp[kRun], hp[kRun];\n"),
+                    ("    int lo[kWin], hi[kWin], ev[kRun], od[kRun];\n",
+                     "    if (a.n > 0) return;\n    int lo[kWin], hi[kWin], ev[kRun], od[kRun];\n")],
+                   False),
+    "load_only": ([("        cp_async_wait<0>();\n        __syncthreads();\n",
+                    "        cp_async_wait<0>();\n        __syncthreads();\n        if (a.n > 0) return;\n")],
+                  False),
+}
+
+
+def _vlift_sources():
+    """{variant: ctypes library}: VLIFT_VARIANTS of csrc/vlift.cu built side
+    by side; each one's SASS written to build/probe/vlift_sass_<name>.txt."""
+    import chip_smoke as cs
+    from ako_tpu_torch.runtime import kernels
+
+    csrc = os.path.join(ROOT, "ako_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "vlift.cu")).read()
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for name, (edits, _) in VLIFT_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"vlift variant {name}: the source has no {old!r}")
+            text = text.replace(old, new)
+        cu, so = os.path.join(OUT, f"vlift_{name}.cu"), os.path.join(OUT, f"vlift_{name}.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = (subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", csrc, "-shared", "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the vlift variant {name}:\n{log}")
+        lib = ctypes.CDLL(so)
+        for fn in ("ako_vlift", "ako_vunlift"):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
+        print(f"split variant {name}: ptxas max registers {max(regs, default=0)}, spill stores "
+              f"{spills} B", flush=True)
+        with open(os.path.join(OUT, f"vlift_sass_{name}.txt"), "w") as f:
+            f.write(cs.cuobjdump_sass(so))
+        libs[name] = lib
+    return libs
+
+
+def _split_level(lib, wav, wrap, x, quads, lvl):
+    """The split wiring's level through `lib`'s ako_vlift / ako_vunlift
+    (the pass along -1, then both halves along -2 in one launch): (forward,
+    inverse) callables, each returning its outputs."""
+    import torch
+
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.runtime import kernels
+
+    n, h, w = x.shape
+    th, tw = lvl.target_h, lvl.target_w
+    cur = torch.cuda.current_stream().cuda_stream
+
+    def call(fn, args, ins, outs):
+        rc = fn(ctypes.byref(args), ctypes.byref(kernels._ptrs([t.data_ptr() for t in ins],
+                                                               [t.data_ptr() for t in outs])), cur)
+        if rc:
+            raise RuntimeError(f"vlift variant: cudaError {rc}")
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.int16, device=x.device)
+
+    def fwd():
+        lp, hp = new(n, h, tw), new(n, h, tw)
+        call(lib.ako_vlift, lk._vlift_args(n, h, w, -1, wav, wrap, 1), [x], [lp, hp])
+        ll, c, b, d = (new(n, th, tw) for _ in range(4))
+        call(lib.ako_vlift, lk._vlift_args(n, h, tw, -2, wav, wrap, 2), [lp, hp], [ll, c, b, d])
+        return ll, b, c, d
+
+    def inv():
+        ll, b, c, d = quads
+        left, right = new(n, h, tw), new(n, h, tw)
+        call(lib.ako_vunlift, lk._vlift_args(n, h, tw, -2, wav, wrap, 2), [ll, c, b, d],
+             [left, right])
+        out = new(n, h, w)
+        call(lib.ako_vunlift, lk._vlift_args(n, h, w, -1, wav, wrap, 1), [left, right], [out])
+        return out
+
+    return fwd, inv
+
+
+def _split_other(other):
+    """OTHER's csrc/lift2d.cu built alone, with its ako_vlift / ako_vunlift
+    bound as its kernels.py bound them (one call a launch, along -2)."""
+    from ako_tpu_torch.runtime import kernels
+
+    csrc = os.path.join(other, "ako_tpu_torch", "csrc")
+    os.makedirs(OUT, exist_ok=True)
+    so = os.path.join(OUT, "split_other.so")
+    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", csrc, "-shared", "-o", so,
+                          os.path.join(csrc, "lift2d.cu")], capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on OTHER's lift2d.cu:\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(so)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ako_vlift.restype = lib.ako_vunlift.restype = I
+    lib.ako_vlift.argtypes = [P] * 3 + [LL, I, I, I, I, P]
+    lib.ako_vunlift.argtypes = [P] * 3 + [LL, I, I, I, I, I, P]
+    return lib
+
+
+def _device_ms(fn, iters: int = 20) -> dict:
+    """A call's device ms by kernel of chip_smoke's table (others under
+    "other"), its busy ms (the union of its device intervals) and its
+    device events, over `iters` calls under torch.profiler. The profiler
+    may drop a few events of short kernels: each kernel (by its full name)
+    counts its mean event time times its events a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    by_name: dict = {}
+    busy, end = 0.0, float("-inf")
+    for a, b, name in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name.setdefault(name, []).append(b - a)
+    out = {"events": 0.0, "busy": busy / 1e3 / iters}
+    for name, times in by_name.items():
+        m = cs.KERNEL_RE.search(name)
+        key = m.group(1) if m else "other"
+        per_call = max(1, round(len(times) / iters))
+        out[key] = out.get(key, 0.0) + sum(times) / len(times) * per_call / 1e3
+        out["events"] += per_call
+    return out
+
+
+def split_variants(dev, card: str) -> None:
+    """VLIFT_VARIANTS in turns on the north star's split levels: device ms
+    a level of the two K1v (K2v) launches, each variant checked against
+    the plain version."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.core.settings import Wavelet, Wrap
+    from ako_tpu_torch.ops import wavelets
+
+    libs = _vlift_sources()
+    n, wrap = 320, Wrap.CLAMP
+    rng = np.random.default_rng(11)
+    sums: dict = {}
+    for k, lvl in enumerate(geometry.lift_schedule(128, 128).levels):
+        wav = wavelets.effective_wavelet(Wavelet.DD137, lvl.target_w, lvl.target_h)
+        x = cs._rand16(rng, (n, lvl.current_h, lvl.current_w), dev)
+        quads = [cs._rand16(rng, (n, lvl.target_h, lvl.target_w), dev) for _ in range(4)]
+        want_fwd = wavelets.lift2d(wav, wrap, x, lvl)
+        want_inv = wavelets.unlift2d(wav, wrap, *quads, lvl)
+        rows: dict = {}
+        for name in list(libs) + list(libs)[::-1]:
+            fwd, inv = _split_level(libs[name], wav, wrap, x, quads, lvl)
+            got_fwd, got_inv = fwd(), inv()
+            if VLIFT_VARIANTS[name][1] and not (
+                    all(torch.equal(g, r) for g, r in zip(got_fwd, want_fwd))
+                    and torch.equal(got_inv, want_inv)):
+                raise AssertionError(f"split variant {name} level {k} != plain")
+            f, i = _device_ms(fwd), _device_ms(inv)
+            rows.setdefault(name, []).append((f.get("vlift", 0), i.get("vunlift", 0)))
+        for name, runs in rows.items():
+            acc = sums.setdefault(name, [0.0, 0.0])
+            acc[0] += min(r[0] for r in runs)
+            acc[1] += min(r[1] for r in runs)
+        # the yardstick of the bytes: a torch copy of the level's plane
+        # (read once, written once) and of its halves, as many bytes as
+        # each launch pair moves
+        copy = _device_ms(lambda: x.clone())["busy"]
+        print(f"split variants level {k} {lvl.current_h}x{lvl.current_w}: torch clone of x "
+              f"{copy:.4f} ms; " + ", ".join(
+            f"{name} K1v {' / '.join(f'{a:.4f}' for a, _ in runs)} K2v "
+            f"{' / '.join(f'{b:.4f}' for _, b in runs)}" for name, runs in rows.items())
+            + f" ms [{card}]", flush=True)
+    for name, (a, b) in sums.items():
+        print(f"split variants sum {name}: K1v {a:.4f} ms, K2v {b:.4f} ms (the lesser of two "
+              f"turns a level) [{card}]", flush=True)
+
+
+def split(other, card: str) -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.core.settings import Wavelet, Wrap
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops import wavelets
+
+    old = _split_other(other) if other else None
+    dev = torch.device("cuda:0")
+    cur = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(9)
+    n, wrap = 320, Wrap.CLAMP
+
+    def check(rc, name):
+        if rc:
+            raise RuntimeError(f"{name}: cudaError {rc}")
+
+    def t(x):
+        return x.transpose(-1, -2).contiguous()
+
+    totals: dict = {}
+    for k, lvl in enumerate(geometry.lift_schedule(128, 128).levels):
+        wav = wavelets.effective_wavelet(Wavelet.DD137, lvl.target_w, lvl.target_h)
+        h, w, th, tw = lvl.current_h, lvl.current_w, lvl.target_h, lvl.target_w
+        x = cs._rand16(rng, (n, h, w), dev)
+        quads = [cs._rand16(rng, (n, th, tw), dev) for _ in range(4)]
+
+        def this_fwd():
+            return lk.lift2d_level(wav, wrap, x, lvl, "split")
+
+        def this_inv():
+            return lk.unlift2d_level(wav, wrap, *quads, lvl, "split")
+
+        def this3_fwd():
+            lp, hp = lk.vlift_level(wav, wrap, x, -1)
+            (ll, c), (b, d) = lk.vlift_level(wav, wrap, lp), lk.vlift_level(wav, wrap, hp)
+            return ll, b, c, d
+
+        def this3_inv():
+            ll, b, c, d = quads
+            left, right = lk.vunlift_level(wav, wrap, ll, c, h), lk.vunlift_level(wav, wrap, b, d, h)
+            return lk.vunlift_level(wav, wrap, left, right, w, -1)
+
+        def other_fwd():
+            xt = t(x)
+            lp_t, hp_t = (torch.empty((n, tw, h), dtype=torch.int16, device=dev) for _ in range(2))
+            check(old.ako_vlift(xt.data_ptr(), lp_t.data_ptr(), hp_t.data_ptr(), n, w, h, wav, wrap,
+                                cur), "other vlift")
+            outs = []
+            for half in (t(lp_t), t(hp_t)):
+                a, b = (torch.empty((n, th, tw), dtype=torch.int16, device=dev) for _ in range(2))
+                check(old.ako_vlift(half.data_ptr(), a.data_ptr(), b.data_ptr(), n, h, tw, wav, wrap,
+                                    cur), "other vlift")
+                outs.append((a, b))
+            (ll, c), (b, d) = outs
+            return ll, b, c, d
+
+        def other_inv():
+            ll, b, c, d = quads
+            halves = []
+            for lo, hi in ((ll, c), (b, d)):
+                o = torch.empty((n, h, tw), dtype=torch.int16, device=dev)
+                check(old.ako_vunlift(lo.data_ptr(), hi.data_ptr(), o.data_ptr(), n, th, tw, h, wav,
+                                      wrap, cur), "other vunlift")
+                halves.append(t(o))
+            o = torch.empty((n, w, h), dtype=torch.int16, device=dev)
+            check(old.ako_vunlift(halves[0].data_ptr(), halves[1].data_ptr(), o.data_ptr(), n, tw, h,
+                                  w, wav, wrap, cur), "other vunlift")
+            return t(o)
+
+        want_fwd = wavelets.lift2d(wav, wrap, x, lvl)
+        want_inv = wavelets.unlift2d(wav, wrap, *quads, lvl)
+        variants = {"this": (this_fwd, this_inv), "this_3": (this3_fwd, this3_inv)}
+        if old:
+            variants["other"] = (other_fwd, other_inv)
+        for name, (fwd, inv) in variants.items():
+            got = fwd()
+            if not (all(torch.equal(g, r) for g, r in zip(got, want_fwd))
+                    and torch.equal(inv(), want_inv)):
+                raise AssertionError(f"split {name} level {k} != plain")
+        # this wiring's two launches a level apart: the pass along -1 (h) and
+        # both halves along -2 in one launch (v)
+        lp, hp = lk.vlift_level(wav, wrap, x, -1)
+        ll, b, c, d = quads
+        left, right = lk.vunlift_pair(wav, wrap, (ll, c), (b, d), h)
+        parts = {"K1v h": lambda: lk.vlift_level(wav, wrap, x, -1),
+                 "K1v v": lambda: lk.vlift_pair(wav, wrap, lp, hp),
+                 "K2v v": lambda: lk.vunlift_pair(wav, wrap, (ll, c), (b, d), h),
+                 "K2v h": lambda: lk.vunlift_level(wav, wrap, left, right, w, -1)}
+        print(f"split level {k} {h}x{w} launches: " + ", ".join(
+            f"{name} {sum(v for key, v in _device_ms(fn).items() if key in ('vlift', 'vunlift')):.4f}"
+            for name, fn in parts.items()) + f" ms [{card}]", flush=True)
+        order = ["other", "this", "this_3", "this_3", "this", "other"]
+        rows: dict = {}
+        for name in (v for v in order if v in variants):
+            fwd, inv = variants[name]
+            rows.setdefault(name, []).append((_device_ms(fwd), _device_ms(inv)))
+        for name, runs in rows.items():
+            fmt = [f"K1v {f.get('vlift', 0):.4f} ms (busy {f['busy']:.4f}, {f['events']:.0f} device "
+                   f"kernels), K2v {i.get('vunlift', 0):.4f} ms (busy {i['busy']:.4f}, "
+                   f"{i['events']:.0f})" for f, i in runs]
+            sums = totals.setdefault(name, [[0.0] * 4 for _ in runs])
+            for j, (f, i) in enumerate(runs):
+                for m, v in enumerate((f.get("vlift", 0), f["busy"], i.get("vunlift", 0), i["busy"])):
+                    sums[j][m] += v
+            print(f"split level {k} {h}x{w} {wav.name} n={n} {name}: {' | '.join(fmt)} [{card}]",
+                  flush=True)
+    for name, runs in totals.items():
+        print(f"split sum over levels {name}: " + " | ".join(
+            f"K1v {a:.4f} ms (busy {b:.4f}), K2v {c:.4f} ms (busy {d:.4f})" for a, b, c, d in runs)
+            + f" [{card}]", flush=True)
+    print(f"split launch floor: an empty kernel {cs.launch_floor_ms(dev):.5f} ms (median of 50) "
+          f"[{card}]", flush=True)
+    split_variants(dev, card)
+    roots = [("other", os.path.realpath(other)), ("this", ROOT), ("this", ROOT),
+             ("other", os.path.realpath(other))] if other else [("this", ROOT), ("this", ROOT)]
+    digests = set()
+    for name, root in roots:
+        res = subprocess.run([sys.executable, "-c", SPLIT_CHILD, root], capture_output=True,
+                             text=True, cwd=root, timeout=600)
+        line = [x for x in res.stdout.splitlines() if x.startswith("RESULT ")]
+        if res.returncode or not line:
+            raise RuntimeError(f"split {name} failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        r = json.loads(line[0][len("RESULT "):])
+        digests.add((r.pop("streams"), r.pop("pixels")))
+        print(f"split streams {name}: {json.dumps(r)} [{card}]", flush=True)
+    if len(digests) != 1:
+        raise AssertionError(f"split: the checkouts' streams or pixels differ: {digests}")
+
+
+def profiler(card: str) -> None:
+    """The profiler's record of short windows as the process ages, in a
+    child process a setting: CUPTI kept up across windows, as torch leaves
+    it (TEARDOWN_CUPTI=0), and torn down after each window (=1, as
+    chip_smoke.py sets it)."""
+    for env in ({"TEARDOWN_CUPTI": "0"}, {"TEARDOWN_CUPTI": "1"}):
+        print(f"profiler child, env {env}", flush=True)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "profiler-child"],
+                             env={**os.environ, **env}, timeout=600)
+        if res.returncode:
+            raise RuntimeError(f"profiler child {env}: exit {res.returncode}")
+
+
+def profiler_child(card: str) -> None:
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    import ako_tpu_torch as P
+    from ako_tpu_torch.encode import checked_settings, forward_streams
+    from ako_tpu_torch.ops.kagari_device import kagari_encode_device
+    from ako_tpu_torch.runtime import kernels
+    from ako_tpu_torch.utils.corpus import corpus
+
+    dev = torch.device("cuda:0")
+    img = corpus(42, 1, 1280, 1024, 4)[0]
+    s = P.Settings(quantization=16, tiles_dimension=128)
+    ((streams, cap, budget),) = cs.group_streams(dev, img, s)
+    os.environ["AKO_TORCH_LIFT_MODE"] = "fused"
+    cs_ = checked_settings(s)
+    batch = [img[y : y + 128, x : x + 128] for y in range(0, 1280, 128) for x in range(0, 1024, 128)]
+    tiles = torch.from_numpy(np.stack(batch)).to(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    cases = {  # (call, its device events)
+        "k3_alone": (lambda: kagari_encode_device(streams, cap, budget), 1),
+        "forward_streams": (lambda: forward_streams(tiles, 128, 128, 4, cs_), 1),
+        "empty_kernel": (lambda: kernels.launch_floor(stream), 1),
+        "torch_op": (lambda: x.add_(1), 1),
+    }
+
+    def window(fn, variant) -> int:
+        acts = [ProfilerActivity.CUDA] if variant == "cuda_only" else [
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            if variant == "settle":
+                time.sleep(0.002)
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+    def tally(label):
+        counts = {(c, v): [0, 0, 0] for c in cases for v in ("as_is", "settle", "cuda_only")}
+        for _ in range(10):
+            for (c, v), t in counts.items():
+                fn, want = cases[c]
+                got = window(fn, v)
+                t[0 if got == 0 else 1 if got < want else 2] += 1
+        for (c, v), (none, fewer, full) in counts.items():
+            print(f"profiler {label} {c} {v}: of 10 windows {none} recorded no device event, "
+                  f"{fewer} fewer than the call's {cases[c][1]}, {full} all [{card}]", flush=True)
+
+    def padded(pad: float) -> dict:
+        """One window around a torch op, an empty kernel and K3, padded by
+        `pad` s of host sleep at each end: its device events, its host
+        launch calls, and the first device event's start less the first
+        cudaLaunchKernel's."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            x.add_(1)
+            kernels.launch_floor(stream)
+            kagari_encode_device(streams, cap, budget)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        host = sorted((e.time_range.start, e.name) for e in prof.events()
+                      if e.device_type != DeviceType.CUDA and "Launch" in e.name)
+        device = sorted(e.time_range.start for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        return {"device": len(device), "launch_calls": len(host),
+                "offset_us": round(device[0] - host[0][0], 1) if host and device else None}
+
+    # a split level's calls as the host and the device record them
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.core.settings import Wavelet, Wrap
+    from ako_tpu_torch.ops import lift_kernels as lk
+
+    lvl = geometry.lift_schedule(128, 128).levels[0]
+    xs = cs._rand16(np.random.default_rng(3), (320, 128, 128), dev)
+    lk.lift2d_level(Wavelet.DD137, Wrap.CLAMP, xs, lvl, "split")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lk.lift2d_level(Wavelet.DD137, Wrap.CLAMP, xs, lvl, "split")
+        torch.cuda.synchronize()
+    print("profiler split level 0 host launch calls: " + json.dumps(
+        [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+         if e.device_type != DeviceType.CUDA and e.name.startswith("cuda")]), flush=True)
+    print("profiler split level 0 device events: " + json.dumps(
+        [e.name[:40] for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+         if e.device_type == DeviceType.CUDA]), flush=True)
+
+    tally("at start")
+    # the profiler keeps only the device events that fall inside its
+    # window; the host's realtime clock against its monotonic one, and
+    # windows padded by 0 to 2 s, as the process ages
+    t0 = time.perf_counter()
+    skew0 = time.time() - time.monotonic()
+    while time.perf_counter() - t0 < 100:
+        row = {pad: padded(pad) for pad in (0.0, 0.05, 0.5, 2.0)}
+        print(f"profiler at {time.perf_counter() - t0:.1f} s: realtime - monotonic moved "
+              f"{(time.time() - time.monotonic() - skew0) * 1e3:.3f} ms; windows by pad (s): "
+              f"{json.dumps(row)} [{card}]", flush=True)
+        time.sleep(5)
+    tally("after 100 s")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in (
-            "compare", "k3", "k4", "k6", "levels"):
+            "compare", "k3", "k4", "k6", "levels", "split", "profiler", "profiler-child"):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -899,10 +1465,23 @@ def main() -> int:
         k3(other, card)
     elif sys.argv[1] == "k6":
         k6(other, card)
+    elif sys.argv[1] == "split":
+        split(other, card)
+    elif sys.argv[1] == "profiler":
+        profiler(card)
+    elif sys.argv[1] == "profiler-child":
+        profiler_child(card)
     else:
         k4(other, card)
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["profiler-child"]:
+        # a process that tore CUPTI down (TEARDOWN_CUPTI=1) hangs in its
+        # exit, as chip_smoke.py's would
+        code = main()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
     sys.exit(main())

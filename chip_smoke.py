@@ -8,14 +8,19 @@ the exact bytes and pixels.
 Phases, each raising on failure (so the run exits non-zero and prints
 no result line):
   1. device   - a CUDA card is present; print its name and power limit
-  2. build    - one nvcc per source (csrc/lift2d.cu, lift_pyramid.cu,
-                lift_level.cu, kagari_encode.cu, kagari_decode.cu,
-                manba_encode.cu, manba_decode.cu), all started together,
-                then a link; cc builds the port's csrc/akort.c
+  2. build    - one nvcc per source (csrc/lift2d.cu, vlift.cu,
+                lift_pyramid.cu, lift_level.cu, kagari_encode.cu,
+                kagari_decode.cu, manba_encode.cu, manba_decode.cu), all
+                started together, then a link; cc builds the port's
+                csrc/akort.c
   3. kernels  - every kernel equals its plain torch version bit for bit
-                on the card: K1/K2 and K1v/K2v on every wavelet x wrap
-                at the north star's 128-px level planes (and transposed
-                planes), odd heights and one 1024x1280 (w x h) plane;
+                on the card: K1/K2 on every wavelet x wrap at the north
+                star's 128-px level planes, odd heights and one
+                1024x1280 (w x h) plane; K1v/K2v on every wavelet x wrap
+                along both axes, one call and two calls a launch, at
+                the split wiring's calls on the north star's 128-px
+                levels, odd heights and widths, 1-px and 2-px sides, 4x4
+                planes and the whole 1024x1280 plane;
                 lift_pyramid / unlift_pyramid on every wavelet x wrap at
                 the north star's tile group, odd and tiny tiles (every
                 start level), tiles with fewer rows than channels,
@@ -77,12 +82,15 @@ no result line):
                 over the default whole tile's device-entropy encode and
                 decode, where the fused wiring runs lift_level /
                 unlift_level on levels 0-2, and over both MANBAVARAN
-                settings' device-entropy encode and decode
+                settings' device-entropy encode and decode; on the split
+                wiring no device work between a level's K1v (K2v)
+                launches, and the launch floor (an empty kernel's device
+                time)
   7. timings  - encode/decode ms and MP/s, per-stage host times,
                 per-level kernel time against the plain torch version
                 (lift_level / unlift_level and K1/K2 on the whole tile's
-                levels before pyramid_start, K1v/K2v on the north
-                star's), and the pyramid kernels' device ms per start
+                levels before pyramid_start, the split wiring's K1v/K2v
+                calls on the north star's, profiler and CUDA events), and the pyramid kernels' device ms per start
                 level and per tile count; for MANBAVARAN on both paths;
                 K6e and K6d alone against their plain versions and the
                 native coder, and K6e's latency bound: the latencies of
@@ -114,9 +122,19 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
-import numpy as np
-import torch
+if __name__ == "__main__":
+    # torch.profiler leaves CUPTI set up from one window to the next; so
+    # kept, it records fewer of a window's device events the longer the
+    # process has profiled (on the H100 machine most short windows recorded
+    # none after about a minute; torn down after each window, every window
+    # recorded them: chip_probe.py profiler). Set before torch is imported;
+    # such a process hangs in its exit, so the script ends with os._exit.
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -165,6 +183,7 @@ REPLACES = {
     "manba_decode": "ako_tpu/ops/manba_device.py:96",
 }
 SOURCES = {k: "ako_tpu_torch/csrc/lift2d.cu" for k in REPLACES}
+SOURCES["vlift"] = SOURCES["vunlift"] = "ako_tpu_torch/csrc/vlift.cu"
 SOURCES["kagari_decode"] = "ako_tpu_torch/csrc/kagari_decode.cu"
 SOURCES["kagari_encode"] = "ako_tpu_torch/csrc/kagari_encode.cu"
 SOURCES["lift_pyramid"] = SOURCES["unlift_pyramid"] = "ako_tpu_torch/csrc/lift_pyramid.cu"
@@ -278,7 +297,7 @@ def phase_build():
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", kernels.build_log))
     stack = max((int(b) for b in re.findall(r"(\d+) bytes stack frame", kernels.build_log)),
                 default=0)
-    log(f"build: nvcc lift2d.cu, lift_pyramid.cu, lift_level.cu, kagari_encode.cu, "
+    log(f"build: nvcc lift2d.cu, vlift.cu, lift_pyramid.cu, lift_level.cu, kagari_encode.cu, "
         f"kagari_decode.cu, manba_encode.cu, manba_decode.cu "
         f"{t_cuda:.2f} s, cc csrc/akort.c "
         f"{t_akort:.2f} s; ptxas max registers {max(regs, default=0)}, spill stores {spills} B, "
@@ -286,7 +305,8 @@ def phase_build():
     lines = kernels.build_log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and any(
-                k in line for k in ("pyramid", "kagari", "lift_level", "unlift_level", "manba")):
+                k in line for k in ("pyramid", "kagari", "lift_level", "unlift_level", "manba",
+                                    "vlift", "vunlift")):
             log("  ptxas: " + " | ".join(part.strip() for part in lines[i : i + 4]))
 
 
@@ -332,45 +352,61 @@ def phase_lift_kernels(dev, shapes) -> dict:
 
 
 def vlift_shapes(img, tiles_dimension):
-    """(n, h, w, level target or None) of the V-only calls: each 128-px
-    level's plane transposed (the H pass) and its half-width planes
-    (the V pass), then odd heights and one whole 1024x1280 plane."""
+    """(n, h, w, axis, level target or None) of the V-only calls: the split
+    wiring's on each 128-px level (its plane along -1, then the
+    half-width planes along -2), then odd heights and widths, 1-px and
+    2-px sides, 4x4 planes and one whole 1024x1280 (w x h) plane, along
+    both axes."""
     from ako_tpu_torch.core import geometry
 
     h, w, ch = img.shape
     n = (h // tiles_dimension) * (w // tiles_dimension) * ch
     shapes = []
     for lvl in geometry.lift_schedule(tiles_dimension, tiles_dimension).levels:
-        shapes.append((n, lvl.current_w, lvl.current_h, lvl))
-        shapes.append((n, lvl.current_h, lvl.target_w, lvl))
-    return shapes + [(3, 127, 97, None), (3, 5, 9, None), (1, 1280, 1024, None)]
+        shapes.append((n, lvl.current_h, lvl.current_w, -1, lvl))
+        shapes.append((n, lvl.current_h, lvl.target_w, -2, lvl))
+    extra = [(3, 127, 97), (3, 5, 9), (3, 64, 97), (4, 1, 40), (4, 40, 1), (2, 1, 1), (3, 2, 301),
+             (5, 4, 4), (1, 1280, 1024)]
+    return shapes + [(*shape, axis, None) for shape in extra for axis in (-1, -2)]
 
 
 def phase_vlift_kernels(dev, shapes) -> dict:
     """K1v/K2v against vlift/vunlift on the card, every wavelet x wrap
-    (the level's effective wavelet on level shapes)."""
+    (the level's effective wavelet on level shapes; CDF 5/3 for DD 13/7 on
+    lines of fewer than 3 pairs, as no level lifts them), one call a
+    launch and two."""
     from ako_tpu_torch.core.settings import Wavelet, Wrap
     from ako_tpu_torch.ops import lift_kernels, wavelets
 
     rng = np.random.default_rng(1)
     err = {"vlift": 0, "vunlift": 0}
-    for (n, h, w, lvl), wavelet, wrap in itertools.product(
+    for (n, h, w, axis, lvl), wavelet, wrap in itertools.product(
         shapes, [Wavelet.DD137, Wavelet.CDF53, Wavelet.HAAR], list(Wrap)
     ):
-        weff = wavelet if lvl is None else wavelets.effective_wavelet(
-            wavelet, lvl.target_w, lvl.target_h)
-        x = _rand16(rng, (n, h, w), dev)
-        e_fwd = max(_max_err(g, r) for g, r in zip(
-            lift_kernels.vlift_level(weff, wrap, x), wavelets.vlift(weff, wrap, x)))
-        lp, hp = (_rand16(rng, (n, (h + 1) // 2, w), dev) for _ in range(2))
-        e_inv = _max_err(lift_kernels.vunlift_level(weff, wrap, lp, hp, h),
-                         wavelets.vunlift(weff, wrap, lp, hp, h))
+        length = w if axis == -1 else h
+        if lvl is not None:
+            weff = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+        else:
+            weff = Wavelet.CDF53 if wavelet == Wavelet.DD137 and length < 5 else wavelet
+        xs = [_rand16(rng, (n, h, w), dev) for _ in range(2)]
+        got = [lift_kernels.vlift_level(weff, wrap, xs[0], axis),
+               *lift_kernels.vlift_pair(weff, wrap, *xs, axis)]
+        ref = [wavelets.vlift(weff, wrap, x, axis) for x in (xs[0], *xs)]
+        e_fwd = max(_max_err(g, r) for gs, rs in zip(got, ref) for g, r in zip(gs, rs))
+        shape = ref[0][0].shape
+        pairs = [tuple(_rand16(rng, shape, dev) for _ in range(2)) for _ in range(2)]
+        got = [lift_kernels.vunlift_level(weff, wrap, *pairs[0], length, axis),
+               *lift_kernels.vunlift_pair(weff, wrap, *pairs, length, axis)]
+        ref = [wavelets.vunlift(weff, wrap, *p, length, axis) for p in (pairs[0], *pairs)]
+        e_inv = max(_max_err(g, r) for g, r in zip(got, ref))
         err["vlift"] = max(err["vlift"], e_fwd)
         err["vunlift"] = max(err["vunlift"], e_inv)
         if e_fwd or e_inv:
-            raise AssertionError(f"K1v/K2v != plain for {weff.name} {wrap.name} {(n, h, w)}: "
-                                 f"vlift {e_fwd}, vunlift {e_inv}")
-    log(f"kernels: K1v/K2v equal to plain on {len(shapes)} shapes x 3 wavelets x 4 wraps")
+            raise AssertionError(f"K1v/K2v != plain for {weff.name} {wrap.name} {(n, h, w)} "
+                                 f"axis {axis}: vlift {e_fwd}, vunlift {e_inv}")
+    torch.cuda.synchronize()
+    log(f"kernels: K1v/K2v equal to plain on {len(shapes)} calls x 3 wavelets x 4 wraps, one and "
+        "two calls a launch")
     return err
 
 
@@ -990,7 +1026,8 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
     """Per shape group: in the fused wiring one lift_level (unlift_level)
     launch per level before pyramid_start (every level when it is None)
     and one lift_pyramid (unlift_pyramid) launch, no K1/K2 call; in the
-    split wiring three K1v (K2v) calls per level; one K3 per shape group
+    split wiring two K1v (K2v) launches per level (the pass along -1, and
+    both halves' passes along -2 in one launch); one K3 per shape group
     of a device-entropy encode, one K4 per shape group of its decode, or
     for a MANBAVARAN setting (run under AKO_TPU_MANBAVARAN=1) one K6e and
     one K6d."""
@@ -1007,8 +1044,8 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
             schedule = geometry.lift_schedule(tw, th)
             levels = len(schedule.levels)
             if mode == "split":
-                out["vlift"] += 3 * levels
-                out["vunlift"] += 3 * levels
+                out["vlift"] += 2 * levels
+                out["vunlift"] += 2 * levels
             else:
                 start = pyramid_start(schedule, ch)
                 per_level = levels if start is None else start
@@ -1125,9 +1162,11 @@ def _event_ms(fn, iters=KERNEL_ITERS) -> float:
 def _profile_window(fn) -> dict:
     """One warm call under torch.profiler: host-clock wall ms (to the
     closing synchronize) and enqueue ms (until the call returns), device
-    busy ms (union of device intervals), device ms per kernel, and the
-    counts of device kernels, device copies, host waits for the stream
-    (cudaStreamSynchronize, blocking cudaMemcpy) and top-level torch ops."""
+    busy ms (union of device intervals), device ms per kernel, the device
+    events' kernels in start order ("order"), and the counts of device
+    kernels, device copies, the host's kernel launch calls, host waits for
+    the stream (cudaStreamSynchronize, blocking cudaMemcpy) and top-level
+    torch ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1144,21 +1183,45 @@ def _profile_window(fn) -> dict:
                    if e.device_type == DeviceType.CUDA)
     busy, end = 0.0, float("-inf")
     per: dict = {}
+    order = []
     for a, b, name in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         m = KERNEL_RE.search(name)
         key = m.group(1) if m else ("memcpy" if "Memcpy" in name else "torch ops")
         per[key] = per.get(key, 0.0) + (b - a) / 1e3
+        order.append(key)
     copies = sum(1 for _, _, name in spans if "Memcpy" in name)
     return {
         "wall": wall, "enqueue": enqueue, "busy": busy / 1e3, "per": per, "events": len(spans),
+        "order": order,
         "kernels": sum(1 for _, _, name in spans if "Memcpy" not in name and "Memset" not in name),
         "copies": copies,
+        "launch_calls": sum(1 for e in host if "Launch" in e.name),
         "waits": sum(1 for e in host if e.name in ("cudaStreamSynchronize", "cudaMemcpy")),
         "ops": sum(1 for e in host
                    if e.name.startswith("aten::") and getattr(e, "cpu_parent", None) is None),
     }
+
+
+def _whole(r: dict) -> bool:
+    """Whether a profiled window recorded a device kernel for each of the
+    host's kernel launch calls."""
+    return r["events"] > 0 and r["kernels"] == r["launch_calls"]
+
+
+def _profile_until(fn, complete=_whole, tries: int = 3) -> dict:
+    """_profile_window(fn) until `complete(window)` holds, at most `tries`
+    windows; the last window otherwise. The profiler now and then records
+    none of a window's device events, or not all, while the host's record
+    of its launch calls is whole: such a window shows nothing about the
+    device work, so the caller reads a window that recorded what ran."""
+    for i in range(tries):
+        r = _profile_window(fn)
+        r["windows"] = i + 1
+        if complete(r):
+            break
+    return r
 
 
 def _enqueue_ms(fn) -> float:
@@ -1194,8 +1257,9 @@ def _span_ms(fn) -> float:
 
 def phase_streams(P, dev, img, card) -> dict:
     """encode.forward_streams and decode.stream_pixels on the north
-    star's 128-px tile group (80 RGBA tiles) and on the default whole
-    tile (one 1024x1280 tile): median host enqueue ms and device span
+    star's 128-px tile group (80 RGBA tiles), in the fused and the split
+    wiring, and on the default whole tile (one 1024x1280 tile): median
+    host enqueue ms and device span
     (CUDA events), the port's kernel launches per call, and under
     torch.profiler one warm call's device busy ms, wall ms, device ms per
     kernel, device kernels and copies, host waits for the stream and
@@ -1207,8 +1271,10 @@ def phase_streams(P, dev, img, card) -> dict:
 
     h, w, ch = img.shape
     out = {}
-    for setting, s in (("north_t128", P.Settings(quantization=16, tiles_dimension=128)),
-                       ("default_whole", P.Settings())):
+    north = P.Settings(quantization=16, tiles_dimension=128)
+    for setting, s, mode in (("north_t128", north, "fused"), ("north_t128_split", north, "split"),
+                             ("default_whole", P.Settings(), "fused")):
+        os.environ["AKO_TORCH_LIFT_MODE"] = mode
         s = checked_settings(s)
         t = s.tiles_dimension
         tw, th = (t, t) if t else (w, h)
@@ -1222,7 +1288,7 @@ def phase_streams(P, dev, img, card) -> dict:
             before = sum(all_launches().values())
             fn()
             launches = sum(all_launches().values()) - before
-            r = _profile_window(fn)
+            r = _profile_until(fn)
             per = {k: round(v, 4) for k, v in sorted(r["per"].items())}
             out[(setting, name)] = {"enqueue": enqueue, "span": span, "launches": launches, **r}
             log(f"streams {setting} {name} on {tuple(tiles.shape)}: host enqueue {enqueue:.3f} ms, "
@@ -1231,6 +1297,7 @@ def phase_streams(P, dev, img, card) -> dict:
                 f"device busy {r['busy']:.4f} ms {per}, {r['kernels']} device kernels, "
                 f"{r['copies']} device copies, {r['waits']} host waits for the stream, "
                 f"{r['ops']} top-level torch ops [{card}]")
+    os.environ.pop("AKO_TORCH_LIFT_MODE")
     return out
 
 
@@ -1255,8 +1322,11 @@ def phase_profile(P, dev, img, card) -> dict:
             ("encode", lambda: P.encode(img, s, device=dev, device_entropy=device_entropy)),
             ("decode", lambda: P.decode(blob, device=dev, device_entropy=device_entropy)),
         ):
+            split_kernel = "vlift" if direction == "encode" else "vunlift"
+            split_want = 2 * split_levels(img, s) if mode == "split" else None
             with manba_env(is_manba(setting)):
-                r = _profile_window(fn)
+                r = _profile_until(fn, lambda r: _whole(r) and (
+                    split_want is None or r["order"].count(split_kernel) == split_want))
             if r["events"] == 0:
                 log("profile: the profiler shows no device time; kernel ms come from CUDA "
                     f"events around {KERNEL_ITERS} back-to-back launches")
@@ -1264,30 +1334,115 @@ def phase_profile(P, dev, img, card) -> dict:
             per = {k: round(v, 4) for k, v in sorted(r["per"].items())}
             log(f"profile {path} {setting} {direction}: wall {r['wall']:.3f} ms, device busy "
                 f"{r['busy']:.3f} ms (idle {100 * (1 - r['busy'] / r['wall']):.1f}%); device ms "
-                f"{per} [{card}]")
+                f"{per}; {r['kernels']} device kernels for {r['launch_calls']} launch calls "
+                f"(profiled window {r['windows']}) [{card}]")
             for name, k in DEVICE_KERNELS.items():
                 if name in r["per"] and ROW_RUN[k] == (path, setting):
                     per_kernel[k] = per_kernel.get(k, 0.0) + r["per"][name]
+            if mode == "split":
+                check_split_order(r["order"], split_kernel, split_want)
     os.environ.pop("AKO_TORCH_LIFT_MODE")
 
     # K3 alone on the north star's streams and on the whole tile's: one
     # device kernel a call and nothing else on the device (no memset, no
-    # torch op); then its plain version's torch ops
+    # torch op): one launch a call by its counter, one launch call on the
+    # host, and that one kernel in the window's device events; then its
+    # plain version's torch ops
     for setting in ("north_t128", "default_whole"):
         ((streams, cap, budget),) = group_streams(dev, img, settings[setting])
-        r = _profile_window(lambda: kagari_encode_device(streams, cap, budget))
+        before = all_launches()["kagari_encode"]
+        r = _profile_until(lambda: kagari_encode_device(streams, cap, budget))
+        calls = all_launches()["kagari_encode"] - before
         k3 = {n: round(v, 4) for n, v in r["per"].items()
               if DEVICE_KERNELS.get(n) == "kagari_encode"}
-        if (r["events"], r["kernels"], list(r["per"])) != (1, 1, ["kagari_encode"]):
+        if (r["events"], r["kernels"], r["launch_calls"], list(r["per"])) != (
+                1, 1, 1, ["kagari_encode"]):
             raise AssertionError(f"K3 call on {setting}: device work {r['per']} in {r['events']} "
-                                 "events, expected the one kernel")
+                                 f"events, {r['launch_calls']} launch calls, expected the one "
+                                 "kernel")
+        if calls != 2 * r["windows"]:  # a warm call and the profiled one a window
+            raise AssertionError(f"K3 call on {setting}: {calls} launches in {r['windows']} "
+                                 "profiled windows, expected one a call")
         plain = _profile_window(lambda: k3_plain(streams, budget))
         log(f"profile K3 kernel {setting} on {tuple(streams.shape)}: device ms {k3}, "
-            f"{r['kernels']} device kernel, {r['events']} device event, busy {r['busy']:.4f} ms "
+            f"{r['kernels']} device kernel, {r['events']} device event (profiled window "
+            f"{r['windows']}), busy {r['busy']:.4f} ms "
             f"of wall {r['wall']:.3f} ms, enqueue {r['enqueue']:.3f} ms; its plain version (torch "
             f"ops): busy {plain['busy']:.3f} ms in {plain['events']} device events, enqueue "
             f"{plain['enqueue']:.3f} ms [{card}]")
     return {k: round(v, 4) for k, v in per_kernel.items()}
+
+
+def split_levels(img, s) -> int:
+    """Levels an image's split-wiring call lifts, over its shape groups."""
+    from ako_tpu_torch.core import geometry
+
+    h, w, _ = img.shape
+    return sum(len(geometry.lift_schedule(tw, th).levels)
+               for tw, th in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)))
+
+
+def check_split_order(order: list, kernel: str, want: int) -> None:
+    """On the split wiring, a level's K1v (K2v) launches follow one another
+    with no device work between them (no transpose or copy): in the
+    profiled call's device events, each level's two launches of `kernel`
+    are adjacent, and there are `want` (two a level)."""
+    at = [i for i, key in enumerate(order) if key == kernel]
+    if len(at) != want:
+        raise AssertionError(f"split wiring: {len(at)} {kernel} launches in the profile, "
+                             f"expected {want}")
+    between = [order[a + 1 : b] for a, b in zip(at[::2], at[1::2]) if b != a + 1]
+    if between:
+        raise AssertionError(f"split wiring: device work between a level's {kernel} launches: "
+                             f"{between}")
+    log(f"profile split: {len(at)} {kernel} launches, a level's two adjacent with no device work "
+        "between them")
+
+
+def launch_floor_ms(dev, iters: int = 50) -> float:
+    """The launch floor: the median device ms of an empty kernel
+    (csrc/vlift.cu launch_floor) over `iters` launches back to back on
+    the stream, under torch.profiler (which may drop a few events of such
+    short kernels: at least half must be there)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ako_tpu_torch.runtime import kernels
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernels.launch_floor(stream)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            kernels.launch_floor(stream)
+        torch.cuda.synchronize()
+    times = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "launch_floor" in e.name]
+    if len(times) < iters // 2:
+        raise AssertionError(f"launch floor: {len(times)} device events of {iters} launches")
+    return statistics.median(times) / 1e3
+
+
+def _kernel_ms(fn, name: str, iters: int = 20) -> float:
+    """Device ms a call of the kernel `name`, every launch summed (the
+    profiler, over `iters` calls; it may drop a few events of short
+    kernels, so each instantiation counts its mean event time times its
+    events a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        m = KERNEL_RE.search(e.name) if e.device_type == DeviceType.CUDA else None
+        if m and m.group(1) == name:
+            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    return sum(sum(t) / len(t) * max(1, round(len(t) / iters)) for t in by_name.values()) / 1e3
 
 
 def _level_inputs(rng, dev, n, lvl):
@@ -1300,8 +1455,9 @@ def kernel_times(P, dev, img, s, card, split: bool) -> dict:
     """Per-level kernel vs plain torch time (CUDA events around
     back-to-back calls, so launch rate for the small levels) for the
     shape groups of one setting, on the levels each wiring sends to them
-    (every level split; fused, the levels before pyramid_start); returns
-    per-kernel sums over levels."""
+    (every level split, two K1v (K2v) launches as the wiring makes them,
+    with their device ms from the profiler; fused, the levels before
+    pyramid_start); returns per-kernel sums over levels."""
     from ako_tpu_torch.core import geometry
     from ako_tpu_torch.encode import checked_settings
     from ako_tpu_torch.ops import lift_kernels, wavelets
@@ -1320,22 +1476,29 @@ def kernel_times(P, dev, img, s, card, split: bool) -> dict:
             n = len(tiles) * ch
             x, quads = _level_inputs(rng, dev, n, lvl)
             if split:
-                # the three V-only calls of a level, at their input shapes
-                xs = [x.transpose(-1, -2).contiguous()] + [
-                    _rand16(rng, (n, lvl.current_h, lvl.target_w), dev) for _ in range(2)]
-                ls = [(quads[0], quads[2], lvl.current_h), (quads[1], quads[3], lvl.current_h),
-                      (_rand16(rng, (n, lvl.target_w, lvl.current_h), dev),
-                       _rand16(rng, (n, lvl.target_w, lvl.current_h), dev), lvl.current_w)]
-                row = {
-                    "vlift": (
-                        _event_ms(lambda: [lift_kernels.vlift_level(weff, s.wrap, a) for a in xs]),
-                        _event_ms(lambda: [wavelets.vlift(weff, s.wrap, a) for a in xs]),
-                    ),
-                    "vunlift": (
-                        _event_ms(lambda: [lift_kernels.vunlift_level(weff, s.wrap, *a) for a in ls]),
-                        _event_ms(lambda: [wavelets.vunlift(weff, s.wrap, *a) for a in ls]),
-                    ),
-                }
+                # the level's K1v (K2v) launches as the split wiring makes
+                # them, against the plain versions of the same calls
+                def plain_fwd():
+                    lp, hp = wavelets.vlift(weff, s.wrap, x, -1)
+                    return wavelets.vlift(weff, s.wrap, lp), wavelets.vlift(weff, s.wrap, hp)
+
+                def plain_inv():
+                    ll, b, c, d = quads
+                    left = wavelets.vunlift(weff, s.wrap, ll, c, lvl.current_h)
+                    right = wavelets.vunlift(weff, s.wrap, b, d, lvl.current_h)
+                    return wavelets.vunlift(weff, s.wrap, left, right, lvl.current_w, -1)
+
+                def fwd():
+                    return lift_kernels.lift2d_level(weff, s.wrap, x, lvl, "split")
+
+                def inv():
+                    return lift_kernels.unlift2d_level(weff, s.wrap, *quads, lvl, "split")
+
+                row = {"vlift": (_event_ms(fwd), _event_ms(plain_fwd)),
+                       "vunlift": (_event_ms(inv), _event_ms(plain_inv))}
+                log(f"  level {i} split {weff.name} n={n} {lvl.current_h}x{lvl.current_w}: "
+                    f"K1v {_kernel_ms(fwd, 'vlift'):.4f} ms, K2v {_kernel_ms(inv, 'vunlift'):.4f} "
+                    f"ms (device, profiler, two launches each) [{card}]")
             else:
                 row = {
                     "lift2d": (
@@ -1754,7 +1917,8 @@ def bounds_ms(img, blob, manba_blob) -> dict:
     ops = dict.fromkeys(b, 0)
     for lvl in geometry.lift_schedule(t, t).levels:
         plane = lvl.current_h * lvl.current_w
-        # three V-only calls: (w, h) -> 2x (w/2, h), then 2x (h, w/2) -> 4x (h/2, w/2)
+        # the split wiring's V-only calls: (h, w) -> 2x (h, w/2) along -1,
+        # then 2x (h, w/2) -> 4x (h/2, w/2) along -2
         b["vlift"] += n * 2 * (plane + 2 * lvl.current_h * lvl.target_w) * 2
         # one 1-D lift along each axis of the plane
         ops["vlift"] += n * plane * 2 * LIFT_OPS
@@ -1991,6 +2155,7 @@ def pyramid_times(dev, img, s, card) -> dict:
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card", file=sys.stderr)
         return 2
@@ -2032,6 +2197,12 @@ def main() -> int:
     times.update(k6)
     phase_streams(P, dev, img, card)
     bound = bounds_ms(img, oracle["north_t128"][0], oracle["north_t128_manba"][0])
+    floor = launch_floor_ms(dev)
+    split_launches = expected_launches(img, {"north_t128": north_star_settings(P)["north_t128"]},
+                                       True, "split")
+    log(f"launch floor: an empty kernel {floor:.5f} ms (device, profiler, median of 50); "
+        f"north_t128 split: {split_launches['vlift']} K1v and {split_launches['vunlift']} K2v "
+        f"launches an image [{card}]")
     for k in REPLACES:
         if k not in device_ms:  # no device time in the profile: CUDA events
             device_ms[k] = times[k][0]
@@ -2060,6 +2231,10 @@ def main() -> int:
     for row in kernels:
         if row["name"] == "manba_encode":
             row["latency_bound_ms"] = round(k6e_latency, 5)
+        # K1v/K2v: an image's launches, each at least an empty kernel's time
+        if row["name"] in ("vlift", "vunlift"):
+            row["launch_floor_ms"] = round(split_launches[row["name"]] * floor, 5)
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({
@@ -2074,4 +2249,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -1,6 +1,6 @@
-"""ako_tpu_torch's split lift wiring (three V-only lifts per level with
-transposes between them, the plain versions of K1v/K2v) against
-ako_tpu's: the Pallas kernels in AKO_TPU_PALLAS_MODE=split (interpret
+"""ako_tpu_torch's split lift wiring (a level's V-only lifts: the H pass
+along the last axis, then both halves' V passes, the plain versions of
+K1v/K2v) against ako_tpu's: the Pallas kernels in AKO_TPU_PALLAS_MODE=split (interpret
 mode) on even dims, and the XLA lift on odd heights and widths, which
 the Pallas path hands to XLA and the port's kernels take themselves.
 Inputs come from numpy seeds; every comparison is exact equality."""
