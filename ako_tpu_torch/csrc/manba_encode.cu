@@ -65,8 +65,9 @@
 // launches without the pack CTAs), ako_manba_chain_alone (one thread
 // stepping a whole stream staged at once, with no barrier and no other
 // warp working, timed on the card's clocks) and ako_manba_op_latency
-// (dependent chains of the step's operations): measurements of the
-// chain, which the codec never calls.
+// (dependent chains of the step's operations, and of the loads of K6d's
+// step and set-up): measurements of the chains, which the codec never
+// calls.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -571,6 +572,45 @@ __global__ void manba_op_chain(unsigned long long* __restrict__ out, uint32_t a,
     out[2 * K + 1] = (unsigned long long)(c1 - c0);
 }
 
+// the load chains of K6d (csrc/manba_decode.cu), one thread, iters x
+// kOpChain dependent loads each: a shared-memory table whose entries hold
+// the next entry's address (ld.shared, as the step's table lookup), then
+// a ring in device memory that the block wrote first (ld.global.cg, read
+// from L2, as the set-up's loads of a buffer just uploaded); out[12, 16)
+// as manba_op_chain's, chains 6 and 7
+__global__ void __launch_bounds__(256)
+manba_load_chains(unsigned long long* __restrict__ out, uint32_t* __restrict__ ring,
+                  int ring_words, int iters) {
+    constexpr int kTable = 4096;
+    __shared__ uint32_t chase[kTable];
+    const uint32_t base = (uint32_t)__cvta_generic_to_shared(chase);
+    for (int j = threadIdx.x; j < kTable; j += blockDim.x)
+        chase[j] = base + 4u * ((uint32_t)(j * 1021 + 7) & (kTable - 1));
+    for (int j = threadIdx.x; j < ring_words; j += blockDim.x)
+        ring[j] = (uint32_t)((j + 97) % ring_words);
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    uint32_t a = base;
+    const long long c0 = clock64();
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+        for (int k = 0; k < kOpChain; ++k)
+            asm volatile("ld.shared.u32 %0, [%0];" : "+r"(a));
+    }
+    const long long c1 = clock64();
+    uint32_t w = 0;
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+        for (int k = 0; k < kOpChain; ++k)
+            asm volatile("ld.global.cg.u32 %0, [%1];" : "=r"(w) : "l"(ring + w));
+    }
+    const long long c2 = clock64();
+    out[12] = a;
+    out[13] = (unsigned long long)(c1 - c0);
+    out[14] = w;
+    out[15] = (unsigned long long)(c2 - c1);
+}
+
 int launch_encode(const int16_t* values, int32_t* record, int32_t* scratch, uint8_t* rans,
                   uint8_t* extras, int rows, int n, int budget, int row_words, bool pack,
                   cudaStream_t s) {
@@ -626,10 +666,12 @@ extern "C" int ako_manba_chain_alone(const int16_t* values, int n, const int32_t
     return (int)cudaGetLastError();
 }
 
-// the six latency chains of manba_op_chain, iters x 16 operations each,
-// one after another; out: twelve u64
-extern "C" int ako_manba_op_latency(unsigned long long* out, int iters, void* stream) {
-    if (iters < 1) return (int)cudaErrorInvalidValue;
+// the six latency chains of manba_op_chain, then the two of
+// manba_load_chains on a device ring of ring_words words (at least 1024),
+// iters x 16 operations each, one after another; out: sixteen u64
+extern "C" int ako_manba_op_latency(unsigned long long* out, uint32_t* ring, int ring_words,
+                                    int iters, void* stream) {
+    if (iters < 1 || ring_words < 1024) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const uint32_t a = 0x9E3779B9u, b = 0;
     manba_op_chain<0><<<1, 1, 0, s>>>(out, a, b, iters);
@@ -638,5 +680,6 @@ extern "C" int ako_manba_op_latency(unsigned long long* out, int iters, void* st
     manba_op_chain<3><<<1, 1, 0, s>>>(out, a, b, iters);
     manba_op_chain<4><<<1, 1, 0, s>>>(out, a, b, iters);
     manba_op_chain<5><<<1, 1, 0, s>>>(out, a, b, iters);
+    manba_load_chains<<<1, 256, 0, s>>>(out, ring, ring_words, iters);
     return (int)cudaGetLastError();
 }

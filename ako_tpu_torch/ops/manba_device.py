@@ -58,6 +58,10 @@ RECORD_WORDS = SYMS + 4
 K6_CHUNK = 4096
 K6_SCRATCH = SYMS + 2
 
+#: the most pool words K6d takes: its word cursors and limits are 32-bit
+#: (csrc/manba_decode.cu launch_decode)
+K6D_MAX_POOL_WORDS = 2**31 - 5
+
 #: kernel launches per wrapper (one per call that reaches the card)
 LAUNCHES = {"manba_encode": 0, "manba_decode": 0}
 
@@ -284,9 +288,10 @@ def manba_decode_device(pool, base, rans_end, extras_off, x, rbyte, ebit, freq, 
     ceil(n_outputs / block); freq: (T, 17). All int32. Returns (T,
     n_outputs) int16, bit-exact with akort_manba_decode.
 
-    A CUDA tensor launches kernel K6d (block must be DECODE_BLOCK; the
-    windows are read from the pool and `rspan`/`espan` are ignored); a
-    CPU tensor takes the plain version."""
+    A CUDA tensor launches kernel K6d (block must be DECODE_BLOCK, the
+    pool at most K6D_MAX_POOL_WORDS words; the windows are read from the
+    pool and `rspan`/`espan` are ignored); a CPU tensor takes the plain
+    version."""
     T, B = x.shape
     if pool.device.type == "cpu":
         return manba_decode_plain(pool, base, rans_end, extras_off, x, rbyte, ebit, freq,
@@ -298,6 +303,9 @@ def manba_decode_device(pool, base, rans_end, extras_off, x, rbyte, ebit, freq, 
                          f"not {block}")
     if B != -(-n_outputs // block):
         raise ValueError(f"manba_decode_device: {B} sync records for {n_outputs} outputs")
+    if not 1 <= pool.shape[0] <= K6D_MAX_POOL_WORDS:
+        raise ValueError(f"manba_decode_device: a pool of {pool.shape[0]} words; the kernel's "
+                         f"32-bit word cursors take 1 to {K6D_MAX_POOL_WORDS}")
     for name, t, shape in (("pool", pool, (pool.shape[0],)), ("base", base, (T,)),
                            ("rans_end", rans_end, (T,)), ("extras_off", extras_off, (T,)),
                            ("x", x, (T, B)), ("rbyte", rbyte, (T, B)), ("ebit", ebit, (T, B)),

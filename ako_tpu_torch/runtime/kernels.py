@@ -120,7 +120,7 @@ _SIGNATURES = {
     # chip_smoke.py and chip_probe.py; the codec never calls them
     "ako_manba_encode_chains": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ako_manba_chain_alone": [_P, _I, _P, _P, _P],
-    "ako_manba_op_latency": [_P, _I, _P],
+    "ako_manba_op_latency": [_P, _P, _I, _I, _P],
     # the launch floor, an empty kernel (chip_smoke.py, chip_probe.py)
     "ako_launch_floor": [_P],
 }

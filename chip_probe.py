@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Probes of the port on one CUDA card that go past chip_smoke.py: a
 comparison with another checkout, and where kernels K3's, K4's, K6e's,
-the level kernels' and the split wiring's K1v/K2v time goes.
+K6d's, the level kernels' and the split wiring's K1v/K2v time goes.
 
     python3 chip_probe.py compare OTHER   # OTHER: the root of another checkout
     python3 chip_probe.py k3 [OTHER]
     python3 chip_probe.py k4 [OTHER]
     python3 chip_probe.py levels [OTHER]
     python3 chip_probe.py k6 [OTHER]
+    python3 chip_probe.py k6d [OTHER]
     python3 chip_probe.py split [OTHER]
     python3 chip_probe.py profiler
 
@@ -94,6 +95,29 @@ star) and the native coder. nvidia-smi's SM clock is read while the
 whole tile's encodes run. Last, each variant's latency bound: the
 longer of its dependent path and its instructions a step, at the SM
 clock the chain alone read, times the steps of one chain.
+
+k6d: K6d, the Manbavaran block decoder (csrc/manba_decode.cu), in
+variants made by editing its source (K6D_NEW), built with nvcc side by
+side: set-up alone (records, frequencies and the table), with the
+windows' starts, the chain without its output stores, as it is, what its
+loads cost (no_guard, no_loads, no_lds, no_conflict, ca_loads,
+prefetch), and as it is with each CTA's clocks (clocked); OTHER's
+manba_decode.cu too, as it is. For each: ptxas's registers, the chain
+loop's SASS (build/probe/k6d_sass_<checkout>_<variant>.txt; instructions
+a step, the stall cycles its control bits set a step, the dependent path
+through the table's load at the measured latencies of
+ako_manba_op_latency: the step's operations and the shared-memory and L2
+loads); then in turns (each variant, then again in reverse) its device ms
+on the north star's 80 streams (q=16, 128-px tiles) and the whole tile's
+stream (profiler, median of 20 launches; CUDA events around 50), every
+variant that computes the function checked against the streams, and for
+the clocked variant each CTA's clock64 to its table's end and its end and
+its SM clock; nvidia-smi's SM clock while the whole tile's decodes run. With a full checkout as OTHER,
+last, each checkout in its own process in turns (other, this, this,
+other): K6d through manba_decode_device on both settings (profiler, two
+medians of 20, and CUDA events) and the device-entropy decode of
+north_t128_manba (AKO_TPU_MANBAVARAN=1): decode ms (median of 7) and its
+COMPRESSION span (host clock, median of 7).
 
 split: the split wiring's K1v/K2v (csrc/vlift.cu) on the north star's
 128-px tile group (80 RGBA tiles, 320 planes), level by level, in turns
@@ -1321,6 +1345,332 @@ def split(other, card: str) -> None:
         raise AssertionError(f"split: the checkouts' streams or pixels differ: {digests}")
 
 
+# ---------------------------------------------------------------- k6d
+
+K6D_TABLE = "    __syncthreads();\n"
+K6D_END = "    }\n}\n\n// CTAs a tile"
+K6D_KERNEL = "__global__ void __launch_bounds__(kMaxWarps * 32)\nmanba_decode("
+K6D_CLOCK_EXPORT = """
+// per CTA: clock64 at its start, after its table and at its end (twice:
+// its chains hold its stores), then globaltimer at its start and end
+// (chip_probe.py k6d); with host null, every row set to 0
+extern "C" int ako_k6d_clocks(unsigned long long* host, int ctas) {
+    if (host == nullptr) {
+        void* rows = nullptr;
+        cudaError_t rc = cudaGetSymbolAddress(&rows, k6d_clock);
+        return (int)(rc != cudaSuccess ? rc : cudaMemset(rows, 0, sizeof(k6d_clock)));
+    }
+    return (int)cudaMemcpyFromSymbol(host, k6d_clock, sizeof(unsigned long long) * 6 *
+                                                          (size_t)(ctas < 8192 ? ctas : 8192));
+}
+"""
+
+
+K6D_WINDOWS = "    int rbits = 8 * (int)max(min(rleft, 1LL << 24), -1LL);\n"
+K6D_PREFETCH = """    {
+        const uint32_t rb1 = lane + 1 < blocks ? rbyte[rec + 1] : rend;
+        const uint32_t eb1 = lane + 1 < blocks ? ebit[rec + 1] : eb + 2048;
+        for (uint32_t w = b + rb / 4; w <= min(b + rb1 / 4 + 4, pool_words - 1); w += 8)
+            asm volatile("prefetch.global.L1 [%0];" :: "l"(pool + w));
+        const unsigned long long e1 = (unsigned long long)eoff * 8 + eb1;
+        for (uint32_t w = b + (uint32_t)(ebits >> 5);
+             w <= min(b + (uint32_t)(e1 >> 5) + 4, pool_words - 1); w += 8)
+            asm volatile("prefetch.global.L1 [%0];" :: "l"(pool + w));
+    }
+"""
+K6D_SINK = "    }\n    if (sink == 0x7FFFFFFFu) out[0] = (int16_t)sink;\n}\n\n// CTAs a tile"
+
+
+def _k6d_exit(value: str) -> str:
+    return (K6D_TABLE + "    if (lane < wb * 32 && lane < blocks) out[(size_t)tile * n + "
+            f"(size_t)lane * kBlock] = (int16_t)table[({value}) & (kSlots - 1)];\n    return;\n")
+
+
+#: K6d as this checkout writes it (csrc/manba_decode.cu), in variants:
+#: variant -> (source edits, whether it computes the function).
+#: setup: the records and frequencies loaded and the table built (the
+#: windows' loads, unused, left out by the compiler), then one store a
+#: lane; windows: also both windows started; chain: every step, the
+#: outputs summed instead of stored; whole: as it is; no_guard: the
+#: refills without the payload's end (exact on these streams); no_loads:
+#: the windows' words after their first four made up instead of loaded;
+#: no_lds: the table's entry made up from the state instead of loaded;
+#: no_conflict: the table read at x & 31 (no bank conflict); ca_loads: the
+#: windows' loads through ld.global.ca; prefetch: each lane's spans
+#: prefetched into L1 at its start; clocked: as it is, with clock64 and
+#: globaltimer read by each CTA's thread 0 (ako_k6d_clocks).
+K6D_NEW = {
+    "setup": ([(K6D_TABLE, _k6d_exit("x ^ rb ^ eb ^ b ^ rend ^ eoff"))], False),
+    "windows": ([(K6D_TABLE, _k6d_exit("x ^ r.w0 ^ r.w1 ^ r.n1 ^ r.n2 ^ e.w0 ^ e.w1 ^ e.n1 ^ "
+                                       "e.n2 ^ (uint32_t)rbits"))], False),
+    "chain": ([("    char* buf = reinterpret_cast<char*>(buffers)",
+                "    uint32_t sink = 0;\n    char* buf = reinterpret_cast<char*>(buffers)"),
+               ("            if (vec) {\n                uint4* row",
+                "            for (int j = 0; j < kGroup; ++j) sink += v[j];\n"
+                "            if (vec && n < 0) {\n                uint4* row"),
+               ("            } else {\n#pragma unroll\n                for (int j = 0; j < kGroup; ++j)",
+                "            } else if (n < 0) {\n#pragma unroll\n"
+                "                for (int j = 0; j < kGroup; ++j)"),
+               (K6D_END, K6D_SINK)], False),
+    "whole": ([], True),
+    "no_guard": ([("const bool n0 = x < kStateLo && rbits >= 8;", "const bool n0 = x < kStateLo;"),
+                  ("const bool n1 = x < (kStateLo >> 8) && rbits >= 16;",
+                   "const bool n1 = x < (kStateLo >> 8);")], True),
+    "no_loads": ([("if (m) n2 = __ldg(pool + min(j + first3, last));", "if (m) n2 = w1 ^ j;")],
+                 False),
+    "no_lds": ([("const uint32_t t = table[x & (kSlots - 1)];",
+                 "const uint32_t t = (x & 0xFFF00FFFu) | 0x1000u;")], False),
+    "no_conflict": ([("const uint32_t t = table[x & (kSlots - 1)];",
+                      "const uint32_t t = table[x & 31];")], False),
+    "ca_loads": ([("if (m) n2 = __ldg(pool + min(j + first3, last));",
+                   "if (m) asm(\"ld.global.ca.u32 %0, [%1];\" : \"=r\"(n2) : "
+                   "\"l\"(pool + min(j + first3, last)));")], True),
+    "prefetch": ([(K6D_WINDOWS, K6D_WINDOWS + K6D_PREFETCH)], True),
+    "clocked": ([
+        (K6D_KERNEL, "__device__ unsigned long long k6d_clock[6 * 8192];\n\n" + K6D_KERNEL),
+        ("    extern __shared__ uint4 buffers[];  // a buffer a warp\n",
+         "    extern __shared__ uint4 buffers[];  // a buffer a warp\n"
+         "    unsigned long long k6d_c0 = 0, k6d_c1 = 0, k6d_g0 = 0;\n"
+         "    if (threadIdx.x == 0) {\n"
+         "        asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(k6d_g0));\n"
+         "        k6d_c0 = clock64();\n    }\n"),
+        (K6D_TABLE, K6D_TABLE + "    if (threadIdx.x == 0) k6d_c1 = clock64();\n"),
+        (K6D_END, "    }\n    __syncthreads();\n"
+         "    if (threadIdx.x == 0 && blockIdx.x < 8192) {\n        unsigned long long g1;\n"
+         "        const unsigned long long c2 = clock64();\n"
+         "        asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
+         "        unsigned long long* c = k6d_clock + 6 * blockIdx.x;\n"
+         "        c[0] = k6d_c0; c[1] = k6d_c1; c[2] = c2; c[3] = c2; c[4] = k6d_g0; c[5] = g1;\n"
+         "    }\n}\n\n// CTAs a tile"),
+        ("}  // namespace\n", "}  // namespace\n" + K6D_CLOCK_EXPORT),
+    ], True),
+}
+
+
+def _k6d_sources(roots: dict) -> dict:
+    """{(checkout, variant): (ctypes library, SASS text, exact)}: the
+    variants of each checkout's csrc/manba_decode.cu built side by side
+    (the ones whose anchors its source holds)."""
+    import chip_smoke as cs
+    from ako_tpu_torch.runtime import kernels
+
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for who, root in roots.items():
+        src = open(os.path.join(root, "ako_tpu_torch", "csrc", "manba_decode.cu")).read()
+        design = K6D_NEW if who == "this" else {"whole": ([], True)}  # OTHER's: as it is
+        for name, (edits, exact) in design.items():
+            text = src
+            for old, new in edits:
+                if old not in text:
+                    raise RuntimeError(f"k6d {who} variant {name}: the source has no {old!r}")
+                text = text.replace(old, new)
+            cu, so = (os.path.join(OUT, f"k6d_{who}_{name}.{ext}") for ext in ("cu", "so"))
+            with open(cu, "w") as f:
+                f.write(text)
+            procs[(who, name)] = (subprocess.Popen(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", so, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so, exact)
+    libs = {}
+    for key, (proc, so, exact) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on k6d variant {key}:\n{log}")
+        lib = ctypes.CDLL(so)
+        lib.ako_manba_decode.restype = ctypes.c_int
+        lib.ako_manba_decode.argtypes = kernels._SIGNATURES["ako_manba_decode"]
+        if hasattr(lib, "ako_k6d_clocks"):
+            lib.ako_k6d_clocks.restype = ctypes.c_int
+            lib.ako_k6d_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lines = log.splitlines()
+        regs = [" | ".join(x.split("info    :")[-1].strip() for x in lines[i : i + 4])
+                for i, x in enumerate(lines) if "Compiling entry function" in x
+                and "manba_decode" in x]
+        print(f"k6d {key[0]} {key[1]}: ptxas {regs}", flush=True)
+        libs[key] = (lib, cs.cuobjdump_sass(so), exact)
+    return libs
+
+
+def _k6d_clock_split(lib, args, ctas: int) -> dict:
+    """One launch of the clocked variant: per CTA its cycles to the end
+    of its table and of its chains with their stores (clock64), and its
+    cycles over its nanoseconds (globaltimer); the median and the largest
+    of each."""
+    import numpy as np
+    import torch
+
+    rc = lib.ako_k6d_clocks(None, 0) or lib.ako_manba_decode(*args)
+    torch.cuda.synchronize()
+    host = np.zeros((min(ctas, 8192), 6), np.uint64)
+    rc = rc or lib.ako_k6d_clocks(host.ctypes.data, host.shape[0])
+    c = host.astype(np.float64)
+    if rc:
+        raise RuntimeError(f"k6d clocked: cudaError {rc}")
+    c = c[c[:, 5] > 0]  # the rows this launch wrote
+    cta = c[:, 3] - c[:, 0]
+    parts = {"setup": c[:, 1] - c[:, 0], "chain": c[:, 2] - c[:, 1], "stores": c[:, 3] - c[:, 2],
+             "cta": cta, "ghz": cta / np.maximum(c[:, 5] - c[:, 4], 1)}
+    span_us = (c[:, 5].max() - c[:, 4].min()) / 1e3
+    out = {k: (round(float(np.median(v)), 3), round(float(v.max()), 3)) for k, v in parts.items()}
+    out["span_us"] = round(float(span_us), 3)
+    out["ctas"] = len(c)
+    return out
+
+
+K6D_CHILD = r"""
+import json, os, statistics, sys
+os.environ["TEARDOWN_CUPTI"] = "1"
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import chip_smoke as cs
+import ako_tpu_torch as P
+from ako_tpu_torch.ops import manba_device as md
+from ako_tpu_torch.runtime.kagari import manba_encode
+from ako_tpu_torch.utils.corpus import corpus
+
+assert os.path.dirname(P.__file__).startswith(sys.argv[1]), P.__file__
+dev = torch.device("cuda:0")
+img = corpus(42, 1, 1280, 1024, 4)[0]
+out = {}
+for name in ("north_t128", "default_whole"):
+    ((streams, cap, _),) = cs.group_streams(dev, img, cs.north_star_settings(P)[name])
+    values = streams.cpu().numpy()
+    parts, _ = cs.manba_decode_inputs([manba_encode(v, cap) for v in values], values.shape[1], dev)
+    dec = lambda: md.manba_decode_device(*parts, values.shape[1])
+    if not np.array_equal(dec().cpu().numpy(), values):
+        raise AssertionError(f"K6d of {sys.argv[1]} differs from the streams on {name}")
+    out[name] = {"profiler_ms": [round(cs._launch_ms(dec, "manba_decode"), 5) for _ in range(2)],
+                 "events_ms": round(cs._event_ms(dec), 5)}
+s = cs.manba_settings(P)["north_t128_manba"]
+with cs.manba_env(True):
+    blob = P.encode(img, s, device=dev, device_entropy=True)
+    dec = lambda cb=None: P.decode(blob, cb, device=dev, device_entropy=True)
+    stages = [cs._stage_ms(dec) for _ in range(7)]
+    out["north_t128_manba"] = {
+        "decode_ms": round(cs._median_ms(dec), 3),
+        "compression_ms": round(statistics.median(float(st["compression"].split()[0])
+                                                  for st in stages), 3),
+        "stages": stages[-1]}
+print("RESULT " + json.dumps(out), flush=True)
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def k6d(other, card: str) -> None:
+    import threading
+
+    import numpy as np
+    import torch
+
+    import ako_tpu_torch as P
+    import chip_smoke as cs
+    from ako_tpu_torch.runtime.kagari import manba_encode
+    from ako_tpu_torch.utils.corpus import corpus
+
+    roots = {"this": ROOT}
+    if other:
+        roots["other"] = os.path.realpath(other)
+    libs = _k6d_sources(roots)
+    lat = cs.op_latencies()
+    print(f"k6d latencies (cycles): { {k: round(v, 3) for k, v in lat.items()} } [{card}]",
+          flush=True)
+    for (who, name), (_, sass, _) in libs.items():
+        funcs = cs.sass_functions(sass)
+        sass_out = os.path.join(OUT, f"k6d_sass_{who}_{name}.txt")
+        with open(sass_out, "w") as f:
+            for k, body in funcs.items():
+                if "manba_decode" in k:
+                    f.write(f"Function : {k}\n")
+                    f.writelines(f"  {ad:#06x}  {t:<56} {c}\n" if ad is not None else f"{t}:\n"
+                                 for ad, t, c in body)
+        if name in ("setup", "windows", "clocked"):
+            continue
+        try:
+            step = cs.decode_loop_sass(sass, cs.K6D_SASS_NAME, lat)
+        except AssertionError as exc:  # a variant without the table's or the windows' loads
+            print(f"k6d sass {who} {name}: {exc}", flush=True)
+            continue
+        print(f"k6d sass {who} {name}: loop {step['span']} of {step['steps']} steps, "
+              f"{step['insns_per_step']:.2f} instructions a step, scheduled stalls "
+              f"{step['stall_cycles_per_step']} cycles and {step['scoreboard_waits_per_step']} "
+              f"scoreboard waits a step, dependent path {step['path_ops_per_step']:.2f} operations "
+              f"/ {step['path_cycles_per_step']:.2f} cycles a step; path {' '.join(step['path'])} "
+              f"[{card}]", flush=True)
+    dev = torch.device("cuda:0")
+    img = corpus(42, 1, 1280, 1024, 4)[0]
+    cur = torch.cuda.current_stream().cuda_stream
+    settings = {}
+    for name in ("north_t128", "default_whole"):
+        ((streams, cap, _),) = cs.group_streams(dev, img, cs.north_star_settings(P)[name])
+        values = streams.cpu().numpy()
+        parts, _ = cs.manba_decode_inputs([manba_encode(v, cap) for v in values], values.shape[1],
+                                          dev)
+        T, n = values.shape
+        B = parts[4].shape[1]
+        outbuf = torch.empty((T, n), dtype=torch.int16, device=dev)
+        args = (parts[0].data_ptr(), parts[0].shape[0], *(t.data_ptr() for t in parts[1:]),
+                outbuf.data_ptr(), T, B, n, cur)
+        settings[name] = (values, outbuf, args, T * B)
+    rows: dict = {}
+    for key in list(libs) + list(libs)[::-1]:
+        lib, _, exact = libs[key]
+        res = {}
+        for setting, (values, outbuf, args, lanes) in settings.items():
+            def run(lib=lib, args=args):
+                rc = lib.ako_manba_decode(*args)
+                if rc:
+                    raise RuntimeError(f"k6d {key}: cudaError {rc}")
+            if key[1] == "clocked":
+                res[f"{setting} clocks"] = _k6d_clock_split(lib, args, lanes)
+            outbuf.zero_()
+            run()
+            torch.cuda.synchronize()
+            if exact and not np.array_equal(outbuf.cpu().numpy(), values):
+                raise AssertionError(f"k6d variant {key} differs from the streams on {setting}")
+            res[setting] = round(cs._launch_ms(run, "manba_decode"), 5)
+            res[f"{setting} events"] = round(cs._event_ms(run), 5)
+        rows.setdefault(key, []).append(res)
+        print(f"k6d {key[0]} {key[1]}: {json.dumps(res)} [{card}]", flush=True)
+    # the SM clock while the whole tile's decodes run
+    _, _, args, _ = settings["default_whole"]
+    lib = libs[("this", "whole")][0]
+    done = threading.Event()
+
+    def busy():
+        while not done.is_set():
+            for _ in range(200):
+                lib.ako_manba_decode(*args)
+            torch.cuda.synchronize()
+
+    th = threading.Thread(target=busy)
+    th.start()
+    try:
+        time.sleep(1.0)
+        clocks = [subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+                                  "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+                  for _ in range(3)]
+    finally:
+        done.set()
+        th.join()
+    print(f"k6d nvidia-smi during the whole tile's decodes (clocks.sm, clocks.max.sm, power.draw): "
+          f"{clocks} [{card}]", flush=True)
+    for key, res in rows.items():
+        print(f"k6d summary {key[0]} {key[1]}: {json.dumps(res)} [{card}]", flush=True)
+    if not other or not os.path.exists(os.path.join(roots["other"], "chip_smoke.py")):
+        return  # OTHER holds its kernel's source alone
+    for who in ("other", "this", "this", "other"):
+        root = roots[who]
+        proc = subprocess.run([sys.executable, "-c", K6D_CHILD, root], capture_output=True,
+                              text=True, cwd=root, timeout=900)
+        line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
+        if proc.returncode or not line:
+            raise RuntimeError(f"k6d child {who} failed:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-3000:]}")
+        print(f"k6d checkout {who}: {line[0][len('RESULT '):]} [{card}]", flush=True)
+
+
 def profiler(card: str) -> None:
     """The profiler's record of short windows as the process ages, in a
     child process a setting: CUPTI kept up across windows, as torch leaves
@@ -1445,7 +1795,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in (
-            "compare", "k3", "k4", "k6", "levels", "split", "profiler", "profiler-child"):
+            "compare", "k3", "k4", "k6", "k6d", "levels", "split", "profiler", "profiler-child"):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -1465,6 +1815,8 @@ def main() -> int:
         k3(other, card)
     elif sys.argv[1] == "k6":
         k6(other, card)
+    elif sys.argv[1] == "k6d":
+        k6d(other, card)
     elif sys.argv[1] == "split":
         split(other, card)
     elif sys.argv[1] == "profiler":
@@ -1477,7 +1829,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["profiler-child"]:
+    if sys.argv[1:2] == ["k6d"]:
+        # its profiled windows are many and short: CUPTI torn down after
+        # each (chip_smoke.py's setting), so the process ends with os._exit
+        os.environ.setdefault("TEARDOWN_CUPTI", "1")
+    if sys.argv[1:2] in (["profiler-child"], ["k6d"]):
         # a process that tore CUPTI down (TEARDOWN_CUPTI=1) hangs in its
         # exit, as chip_smoke.py's would
         code = main()

@@ -58,7 +58,12 @@ no result line):
                 native coder (akort_manba_encode / akort_manba_decode)
                 there too and on the whole tile's 5,242,932-value stream,
                 where the plain chain (a torch loop over positions) is too
-                slow and is skipped
+                slow and is skipped; K6d also on the edge cases of
+                tests/test_torch_manba_tiles.py (k6d_edge_cases: zero
+                frequencies at both ends, tiles of one block and of n not
+                a multiple of 128, a CTA of one lane, rows not 16-byte
+                aligned, a pool ending on the payload, records that run
+                out of rANS bytes or point past the pool)
   4. goldens  - tests/golden blobs and pixels are reproduced exactly,
                 on both entropy paths
   5. north    - the north-star image (fbm corpus, seed 42, 1024x1280
@@ -98,7 +103,12 @@ no result line):
                 card), the chain loop of manba_chain_pack in the
                 library's SASS (cuobjdump: its dependent path and
                 instructions a step) and the SM clock and ns a step of
-                the chain alone on the north star's tile 0 stream
+                the chain alone on the north star's tile 0 stream; and
+                K6d's latency bound on both settings: its chain loop's
+                SASS (the dependent path through the table's shared load),
+                the shared and L2 load latencies (the load chains of
+                ako_manba_op_latency) and the SM clock of K6e's chain
+                alone
   8. streams  - device ms and host enqueue ms of encode.forward_streams
                 and decode.stream_pixels on the north star's 128-px tile
                 group and on the default whole tile: kernel launches,
@@ -854,6 +864,46 @@ def k6_cases(P, dev, img) -> list:
     return cases
 
 
+def k6d_edge_cases(dev) -> list:
+    """(name, K6d inputs on the card, n, the streams or None) of
+    tests/test_torch_manba_tiles.py's edge cases: zero frequencies at
+    both ends of the model, 100, 128 and 1000 values (a tile of one block,
+    n not a multiple of 128), 4101 values (a tile whose second CTA holds
+    one lane of 5), three tiles of 1001 values (rows not 16-byte aligned),
+    a pool that ends on the last payload's last word, and records no sync
+    scan gives: no rANS byte left (rans_end 0), rANS bytes that run out
+    inside a lane, extras cursors past the pool's end."""
+    from ako_tpu_torch.ops.kagari_device import DECODE_SLACK_WORDS
+    from ako_tpu_torch.runtime.kagari import manba_encode
+
+    rng = np.random.default_rng(0x2A15)
+    photo = (rng.normal(0, 2.2, size=21846) ** 3 / 8).astype(np.int16)
+    rows = {
+        "zero_ends": [rng.integers(1, 200, size=6000).astype(np.int16)],
+        "100 values": [photo[:100]],
+        "128 values": [photo[:128]],
+        "1000 values": [photo[:1000]],
+        "4101 values": [photo[: 32 * 128 + 5]],
+        "3 x 1001 values": [photo[i * 1001 : (i + 1) * 1001] for i in range(3)],
+    }
+    cases = []
+    for name, rs in rows.items():
+        n = rs[0].size
+        parts, _ = manba_decode_inputs([manba_encode(v, 2 * n + 64) for v in rs], n, dev)
+        cases.append((name, parts, n, np.stack(rs)))
+    n = photo.size
+    parts, _ = manba_decode_inputs([manba_encode(photo, 2 * n + 64)], n, dev)
+    pool, base, rans_end, extras_off, x, rbyte, ebit, freq = parts
+    cases += [
+        ("pool ending on the payload", (pool[:-DECODE_SLACK_WORDS], *parts[1:]), n, photo[None]),
+        ("rans_end 0", (pool, base, torch.zeros_like(rans_end), *parts[3:]), n, None),
+        ("rANS bytes out in lane 40", (pool, base, rbyte[:, 40:41].reshape(-1) + 3, *parts[3:]),
+         n, None),
+        ("extras past the pool", (*parts[:6], ebit + (pool.shape[0] * 32 - 900), freq), n, None),
+    ]
+    return cases
+
+
 def phase_k6(P, dev, img) -> dict:
     """K6e and K6d against their plain versions on the card (k6_cases)
     and against the native coder; K6e's calls of other shapes back to
@@ -916,7 +966,17 @@ def phase_k6(P, dev, img) -> dict:
     torch.cuda.synchronize()
     log(f"  K6e/K6d whole tile {tuple(whole.shape)}: payload equal to akort_manba_encode, values "
         "equal to the stream (the plain chain, a torch loop over 5.2 M positions, is skipped)")
-    log(f"kernels: K6e and K6d equal to plain on {len(cases)} cases")
+
+    # K6d's edge cases, against the plain version reading the whole pool
+    edges = k6d_edge_cases(dev)
+    for name, parts, n, values in edges:
+        got = md.manba_decode_device(*parts, n)
+        e = _max_err(got, md.manba_decode_plain(*parts, n))
+        err["manba_decode"] = max(err["manba_decode"], e)
+        if e or (values is not None and not np.array_equal(got.cpu().numpy(), values)):
+            raise AssertionError(f"K6d != plain (or the streams) on {name}: {e}")
+    log(f"  K6d edge cases {[name for name, *_ in edges]}: each equal to plain")
+    log(f"kernels: K6e and K6d equal to plain on {len(cases)} cases, K6d on {len(edges)} more")
     return err
 
 
@@ -1578,8 +1638,9 @@ def _host_ms(fn) -> float:
 
 # ---------------------------------------------------------------- K6e's step in SASS
 
-#: the operation chains of csrc/manba_encode.cu manba_op_chain, by K
-OP_CHAINS = ("imad_hi", "shf", "isetp_sel", "sel", "imad", "alu")
+#: the operation chains of csrc/manba_encode.cu manba_op_chain, by K, then
+#: manba_load_chains' two (a dependent shared load, a dependent L2 load)
+OP_CHAINS = ("imad_hi", "shf", "isetp_sel", "sel", "imad", "alu", "lds", "l2")
 OP_CHAIN_LEN = 16  # kOpChain
 #: SASS opcodes that write no register
 _NO_DEST = ("ST", "RED", "BRA", "BAR", "EXIT", "RET", "CALL", "BSYNC", "BSSY", "WARPSYNC", "NOP",
@@ -1669,10 +1730,10 @@ def sass_insn(text: str) -> tuple:
     return op, writes, reads, bool(guard)
 
 
-def sass_loops(insns: list) -> list:
-    """The innermost loops of a function: [(start address, end address,
-    [(instruction text, control)])], a loop being a branch back (to a
-    label or an address)."""
+def sass_loops(insns: list, innermost: bool = True) -> list:
+    """The innermost loops of a function (every loop when not
+    `innermost`): [(start address, end address, [(instruction text,
+    control)])], a loop being a branch back (to a label or an address)."""
     labels, pending = {}, []
     for addr, text, _ in insns:
         if addr is None:
@@ -1689,7 +1750,8 @@ def sass_loops(insns: list) -> list:
         target = labels.get(m.group(1), addr + 1) if m.group(1) else int(m.group(2), 16)
         if target <= addr:
             spans.append((target, addr))
-    inner = [s for s in spans if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+    inner = [s for s in spans if not innermost or
+             not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
     return [(a, b, [(t, c) for ad, t, c in insns if ad is not None and a <= ad <= b])
             for a, b in inner]
 
@@ -1715,25 +1777,32 @@ def op_latency(op: str, lat: dict) -> float:
         return max(lat["isetp_sel"] - lat["sel"], 1.0)
     if op.startswith("SEL"):
         return lat["sel"]
+    if op.startswith("LDS"):
+        return lat["lds"]
     return lat["alu"]
 
 
-def dependent_path(body: list, lat: dict) -> tuple:
+def dependent_path(body: list, lat: dict, carried: tuple = ()) -> tuple:
     """The longest loop-carried dependent path of a loop body (its
     instructions' text): (cycles, [opcodes on it]). A path starts at a
     register that the body writes and that is live when it starts (the
     state, counters); a load starts a new path that is not carried, so
-    the path counts register operations only. A guarded instruction
+    the path counts register operations only, but a load whose opcode
+    begins with one of `carried` (K6d's table lookup, "LDS") is an
+    operation of the path. A guarded instruction
     waits its operation's latency on its sources and one cycle (issue
     order) on the value it may keep, as the compiler schedules it."""
     parsed = [sass_insn(t) for t in body]
     written = {r for _, w, _, _ in parsed for r in w}
     state = {r: (0.0, []) for r in written}  # register -> (cycles, path) while carried
     for op, writes, reads, guarded in parsed:
-        srcs = [(c + op_latency(op, lat), p) for c, p in (state[r] for r in reads if r in state)]
-        if guarded:
-            srcs += [(c + 1.0, p) for c, p in (state[r] for r in writes if r in state)]
-        if op.startswith("LD") or not srcs:
+        srcs = []
+        if not op.startswith("LD") or op.startswith(carried):
+            srcs = [(c + op_latency(op, lat), p)
+                    for c, p in (state[r] for r in reads if r in state)]
+            if guarded:
+                srcs += [(c + 1.0, p) for c, p in (state[r] for r in writes if r in state)]
+        if not srcs:
             for r in writes:
                 state.pop(r, None)
             continue
@@ -1770,6 +1839,45 @@ def chain_loop_sass(sass: str, kernel: str, lat: dict) -> dict:
             "scoreboard_waits_per_step": sum(c[4] != 0 for c in ctrl) / k if ctrl else None}
 
 
+#: K6d's kernel in the library's SASS (its mangled name's part)
+K6D_SASS_NAME = "12manba_decodeE"
+
+
+def decode_loop_sass(sass: str, kernel: str, lat: dict) -> dict:
+    """K6d's chain loop in cuobjdump's SASS: the loop of `kernel` with the
+    most 32-bit shared-memory loads (one table lookup a step; a 16-byte one
+    reads the outputs' buffer) that also loads device memory (the windows'
+    words), without the loops nested in it (the cold tail of a row's
+    stores); its steps the table lookups. Returns chain_loop_sass's
+    account, the dependent path through the table lookup (at lat["lds"]
+    cycles) and the register operations."""
+    funcs = [v for k, v in sass_functions(sass).items() if kernel in k]
+    if not funcs:
+        raise AssertionError(f"SASS: no function named like {kernel}")
+    lookups = lambda body: sum(sass_insn(t)[0] == "LDS" for t, _ in body)
+    loops = []
+    for f in funcs:
+        every = sass_loops(f, innermost=False)
+        for a, b, body in every:
+            nested = [(c, d) for c, d, _ in every if (c, d) != (a, b) and a <= c and d <= b]
+            addrs = [ad for ad, t, _ in f if ad is not None and a <= ad <= b and
+                     not any(c <= ad <= d for c, d in nested)]
+            own = [(t, c) for ad, t, c in f if ad in set(addrs)]
+            if lookups(own) and any(sass_insn(t)[0].startswith("LDG") for t, _ in own):
+                loops.append((a, b, own))
+    if not loops:
+        raise AssertionError(f"SASS: no loop of {kernel} with table and window loads")
+    lp = max(loops, key=lambda lp: (lookups(lp[2]), -len(lp[2])))
+    k = lookups(lp[2])
+    body = [t for t, _ in lp[2]]
+    ctrl = [c for _, c in lp[2] if c is not None]
+    cycles, path = dependent_path(body, lat, carried=("LDS",))
+    return {"steps": k, "insns_per_step": len(body) / k, "path_ops_per_step": len(path) / k,
+            "path_cycles_per_step": cycles / k, "path": path, "span": (hex(lp[0]), hex(lp[1])),
+            "stall_cycles_per_step": sum(c[0] for c in ctrl) / k if ctrl else None,
+            "scoreboard_waits_per_step": sum(c[4] != 0 for c in ctrl) / k if ctrl else None}
+
+
 def cuobjdump_sass(lib: str) -> str:
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([exe, "-sass", lib], capture_output=True, text=True, timeout=300)
@@ -1779,14 +1887,19 @@ def cuobjdump_sass(lib: str) -> str:
 
 
 def op_latencies(lib=None, iters: int = 4096) -> dict:
-    """Cycles per operation of the six chains of manba_op_chain (one
-    thread, iters x 16 dependent operations each, clock64) on the card."""
+    """Cycles per operation of the chains of ako_manba_op_latency (one
+    thread, iters x 16 dependent operations each, clock64) on the card:
+    the six of manba_op_chain, a shared-memory load (K6d's table lookup)
+    and a device-memory load served by L2 (its set-up's loads of a buffer
+    just uploaded)."""
     from ako_tpu_torch.runtime import kernels
 
-    out = torch.zeros(12, dtype=torch.int64, device="cuda")
+    out = torch.zeros(2 * len(OP_CHAINS), dtype=torch.int64, device="cuda")
+    ring = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
     fn = lib.ako_manba_op_latency if lib is not None else kernels.load().ako_manba_op_latency
     for _ in range(2):  # the first call warms the instruction cache
-        rc = fn(out.data_ptr(), iters, torch.cuda.current_stream().cuda_stream)
+        rc = fn(out.data_ptr(), ring.data_ptr(), ring.numel(), iters,
+                torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"ako_manba_op_latency: cudaError {rc}")
     torch.cuda.synchronize()
@@ -1817,14 +1930,14 @@ def chain_alone(lib, values, record) -> dict:
     return {"cycles_per_step": cyc, "ns_per_step": ns, "ghz": cyc / ns}
 
 
-def k6_step_bound(P, dev, img, card) -> float:
+def k6_step_bound(P, dev, img, card) -> tuple:
     """K6e's step on the card: the operations' latencies (manba_op_chain),
     the chain loop of manba_chain_pack in the library's SASS (cuobjdump:
     instructions and the dependent path a step), and the chain alone on
     the north star's tile 0 stream (manba_chain_alone: cycles, ns and the
-    SM clock a step). Returns the step's least time in ns: the longer of
-    the dependent path's cycles and the instructions issued a step (one
-    a cycle), over the clock."""
+    SM clock a step). Returns the step's least time in ns (the longer of
+    the dependent path's cycles and the instructions issued a step, one a
+    cycle, over the clock), the clock in GHz and the latencies."""
     from ako_tpu_torch.ops import manba_device as md
     from ako_tpu_torch.runtime import kernels
 
@@ -1842,7 +1955,32 @@ def k6_step_bound(P, dev, img, card) -> float:
         f"chain alone on tile 0 ({streams.shape[1]} steps): {alone['cycles_per_step']:.2f} cycles, "
         f"{alone['ns_per_step']:.3f} ns a step at {alone['ghz']:.3f} GHz; latency bound "
         f"{bound:.3f} ns a step [{card}]")
-    return bound
+    return bound, alone["ghz"], lat
+
+
+def k6d_latency_bound(name, card, ghz, lat, step=None) -> tuple:
+    """K6d's least time: each lane's chain of DECODE_BLOCK steps at the
+    dependent path a step of the chain loop in the library's SASS (through
+    the table's shared load, at the measured latencies `lat`), after the
+    set-up's two dependent round trips (the records, then the windows'
+    words: L2 loads), at `ghz`, the SM clock of K6e's chain alone. The
+    loop's instructions, which hold both store routes (a launch runs one),
+    are logged and not counted. Returns (ms, the SASS account)."""
+    from ako_tpu_torch.ops.manba_device import DECODE_BLOCK
+    from ako_tpu_torch.runtime import kernels
+
+    step = step or decode_loop_sass(cuobjdump_sass(kernels._LIB), K6D_SASS_NAME, lat)
+    per_step = step["path_cycles_per_step"]
+    cycles = DECODE_BLOCK * per_step + 2 * lat["l2"]
+    bound = cycles / ghz / 1e6
+    log(f"  K6d {name}: latencies (cycles) LDS {lat['lds']:.2f}, L2 {lat['l2']:.1f}, ALU "
+        f"{lat['alu']:.2f}, IMAD {lat['imad']:.2f}; SASS chain loop {step['steps']} steps, "
+        f"{step['insns_per_step']:.2f} instructions a step (both store routes), dependent path "
+        f"{step['path_ops_per_step']:.2f} operations / {per_step:.2f} cycles a "
+        f"step ({' '.join(step['path'][: round(step['path_ops_per_step'])])}), scheduled stalls "
+        f"{step['stall_cycles_per_step']:.2f} cycles a step; latency bound {DECODE_BLOCK} x "
+        f"{per_step:.2f} + 2 x {lat['l2']:.1f} cycles at {ghz:.3f} GHz = {bound:.5f} ms [{card}]")
+    return bound, step
 
 
 def k6_times(P, dev, img, card) -> tuple:
@@ -1853,13 +1991,15 @@ def k6_times(P, dev, img, card) -> tuple:
     torch loop over positions; skipped on the whole tile), the native
     coder's host ms for the same streams (one thread, tile after tile),
     and K6e's latency bound: the steps of one chain times the step's
-    least time (k6_step_bound). Returns ({kernel: (kernel ms, plain ms)}
-    on the north star, K6e's latency bound ms there)."""
+    least time (k6_step_bound), and K6d's (k6d_latency_bound). Returns
+    ({kernel: (kernel ms, plain ms)} on the north star, {kernel: its
+    latency bound ms there})."""
     from ako_tpu_torch.ops import manba_device as md
     from ako_tpu_torch.runtime.kagari import manba_decode, manba_encode
 
     out = {}
-    step_ns = k6_step_bound(P, dev, img, card)
+    step_ns, ghz, lat = k6_step_bound(P, dev, img, card)
+    k6d_step = None
     for name in ("north_t128", "default_whole"):
         ((streams, cap, _),) = group_streams(dev, img, north_star_settings(P)[name])
         values = streams.cpu().numpy()
@@ -1876,11 +2016,13 @@ def k6_times(P, dev, img, card) -> tuple:
         n_dec = _host_ms(lambda: [manba_decode(values.shape[1], p) for p in payloads])
         steps = values.shape[1]
         latency = steps * step_ns / 1e6
+        k6d_bound, k6d_step = k6d_latency_bound(name, card, ghz, lat, k6d_step)
         line = (f"  K6e {name} {tuple(streams.shape)}: kernel {k_enc:.4f} ms (profiler, launches "
                 f"{ {k: round(v, 4) for k, v in launches.items()} }), {e_enc:.4f} ms (CUDA events); "
                 f"in situ {launches['manba_chain_pack'] * 1e6 / steps:.3f} ns a step; latency "
                 f"bound {steps} steps x {step_ns:.3f} ns = {latency:.4f} ms; K6d: {k_dec:.4f} ms "
-                f"(profiler), {e_dec:.4f} ms (CUDA events); native coder on the host: encode "
+                f"(profiler), {e_dec:.4f} ms (CUDA events), latency bound {k6d_bound:.5f} ms; "
+                f"native coder on the host: encode "
                 f"{n_enc:.3f} ms, decode {n_dec:.3f} ms")
         if name == "north_t128":
             p_enc = _once_ms(lambda: md.manba_encode_plain(streams, cap))
@@ -1889,7 +2031,7 @@ def k6_times(P, dev, img, card) -> tuple:
             line += f"; plain: encode {p_enc:.2f} ms, decode {p_dec:.2f} ms"
             out = {"manba_encode": (round(k_enc, 4), round(p_enc, 4)),
                    "manba_decode": (round(k_dec, 4), round(p_dec, 4))}
-            north_latency = latency
+            north_latency = {"manba_encode": latency, "manba_decode": k6d_bound}
         log(line + f" [{card}]")
     return out, north_latency
 
@@ -2193,7 +2335,7 @@ def main() -> int:
     times = phase_timings(P, dev, img, card)
     times["kagari_decode"] = k4_times(dev, oracle["north_t128"][0], card)
     times["kagari_encode"] = k3_times(P, dev, img, card)
-    k6, k6e_latency = k6_times(P, dev, img, card)
+    k6, k6_latency = k6_times(P, dev, img, card)
     times.update(k6)
     phase_streams(P, dev, img, card)
     bound = bounds_ms(img, oracle["north_t128"][0], oracle["north_t128_manba"][0])
@@ -2227,10 +2369,11 @@ def main() -> int:
         for k in REPLACES
     ]
     # K6e's chain: the wire format makes it one serial chain a stream, so
-    # its least time is also the steps times the step's least time
+    # its least time is also the steps times the step's least time; K6d's
+    # lanes are chains of DECODE_BLOCK steps after two round trips
     for row in kernels:
-        if row["name"] == "manba_encode":
-            row["latency_bound_ms"] = round(k6e_latency, 5)
+        if row["name"] in k6_latency:
+            row["latency_bound_ms"] = round(k6_latency[row["name"]], 5)
         # K1v/K2v: an image's launches, each at least an empty kernel's time
         if row["name"] in ("vlift", "vunlift"):
             row["launch_floor_ms"] = round(split_launches[row["name"]] * floor, 5)
