@@ -10,7 +10,7 @@ per tile-shape group each way (csrc/lift_pyramid.cu, colour and
 quantize/gate fused), after one launch a level (csrc/lift_level.cu,
 colour, quantize/gate and the dequantize fused) for the planes too large
 for a block; in the split wiring per-level V-only launches
-(csrc/lift2d.cu). With `device_entropy` (the default on the card)
+(csrc/vlift.cu). With `device_entropy` (the default on the card)
 Kagari coding runs there too: tokenize and pack as one launch of one
 CUDA kernel per shape group (csrc/kagari_encode.cu), the block-parallel
 decode as another (csrc/kagari_decode.cu) from host sync records;
@@ -18,8 +18,14 @@ MANBAVARAN under AKO_TPU_MANBAVARAN=1 is rANS-coded there by two more
 (csrc/manba_encode.cu, csrc/manba_decode.cu). Otherwise, and for the
 container, the port's copy of the native C runtime (csrc/akort.c)
 codes on the host; AKO_TPU_ENCODE=host / AKO_TPU_DECODE=host code every
-tile there. decode.decode_tiles_iter is the streaming decode. The
-package imports torch and numpy, never JAX, and reads no file of ako_tpu.
+tile there. decode.decode_tiles_iter is the streaming decode.
+
+For a stream of images, runtime/executor.py (PipelineEncoder,
+PipelineDecoder, roundtrip_iter) keeps several images in flight, each on
+a CUDA stream of its own with pinned host buffers, so that one image's
+host work (staging, framing, the sync scans, placement) overlaps the
+next image's device work. The package imports torch and numpy, never
+JAX, and reads no file of ako_tpu.
 """
 
 from ako_tpu_torch.core.settings import (

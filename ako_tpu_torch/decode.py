@@ -32,10 +32,11 @@ Pixels are bit-identical to ako_tpu's and the reference decoder's.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +44,13 @@ import torch
 from ako_tpu_torch.core import container, geometry
 from ako_tpu_torch.core.events import Event, EventsCallback, fire
 from ako_tpu_torch.core.settings import AkoError, Compression, Settings, Status, Wavelet
-from ako_tpu_torch.encode import resolve_device, tile_events_mode, tile_stream_bytes, wait_device
+from ako_tpu_torch.encode import (
+    resolve_device,
+    tile_events_mode,
+    tile_stream_bytes,
+    to_device,
+    wait_device,
+)
 from ako_tpu_torch.ops.colorspace import to_interleaved_u8
 from ako_tpu_torch.ops.kagari_device import (
     DECODE_BLOCK,
@@ -96,6 +103,40 @@ def tile_block_sizes(t, s: Settings, channels: int):
     the decode-side size contract (reference decode.c:133-142)."""
     spacing = geometry.planes_spacing(t.w, t.h) if s.wavelet != Wavelet.NONE else 0
     return tile_stream_bytes(t, s, channels), spacing
+
+
+class HostDecodeSpanPlan(NamedTuple):
+    """Per-(geometry, wavelet) arrays of the batched native span decoder
+    (hostcodec.tile_decode_spans; ako_tpu/decode.py:291), the decode twin
+    of encode.host_span_plan. In tile order, read-only."""
+
+    rects: np.ndarray  # (n, 4) int32: x, y, w, h
+    counts: np.ndarray  # (n,) int64 coefficients a tile
+    caps: np.ndarray  # (n,) int64 output capacity bytes (tds + spacing)
+
+
+@functools.lru_cache(maxsize=64)
+def host_decode_plan(image_w: int, image_h: int, channels: int, tiles_dimension: int,
+                     wavelet: Wavelet) -> HostDecodeSpanPlan:
+    """The span decode plan of an image geometry (ako_tpu/decode.py:301
+    _host_decode_plan)."""
+    grid = geometry.tile_grid(image_w, image_h, tiles_dimension)
+    n = len(grid)
+    rects = np.empty((n, 4), np.int32)
+    counts = np.empty(n, np.int64)
+    caps = np.empty(n, np.int64)
+    for i, t in enumerate(grid):
+        rects[i] = (t.x, t.y, t.w, t.h)
+        if wavelet != Wavelet.NONE:
+            tds = geometry.tile_data_size(t.w, t.h) * channels
+            spacing = geometry.planes_spacing(t.w, t.h)
+        else:
+            tds, spacing = t.w * t.h * channels * 2, 0
+        counts[i] = tds // 2
+        caps[i] = tds + spacing
+    for a in (rects, counts, caps):
+        a.setflags(write=False)
+    return HostDecodeSpanPlan(rects, counts, caps)
 
 
 def read_tile_stream(view, cursor: int, t, s: Settings, channels: int):
@@ -235,12 +276,16 @@ def manba_spans(items) -> tuple:
 
 
 def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels: int,
-                                  device: torch.device, events=None, events_user=None) -> list:
+                                  device: torch.device, events=None, events_user=None,
+                                  pool: Optional[ThreadPoolExecutor] = None, host=None) -> list:
     """Device-entropy decode, phase 1: walk the blocks and scan them for
     sync records on the host, then per shape group upload, decode, unlift
     and format on the device, enqueued without waiting. Returns
     (tiles, th, tw, pixels on the device) per group: the Kagari groups,
-    then the Manbavaran ones, then the quirk tiles'.
+    then the Manbavaran ones, then the quirk tiles'. The scans run on
+    `pool` (scan_pool() when None); given an executor slot `host`
+    (runtime/executor.py Slot), the uploads go through its pinned buffers
+    on its stream.
 
     Events as in ako_tpu's fused path: one COMPRESSION pair (tile 0)
     around the walk and the scans, then one per group around its upload
@@ -265,7 +310,7 @@ def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels
                 return "manba", ms
         return "kagari", kagari_sync(tds // 2, payload, tds + spacing, DECODE_BLOCK)
 
-    syncs = list(scan_pool().map(scan, blocks))
+    syncs = list((scan_pool() if pool is None else pool).map(scan, blocks))
     fire(events, 0, total, Event.COMPRESSION_END, events_user)
 
     per_shape: dict = {}
@@ -298,7 +343,8 @@ def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels
         if device.type == "cpu":
             span = max(decode_span_words(sy[0], len(p) * 8) for _, p, sy in items)
         buf, T, B = pack_entropy_upload(items)
-        parts = split_entropy_upload(torch.from_numpy(buf).to(device), T, B)
+        parts = split_entropy_upload(
+            to_device(torch.from_numpy(buf), device, host, ("kagari", tw, th)), T, B)
         coeffs = kagari_decode_device(*parts, count, DECODE_BLOCK, span)
         pixels = stream_pixels(coeffs, tw, th, channels, s)
         fire(events, t0, total, Event.COMPRESSION_END, events_user)
@@ -311,7 +357,8 @@ def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels
         # K6d reads the pool; only the plain decoder needs windows
         spans = manba_spans(items) if device.type == "cpu" else (None, None)
         buf, T, B = pack_manba_upload(items)
-        parts = split_manba_upload(torch.from_numpy(buf).to(device), T, B)
+        parts = split_manba_upload(
+            to_device(torch.from_numpy(buf), device, host, ("manba", tw, th)), T, B)
         coeffs = manba_decode_device(*parts, count, DECODE_BLOCK, *spans)
         pixels = stream_pixels(coeffs, tw, th, channels, s)
         fire(events, t0, total, Event.COMPRESSION_END, events_user)
@@ -327,7 +374,7 @@ def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels
             if res is None:
                 raise AkoError(Status.BROKEN_INPUT)
             streams.append(res[0])
-        coeffs = torch.from_numpy(np.stack(streams)).to(device)
+        coeffs = to_device(torch.from_numpy(np.stack(streams)), device, host, ("quirk", tw, th))
         pixels = stream_pixels(coeffs, tw, th, channels, s)
         fire(events, t0, total, Event.COMPRESSION_END, events_user)
         dispatched.append(([t for t, _, _ in items], th, tw, pixels))

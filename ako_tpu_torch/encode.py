@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -103,6 +103,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def checked_image(image) -> np.ndarray:
+    """The image as a uint8 (h, w, channels) array; (h, w) takes one
+    channel. Raises AkoError(INVALID_INPUT) on anything else."""
+    if image is None:
+        raise AkoError(Status.INVALID_INPUT)
+    image = np.asarray(image)
+    if image.ndim == 2:
+        image = image[:, :, None]
+    if image.ndim != 3 or image.dtype != np.uint8:
+        raise AkoError(Status.INVALID_INPUT, "expected uint8 (h, w, ch)")
+    return image
+
+
 def checked_settings(s: Optional[Settings]) -> Settings:
     """YCoCg auto-switches to the x2-premultiplied variant when lossy
     (encode.c:60-64)."""
@@ -120,6 +133,70 @@ def tile_qg(tile_w: int, tile_h: int, channels: int, quantization: int, gate: in
     """Per-tile-shape quantization/gate table (level_qg), cached."""
     schedule = geometry.lift_schedule(tile_w, tile_h)
     return level_qg(schedule, channels, quantization, gate, chroma_loss)
+
+
+class HostSpanPlan(NamedTuple):
+    """Per-(geometry, settings) arrays of the batched native span encoder
+    (hostcodec.tile_encode_spans; ako_tpu/encode.py:94): what the C side
+    needs per tile, made once and cached, so that an image of the
+    executor's AKO_TPU_ENCODE=host route costs one buffer and a join in
+    Python. Every array is in tile (wire) order and read-only."""
+
+    rects: np.ndarray  # (n, 4) int32: x, y, w, h
+    qg_off: np.ndarray  # (n,) int64 offsets into qs / gs
+    qs: np.ndarray  # int32: every tile's quantization steps, one after another
+    gs: np.ndarray  # int32: every tile's gate thresholds, likewise
+    counts: np.ndarray  # (n,) int64 stream values a tile
+    caps: np.ndarray  # (n,) int64 payload capacity bytes a tile
+    out_off: np.ndarray  # (n,) int64 start of each block's region in the out buffer
+    total_bytes: int  # the out buffer's size: sum(caps + BLOCK_HEAD.size)
+
+
+@functools.lru_cache(maxsize=64)
+def host_span_plan(image_w: int, image_h: int, channels: int, tiles_dimension: int,
+                   wavelet: Wavelet, quantization: int, gate: int,
+                   chroma_loss: int) -> HostSpanPlan:
+    """The span plan of an image geometry (ako_tpu/encode.py:110
+    _host_span_plan); each tile's region holds its 4-byte block head and
+    its payload capacity, the incompressible bound."""
+    grid = geometry.tile_grid(image_w, image_h, tiles_dimension)
+    n = len(grid)
+    rects = np.empty((n, 4), np.int32)
+    qg_off = np.empty(n, np.int64)
+    counts = np.empty(n, np.int64)
+    caps = np.empty(n, np.int64)
+    qs_parts: list = []
+    gs_parts: list = []
+    by_shape: dict = {}
+    off = 0
+    for i, t in enumerate(grid):
+        rects[i] = (t.x, t.y, t.w, t.h)
+        if wavelet == Wavelet.NONE:
+            tds = t.w * t.h * channels * 2
+            counts[i] = t.w * t.h * channels
+            q_arr = g_arr = np.empty(0, np.int32)
+        else:
+            tds = geometry.tile_data_size(t.w, t.h) * channels
+            counts[i] = tds // 2
+            if (t.w, t.h) not in by_shape:
+                qg = tile_qg(t.w, t.h, channels, quantization, gate, chroma_loss)
+                by_shape[(t.w, t.h)] = (
+                    np.ascontiguousarray([q for lq, _ in qg for q in lq], dtype=np.int32),
+                    np.ascontiguousarray([g for _, lg in qg for g in lg], dtype=np.int32),
+                )
+            q_arr, g_arr = by_shape[(t.w, t.h)]
+        qg_off[i] = off
+        off += q_arr.size
+        qs_parts.append(q_arr)
+        gs_parts.append(g_arr)
+        caps[i] = max(0, tds - BLOCK_HEAD.size)
+    qs = np.concatenate(qs_parts) if off else np.empty(0, np.int32)
+    gs = np.concatenate(gs_parts) if off else np.empty(0, np.int32)
+    regions = caps + BLOCK_HEAD.size
+    out_off = np.concatenate(([0], np.cumsum(regions[:-1]))).astype(np.int64)
+    for a in (rects, qg_off, qs, gs, counts, caps, out_off):
+        a.setflags(write=False)
+    return HostSpanPlan(rects, qg_off, qs, gs, counts, caps, out_off, int(regions.sum()))
 
 
 def tile_stream_bytes(t, s: Settings, channels: int) -> int:
@@ -207,11 +284,44 @@ def encode_tiles_device(
     return out
 
 
-def staging_source(image: np.ndarray) -> tuple:
+def to_device(t, device, host=None, key=None):
+    """The host tensor t on `device`: a plain copy, or, given an executor
+    slot `host` (runtime/executor.py Slot), a copy through the slot's
+    pinned buffer `key`, enqueued on its stream without waiting."""
+    return t.to(device) if host is None else host.upload(key, t, device)
+
+
+def to_host(t, host=None, key=None) -> np.ndarray:
+    """The device tensor t as a host array, once the device has made it: a
+    plain copy, or, given an executor slot `host`, a copy through the
+    slot's pinned buffer `key` on its stream."""
+    if host is None:
+        return t.cpu().numpy()
+    out = host.download(key, t)
+    host.sync()
+    return out.numpy()
+
+
+def fallback_streams(stream, fallback: np.ndarray, host=None, key=None) -> np.ndarray:
+    """The (len(fallback), n) int16 streams of a shape group's tiles at
+    the indices `fallback`, on the host, for the host coder."""
+    index = to_device(torch.from_numpy(fallback), stream.device, host,
+                      None if host is None else key + ("index",))
+    return to_host(stream[index], host, key)
+
+
+def staging_source(image: np.ndarray, device=None, host=None) -> tuple:
     """(src, fill_val): the image as a tensor to stage tiles from, without
     its constant last channel when it has one (image_fill_val), which
-    with_fill puts back on the device."""
+    with_fill puts back on the device. Given an executor slot `host`,
+    the whole image instead, on `device` through the slot's pinned buffer
+    in one contiguous copy, and no fill: the tiles are then cut on the
+    device, so the host's work is that copy alone (no strided gather and
+    no compare of the last channel, both torch ops whose intra-op threads
+    would take cores from the other images' host work)."""
     image = np.ascontiguousarray(image)  # torch takes no negative strides
+    if host is not None:
+        return host.upload("image", torch.from_numpy(image), device), None
     fill_val = image_fill_val(image)
     src = torch.from_numpy(image)
     return (src if fill_val is None else src[..., :-1]), fill_val
@@ -232,17 +342,21 @@ def dispatch_tiles_fused(
     device: torch.device,
     events: Optional[EventsCallback] = None,
     events_user=None,
+    host=None,
 ) -> tuple:
     """Device-entropy encode, phase 1: per shape group one u8 upload,
     then colour + lift + quantize/gate + tokenize/pack on the device,
-    enqueued without waiting. Returns (grid, per-group records).
+    enqueued without waiting. Returns (grid, per-group records). Given an
+    executor slot `host`, the upload goes through its pinned buffers and
+    the totals' download is enqueued too (collect_tiles_blocks with the
+    same slot reads them).
 
     Events fire per shape group (tile_no = the group's first tile), as
     in ako_tpu's fused path: FORMAT covers host staging + upload."""
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
     total = len(grid)
-    src, fill_val = staging_source(image)
+    src, fill_val = staging_source(image, device, host)
 
     dispatched = []
     for (tw, th), tiles in geometry.group_by_shape(grid).items():
@@ -256,39 +370,47 @@ def dispatch_tiles_fused(
         # so no tile is lifted twice
         stream = forward_streams(with_fill(tiles_dev, fill_val), tw, th, channels, s)
         comp, totals = kagari_encode_device(stream, capacity, budget)
+        if host is not None:
+            totals = host.download(("totals", tw, th), totals)
         dispatched.append((tiles, stream, comp, totals, capacity, budget))
     return grid, dispatched
 
 
-def collect_tiles_blocks(grid, dispatched, events=None, events_user=None) -> list:
+def collect_tiles_blocks(grid, dispatched, events=None, events_user=None, host=None) -> list:
     """Device-entropy encode, phase 2: per shape group one download of
     the (T,) totals and one of the compressed rows, cut at the group's
     largest total; frame the blocks. Tiles over the budget or within
     _CAPACITY_MARGIN of the capacity take the host coder on their
-    stream, and both kinds are counted (utils/metrics.py).
+    stream, and both kinds are counted (utils/metrics.py). Given the
+    executor slot that dispatched them, it first waits for the slot's
+    dispatch (the totals are then on the host) and downloads through the
+    slot's pinned buffers on its stream.
 
     WAVELET covers the wait for the group's device work, COMPRESSION
     the byte download and framing."""
     total = len(grid)
     out: list = [None] * total
-    for tiles, stream, comp, totals_dev, capacity, budget in dispatched:
+    if host is not None:
+        host.wait()
+    for tiles, stream, comp, totals_t, capacity, budget in dispatched:
         t0 = tiles[0].index
+        tw, th = tiles[0].w, tiles[0].h
         fire(events, t0, total, Event.WAVELET_START, events_user)
-        totals = totals_dev.cpu().numpy()
+        totals = totals_t.cpu().numpy()
         fire(events, t0, total, Event.WAVELET_END, events_user)
         fire(events, t0, total, Event.COMPRESSION_START, events_user)
-        host = (totals > budget) | (totals >= capacity - _CAPACITY_MARGIN)
-        ok = np.flatnonzero(~host)
-        fallback = np.flatnonzero(host)
+        past = (totals > budget) | (totals >= capacity - _CAPACITY_MARGIN)
+        ok = np.flatnonzero(~past)
+        fallback = np.flatnonzero(past)
         metrics.bump(metrics.ENC_DEVICE, len(ok))
         metrics.bump(metrics.ENC_HOST_FALLBACK, len(fallback))
         if len(ok):
-            rows = comp[:, : int(totals[ok].max())].cpu().numpy()
+            rows = to_host(comp[:, : int(totals[ok].max())], host, ("rows", tw, th))
             for i in ok:
                 n = int(totals[i])
                 out[tiles[i].index] = BLOCK_HEAD.pack(n) + rows[i, :n].tobytes()
         if len(fallback):
-            streams = stream[torch.from_numpy(fallback).to(stream.device)].cpu().numpy()
+            streams = fallback_streams(stream, fallback, host, ("fallback", tw, th))
             for values, i in zip(streams, fallback):
                 block = compress_block(values, capacity + BLOCK_HEAD.size)
                 if block is None:
@@ -298,67 +420,123 @@ def collect_tiles_blocks(grid, dispatched, events=None, events_user=None) -> lis
     return out
 
 
-def encode_tiles_blocks_manba(image: np.ndarray, s: Settings, device: torch.device,
-                              events=None, events_user=None) -> list:
-    """Device-entropy encode for the MANBAVARAN extension
+def _dispatch_manba_group(src, fill_val, tiles, channels: int, s: Settings, device, total: int,
+                          events, events_user, host) -> tuple:
+    """One shape group of dispatch_tiles_manba: the u8 upload, the lift
+    and K6e enqueued; FORMAT around the staging and upload, WAVELET
+    opened before the device work."""
+    tw, th = tiles[0].w, tiles[0].h
+    capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
+    t0 = tiles[0].index
+    fire(events, t0, total, Event.FORMAT_START, events_user)
+    tiles_dev = stage_tiles(src, tiles, tw, th).to(device)
+    fire(events, t0, total, Event.FORMAT_END, events_user)
+    fire(events, t0, total, Event.WAVELET_START, events_user)
+    stream = forward_streams(with_fill(tiles_dev, fill_val), tw, th, channels, s)
+    record, rans, extras = manba_encode_device(stream, capacity)
+    if host is not None:
+        record = host.download(("record", tw, th), record)
+    return tiles, stream, record, rans, extras, capacity
+
+
+def _collect_manba_group(group: tuple, s: Settings, out: list, total: int, events, events_user,
+                         host) -> None:
+    """One shape group of collect_tiles_manba into `out`: the record on
+    the host closes WAVELET; COMPRESSION around the byte download and the
+    framing."""
+    tiles, stream, record, rans, extras, capacity = group
+    tw, th = tiles[0].w, tiles[0].h
+    t0 = tiles[0].index
+    freq, x, rbytes, ebits, ok = unpack_record(record)
+    fire(events, t0, total, Event.WAVELET_END, events_user)
+    fire(events, t0, total, Event.COMPRESSION_START, events_user)
+    ebytes = (ebits + 7) // 8
+    fits = ok & (MANBA_HEAD.size + rbytes + ebytes <= capacity)
+    use = np.flatnonzero(fits)
+    fallback = np.flatnonzero(~fits)
+    if len(use):
+        rw, ew = int(rbytes[use].max()), int(ebytes[use].max())
+        rans_tail = to_host(rans[:, capacity - rw :], host, ("rans", tw, th))
+        extras_head = to_host(extras[:, :ew], host, ("extras", tw, th))
+        for i in use:
+            payload = manba_assemble(freq[i], x[i], rans_tail[i, rw - rbytes[i] :], rbytes[i],
+                                     extras_head[i], ebits[i], ok[i], capacity)
+            out[tiles[i].index] = BLOCK_HEAD.pack(len(payload)) + payload
+    if len(fallback):
+        streams = fallback_streams(stream, fallback, host, ("fallback", tw, th))
+        for values, i in zip(streams, fallback):
+            block = compress_block(values, capacity + BLOCK_HEAD.size, s.compression)
+            if block is None:
+                raise AkoError(Status.ERROR, "incompressible tile")
+            out[tiles[i].index] = block
+    metrics.bump(metrics.ENC_DEVICE, len(use))
+    metrics.bump(metrics.ENC_HOST_FALLBACK, len(fallback))
+    fire(events, t0, total, Event.COMPRESSION_END, events_user)
+
+
+def dispatch_tiles_manba(image: np.ndarray, s: Settings, device: torch.device,
+                         host=None) -> tuple:
+    """Device-entropy encode for the MANBAVARAN extension, phase 1
     (ako_tpu/encode.py:792-856): per shape group one u8 upload, the
     colour transform, lift and quantize/gate (forward_streams), then the
-    rANS encoder (manba_encode_device). One (T, RECORD_WORDS) record comes
-    back, then only the used bytes (the group's longest rANS tail and
-    extras head); the host frames each payload (manba_assemble). A tile
-    whose payload does not fit its capacity takes the host coder on its
-    stream; both kinds are counted (utils/metrics.py).
-
-    Events per shape group as ako_tpu's: FORMAT around staging and
-    upload, WAVELET around the device work up to the record, COMPRESSION
-    around the byte download and framing."""
+    rANS encoder (manba_encode_device, kernel K6e), enqueued without
+    waiting. Returns (grid, per-group records). Given an executor slot
+    `host`, the upload goes through its pinned buffers and the (T,
+    RECORD_WORDS) records' download is enqueued too."""
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
-    total = len(grid)
-    src, fill_val = staging_source(image)
-    out: list = [None] * total
-    for (tw, th), tiles in geometry.group_by_shape(grid).items():
-        capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
-        t0 = tiles[0].index
-        fire(events, t0, total, Event.FORMAT_START, events_user)
-        tiles_dev = stage_tiles(src, tiles, tw, th).to(device)
-        fire(events, t0, total, Event.FORMAT_END, events_user)
-        fire(events, t0, total, Event.WAVELET_START, events_user)
-        stream = forward_streams(with_fill(tiles_dev, fill_val), tw, th, channels, s)
-        record, rans, extras = manba_encode_device(stream, capacity)
-        freq, x, rbytes, ebits, ok = unpack_record(record.cpu())
-        fire(events, t0, total, Event.WAVELET_END, events_user)
-        fire(events, t0, total, Event.COMPRESSION_START, events_user)
-        ebytes = (ebits + 7) // 8
-        fits = ok & (MANBA_HEAD.size + rbytes + ebytes <= capacity)
-        use = np.flatnonzero(fits)
-        fallback = np.flatnonzero(~fits)
-        if len(use):
-            rw, ew = int(rbytes[use].max()), int(ebytes[use].max())
-            rans_tail = rans[:, capacity - rw :].cpu().numpy()
-            extras_head = extras[:, :ew].cpu().numpy()
-            for i in use:
-                payload = manba_assemble(freq[i], x[i], rans_tail[i, rw - rbytes[i] :], rbytes[i],
-                                         extras_head[i], ebits[i], ok[i], capacity)
-                out[tiles[i].index] = BLOCK_HEAD.pack(len(payload)) + payload
-        if len(fallback):
-            streams = stream[torch.from_numpy(fallback).to(stream.device)].cpu().numpy()
-            for values, i in zip(streams, fallback):
-                block = compress_block(values, capacity + BLOCK_HEAD.size, s.compression)
-                if block is None:
-                    raise AkoError(Status.ERROR, "incompressible tile")
-                out[tiles[i].index] = block
-        metrics.bump(metrics.ENC_DEVICE, len(use))
-        metrics.bump(metrics.ENC_HOST_FALLBACK, len(fallback))
-        fire(events, t0, total, Event.COMPRESSION_END, events_user)
+    src, fill_val = staging_source(image, device, host)
+    return grid, [
+        _dispatch_manba_group(src, fill_val, tiles, channels, s, device, len(grid), None, None,
+                              host)
+        for tiles in geometry.group_by_shape(grid).values()
+    ]
+
+
+def collect_tiles_manba(grid, dispatched, s: Settings, host=None) -> list:
+    """Phase 2: per shape group the record comes back, then only the used
+    bytes (the group's longest rANS tail and extras head); the host frames
+    each payload (manba_assemble). A tile whose payload does not fit its
+    capacity takes the host coder on its stream; both kinds are counted
+    (utils/metrics.py). Given the executor slot that dispatched them, it
+    first waits for the slot's dispatch and downloads through the slot's
+    pinned buffers on its stream."""
+    if host is not None:
+        host.wait()
+    out: list = [None] * len(grid)
+    for group in dispatched:
+        _collect_manba_group(group, s, out, len(grid), None, None, host)
     return out
 
 
-def wait_device(t) -> None:
-    """Wait for the device work queued on t's stream (nothing on the
-    CPU)."""
+def encode_tiles_blocks_manba(image: np.ndarray, s: Settings, device: torch.device,
+                              events=None, events_user=None) -> list:
+    """dispatch_tiles_manba and collect_tiles_manba in a row, one shape
+    group at a time, so that the events keep ako_tpu's per-group order:
+    FORMAT around staging and upload, WAVELET around the device work up
+    to the record, COMPRESSION around the byte download and framing."""
+    image_h, image_w, channels = image.shape
+    grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
+    src, fill_val = staging_source(image)
+    out: list = [None] * len(grid)
+    for tiles in geometry.group_by_shape(grid).values():
+        group = _dispatch_manba_group(src, fill_val, tiles, channels, s, device, len(grid), events,
+                                      events_user, None)
+        _collect_manba_group(group, s, out, len(grid), events, events_user, None)
+    return out
+
+
+def wait_device(t, stream=None) -> None:
+    """Block the host until the device work that made t is done: the work
+    queued so far on `stream`, by default the current stream of t's
+    device in this thread, where the port's calls enqueue (an executor
+    waiting from another thread names its slot's stream). It waits on an
+    event recorded there, so work queued later, on that stream or any
+    other, is not waited for. Nothing on the CPU."""
     if t.is_cuda:
-        torch.cuda.current_stream(t.device).synchronize()
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device) if stream is None else stream)
+        done.synchronize()
 
 
 def encode_tiles_blocks_tile_events(image: np.ndarray, s: Settings, device: torch.device,
@@ -401,16 +579,19 @@ def encode_tiles_blocks_tile_events(image: np.ndarray, s: Settings, device: torc
     return out
 
 
-def encode_tiles_host(image: np.ndarray, s: Settings, events=None, events_user=None) -> list:
+def encode_tiles_host(image: np.ndarray, s: Settings, events=None, events_user=None,
+                      tiles=None) -> list:
     """AKO_TPU_ENCODE=host: every tile through the native runtime, with
     the reference's per-tile events (ako_tpu/encode.py:924-960): FORMAT
     around the colour transform, WAVELET around the lift, COMPRESSION
-    around the entropy coder. Returns the blocks in tile order."""
+    around the entropy coder. Returns the blocks in tile order; `tiles`,
+    a part of the image's grid, codes only those (the executor's span of
+    a worker thread)."""
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
     total = len(grid)
     blocks = []
-    for t in grid:
+    for t in grid if tiles is None else tiles:
         tile = image[t.y : t.y + t.h, t.x : t.x + t.w, :]
         fire(events, t.index, total, Event.FORMAT_START, events_user)
         planes = hostcodec.u8_to_planes(tile, s.color, bool(s.discard_non_visible))
@@ -453,13 +634,7 @@ def encode(
     backend. `events` is the per-stage tracing hook (core.events);
     AKO_TPU_EVENTS=tile makes the device-entropy Kagari path fire it per
     tile. AKO_TPU_ENCODE=host codes every tile in the native runtime."""
-    if image is None:
-        raise AkoError(Status.INVALID_INPUT)
-    image = np.asarray(image)
-    if image.ndim == 2:
-        image = image[:, :, None]
-    if image.ndim != 3 or image.dtype != np.uint8:
-        raise AkoError(Status.INVALID_INPUT, "expected uint8 (h, w, ch)")
+    image = checked_image(image)
     dev = resolve_device(device)
     if device_entropy is None:
         device_entropy = dev.type == "cuda"

@@ -43,6 +43,7 @@ placement and MXU cumsums) are not ported.
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -91,8 +92,11 @@ K4_SPAN_WORDS = 4096
 LAUNCHES = {"kagari_encode": 0, "kagari_decode": 0}
 
 #: K3's scratch per (device index, stream): [int64 tensor, rows it
-#: holds, chunks it holds, last epoch]
+#: holds, chunks it holds, last epoch]; _SCRATCH_LOCK guards its
+#: get-or-create and the epoch a call takes, since the executor launches
+#: from two threads at once
 _SCRATCH: dict = {}
+_SCRATCH_LOCK = threading.RLock()
 
 
 def _exclusive_cumsum(x):
@@ -240,15 +244,16 @@ def encode_scratch(device, stream: int, rows: int, chunks: int) -> list:
     out; otherwise reused as it is (the epoch makes the earlier calls'
     descriptors stale)."""
     key = (device.index, stream)
-    s = _SCRATCH.get(key)
-    if s is None or rows > s[1] or chunks > s[2] or s[3] + 1 >= K3_EPOCHS:
-        rows = max(rows, s[1] if s else 0)
-        chunks = max(chunks, s[2] if s else 0)
-        s = [torch.zeros((scratch_words(rows, chunks),), dtype=torch.int64, device=device),
-             rows, chunks, 0]
-        _SCRATCH[key] = s
-    s[3] += 1
-    return s
+    with _SCRATCH_LOCK:
+        s = _SCRATCH.get(key)
+        if s is None or rows > s[1] or chunks > s[2] or s[3] + 1 >= K3_EPOCHS:
+            rows = max(rows, s[1] if s else 0)
+            chunks = max(chunks, s[2] if s else 0)
+            s = [torch.zeros((scratch_words(rows, chunks),), dtype=torch.int64, device=device),
+                 rows, chunks, 0]
+            _SCRATCH[key] = s
+        s[3] += 1
+        return s
 
 
 def kagari_encode_device(values, capacity_bytes: int, budget_bytes: int | None = None):
@@ -284,12 +289,13 @@ def kagari_encode_device(values, capacity_bytes: int, budget_bytes: int | None =
     if rows:
         with torch.cuda.device(values.device):
             stream = torch.cuda.current_stream().cuda_stream
-            scratch, rows_cap, chunks_cap, epoch = encode_scratch(values.device, stream, rows,
-                                                                  rows * chunks)
+            with _SCRATCH_LOCK:  # the epoch read as this call took it
+                scratch, rows_cap, chunks_cap, epoch = encode_scratch(values.device, stream, rows,
+                                                                      rows * chunks)
             kernels.kagari_encode(values.data_ptr(), out.data_ptr(), totals.data_ptr(),
                                   scratch.data_ptr(), scratch.numel(), rows_cap, chunks_cap, epoch,
                                   rows, n, row_words, stream)
-        LAUNCHES["kagari_encode"] += 1
+        kernels.count_launch(LAUNCHES, "kagari_encode")
     return out[:, :budget_bytes].reshape(batch + (budget_bytes,)), totals.reshape(batch)
 
 
@@ -454,5 +460,5 @@ def kagari_decode_device(pool, base, bit_off, prev, consec, run, n_outputs: int,
             prev.data_ptr(), consec.data_ptr(), run.data_ptr(), out.data_ptr(),
             T, B, n_outputs, block, torch.cuda.current_stream().cuda_stream,
         )
-    LAUNCHES["kagari_decode"] += 1
+    kernels.count_launch(LAUNCHES, "kagari_decode")
     return out

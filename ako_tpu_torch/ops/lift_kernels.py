@@ -117,7 +117,7 @@ def lift2d_level(weff: Wavelet, wrap: Wrap, x, level, mode: str | None = None):
             n, level.current_h, level.current_w, int(weff), int(wrap),
             torch.cuda.current_stream().cuda_stream,
         )
-    LAUNCHES["lift2d"] += 1
+    kernels.count_launch(LAUNCHES, "lift2d")
     return ll, b, c, d
 
 
@@ -146,7 +146,7 @@ def unlift2d_level(weff: Wavelet, wrap: Wrap, ll, b, c, d, level, mode: str | No
             n, level.current_h, level.current_w, int(weff), int(wrap),
             torch.cuda.current_stream().cuda_stream,
         )
-    LAUNCHES["unlift2d"] += 1
+    kernels.count_launch(LAUNCHES, "unlift2d")
     return out
 
 
@@ -183,7 +183,7 @@ def _vlift(wavelet: Wavelet, wrap: Wrap, xs, axis: int):
     with torch.cuda.device(x.device):
         kernels.vlift(args, [t.data_ptr() for t in xs], [t.data_ptr() for o in outs for t in o],
                       torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["vlift"] += 1
+    kernels.count_launch(LAUNCHES, "vlift")
     return outs
 
 
@@ -209,7 +209,7 @@ def _vunlift(wavelet: Wavelet, wrap: Wrap, pairs, out_len: int, axis: int):
     with torch.cuda.device(lp0.device):
         kernels.vunlift(args, [x.data_ptr() for p in pairs for x in p], [o.data_ptr() for o in outs],
                         torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["vunlift"] += 1
+    kernels.count_launch(LAUNCHES, "vunlift")
     return outs
 
 
@@ -464,7 +464,7 @@ def forward_pyramid(x, stream, schedule: LiftSchedule, start: int, wavelet: Wave
     with torch.cuda.device(x.device):
         kernels.lift_pyramid(args, x.data_ptr(), stream.data_ptr(), x.shape[0],
                              torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["lift_pyramid"] += 1
+    kernels.count_launch(LAUNCHES, "lift_pyramid")
 
 
 def inverse_pyramid(coeffs, schedule: LiftSchedule, start: int, wavelet: Wavelet, wrap: Wrap,
@@ -488,7 +488,7 @@ def inverse_pyramid(coeffs, schedule: LiftSchedule, start: int, wavelet: Wavelet
     with torch.cuda.device(coeffs.device):
         kernels.unlift_pyramid(args, coeffs.data_ptr(), out.data_ptr(), n,
                                torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["unlift_pyramid"] += 1
+    kernels.count_launch(LAUNCHES, "unlift_pyramid")
     return out
 
 
@@ -658,7 +658,7 @@ def lift_level(x, stream, schedule: LiftSchedule, k: int, wavelet: Wavelet, wrap
     with torch.cuda.device(x.device):
         kernels.lift_level(args, x.data_ptr(), stream.data_ptr(), ll.data_ptr(), n,
                            torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["lift_level"] += 1
+    kernels.count_launch(LAUNCHES, "lift_level")
     return ll
 
 
@@ -689,7 +689,7 @@ def unlift_level(ll, coeffs, schedule: LiftSchedule, k: int, wavelet: Wavelet, w
     with torch.cuda.device(coeffs.device):
         kernels.unlift_level(args, ll.data_ptr(), coeffs.data_ptr(), out.data_ptr(), n,
                              torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["unlift_level"] += 1
+    kernels.count_launch(LAUNCHES, "unlift_level")
     return out
 
 

@@ -188,7 +188,7 @@ def manba_encode_device(values, budget_bytes: int):
             kernels.manba_encode(values.data_ptr(), record.data_ptr(), scratch.data_ptr(),
                                  rans.data_ptr(), extras.data_ptr(), rows, n, budget_bytes,
                                  row_words, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["manba_encode"] += 1
+        kernels.count_launch(LAUNCHES, "manba_encode")
     return (record.reshape(batch + (RECORD_WORDS,)), rans.reshape(batch + (budget_bytes,)),
             extras[:, :budget_bytes].reshape(batch + (budget_bytes,)))
 
@@ -322,5 +322,5 @@ def manba_decode_device(pool, base, rans_end, extras_off, x, rbyte, ebit, freq, 
                                  rbyte.data_ptr(), ebit.data_ptr(), freq.data_ptr(),
                                  out.data_ptr(), T, B, n_outputs,
                                  torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["manba_decode"] += 1
+        kernels.count_launch(LAUNCHES, "manba_decode")
     return out

@@ -24,6 +24,7 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
 _SZ = ctypes.c_size_t
 
 #: (restype, argtypes) per bound symbol — the same signatures as
@@ -48,6 +49,18 @@ _SIGNATURES = {
     "akort_tile_decode_block": (
         _I32,
         [_P, _SZ, _SZ, _SZ, _I32, _I32, _I32, _I32, _I32, _I32, _P],
+    ),
+    # image, row stride, channels, wavelet, wrap, color, discard, n, rects,
+    # qg_off, qs, gs, counts, caps, out, out_off, sizes
+    "akort_tile_encode_spans": (
+        _I32,
+        [_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    ),
+    # blob, pay_off, pay_size, counts, caps, n, rects, row stride,
+    # channels, wavelet, wrap, color, image out
+    "akort_tile_decode_spans": (
+        _I32,
+        [_P, _P, _P, _P, _P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _P],
     ),
 }
 

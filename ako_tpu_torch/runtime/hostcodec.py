@@ -1,7 +1,10 @@
 """Native tile codecs (akort.c): the colour transform, the lift and its
 inverse one tile at a time (u8_to_planes, tile_lift, tile_unlift,
-planes_to_u8), and format + lift + Kagari for a whole tile in one C call
-and the inverse (tile_encode_block, tile_decode_block).
+planes_to_u8), format + lift + Kagari for a whole tile in one C call
+and the inverse (tile_encode_block, tile_decode_block), and the same for
+a span of tiles of one image in one C call (tile_encode_spans,
+tile_decode_spans: the executor's AKO_TPU_ENCODE=host and
+AKO_TPU_DECODE=host routes, ako_tpu/runtime/hostcodec.py:258, :307).
 
 They share no code with the port's device path (the CUDA kernels and
 their plain torch versions), so they are its independent oracle where
@@ -164,3 +167,83 @@ def tile_decode_block(
     if rc != 0:
         raise AkoError(Status.ERROR, f"native tile decode rc={rc}")
     return out
+
+
+def _check_span_arrays(n: int, **arrays) -> None:
+    """The span calls read n entries (rects: n x 4) of each array through
+    raw pointers: check dtype, contiguity and length first."""
+    for name, (a, dtype, size) in arrays.items():
+        if a.dtype != dtype or not a.flags.c_contiguous or a.size < size:
+            raise ValueError(f"span call: {name} must be contiguous {np.dtype(dtype)} with at "
+                             f"least {size} entries, got {a.dtype} {a.shape}")
+
+
+def _check_rects(rects: np.ndarray, image: np.ndarray, name: str) -> None:
+    r = rects.reshape(-1, 4)
+    h, w = image.shape[:2]
+    if len(r) and ((r < 0).any() or (r[:, 0] + r[:, 2]).max() > w or (r[:, 1] + r[:, 3]).max() > h):
+        raise ValueError(f"{name}: a rect lies outside the {w}x{h} image")
+
+
+def tile_encode_spans(image: np.ndarray, rects: np.ndarray, qg_off: np.ndarray, qs: np.ndarray,
+                      gs: np.ndarray, counts: np.ndarray, caps: np.ndarray, out: np.ndarray,
+                      out_off: np.ndarray, sizes: np.ndarray, wavelet: Wavelet, wrap: Wrap,
+                      color: Color, discard_non_visible: bool = False) -> None:
+    """Encode a span of tiles in one native call (akort_tile_encode_spans):
+    the C side cuts each rect (x, y, w, h) out of the interleaved u8
+    image, runs format + lift + Kagari, and writes the framed block (the
+    4-byte head and the payload) at out[out_off[i]], with the payload's
+    bytes in sizes[i] (0: incompressible at caps[i]). The per-tile
+    arrays come from encode.host_span_plan; callers pass row slices of
+    them to split one image over worker threads (the call runs without
+    the GIL). Byte-identical to per-tile tile_encode_block calls."""
+    n = rects.shape[0]
+    if image.dtype != np.uint8 or image.ndim != 3 or image.strides[1:] != (image.shape[2], 1):
+        raise ValueError("tile_encode_spans: expected a uint8 (h, w, channels) image with "
+                         "contiguous rows")
+    _check_span_arrays(n, rects=(rects, np.int32, 4 * n), qg_off=(qg_off, np.int64, n),
+                       counts=(counts, np.int64, n), caps=(caps, np.int64, n),
+                       out_off=(out_off, np.int64, n), sizes=(sizes, np.int64, n),
+                       qs=(qs, np.int32, 0), gs=(gs, np.int32, 0), out=(out, np.uint8, 0))
+    _check_rects(rects, image, "tile_encode_spans")
+    if n and int((out_off + caps).max()) + 4 > out.size:
+        raise ValueError("tile_encode_spans: a block region runs past the out buffer")
+    rc = load().akort_tile_encode_spans(
+        image.ctypes.data, image.strides[0], image.shape[2], int(wavelet), int(wrap), int(color),
+        1 if discard_non_visible else 0, n, rects.ctypes.data, qg_off.ctypes.data,
+        qs.ctypes.data if qs.size else None, gs.ctypes.data if gs.size else None,
+        counts.ctypes.data, caps.ctypes.data, out.ctypes.data, out_off.ctypes.data,
+        sizes.ctypes.data,
+    )
+    if rc != 0:
+        raise AkoError(Status.ERROR, f"native span encode rc={rc}")
+
+
+def tile_decode_spans(blob: np.ndarray, pay_off: np.ndarray, pay_size: np.ndarray,
+                      counts: np.ndarray, caps: np.ndarray, rects: np.ndarray,
+                      image_out: np.ndarray, wavelet: Wavelet, wrap: Wrap, color: Color) -> int:
+    """Decode a span of tiles in one native call (akort_tile_decode_spans):
+    each payload at blob[pay_off[i]] (pay_size[i] bytes) is entropy-
+    decoded, unlifted and colour-inverted straight into the interleaved
+    u8 image at its rect; spans over disjoint rects may run at once on
+    the same image. Returns 0, or the 1-based index in this span of the
+    first broken tile; raises on an allocation failure."""
+    n = rects.shape[0]
+    if (image_out.dtype != np.uint8 or image_out.ndim != 3
+            or image_out.strides[1:] != (image_out.shape[2], 1)):
+        raise ValueError("tile_decode_spans: expected a uint8 (h, w, channels) image with "
+                         "contiguous rows")
+    _check_span_arrays(n, rects=(rects, np.int32, 4 * n), pay_off=(pay_off, np.int64, n),
+                       pay_size=(pay_size, np.int64, n), counts=(counts, np.int64, n),
+                       caps=(caps, np.int64, n), blob=(blob, np.uint8, 0))
+    _check_rects(rects, image_out, "tile_decode_spans")
+    if n and int((pay_off + pay_size).max()) > blob.size:
+        raise ValueError("tile_decode_spans: a payload runs past the blob")
+    rc = load().akort_tile_decode_spans(
+        blob.ctypes.data, pay_off.ctypes.data, pay_size.ctypes.data, counts.ctypes.data,
+        caps.ctypes.data, n, rects.ctypes.data, image_out.strides[0], image_out.shape[2],
+        int(wavelet), int(wrap), int(color), image_out.ctypes.data,
+    )
+    if rc == -2:
+        raise AkoError(Status.ERROR, "native span decode: allocation failure")
+    return rc

@@ -94,6 +94,16 @@ class VliftPtrs(ctypes.Structure):
 
 _lock = threading.Lock()
 _lib = None
+#: guards the wrappers' LAUNCHES counters: the executor launches from two
+#: threads at once (its dispatch thread, and roundtrip_iter's encoder)
+_launch_lock = threading.Lock()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """One more launch of `name` in a wrapper's LAUNCHES counters."""
+    with _launch_lock:
+        counts[name] += 1
+
 #: nvcc's output from this process's build (ptxas register and spill
 #: counts); empty when the library came from the cache
 build_log = ""

@@ -11,6 +11,7 @@ K6d's, the level kernels' and the split wiring's K1v/K2v time goes.
     python3 chip_probe.py k6d [OTHER]
     python3 chip_probe.py split [OTHER]
     python3 chip_probe.py profiler
+    python3 chip_probe.py executor
 
 compare: the device-entropy north star (128-px tiles, fused wiring) in
 turns OTHER, this, this, OTHER, each in its own process: encode and
@@ -118,6 +119,20 @@ other): K6d through manba_decode_device on both settings (profiler, two
 medians of 20, and CUDA events) and the device-entropy decode of
 north_t128_manba (AKO_TPU_MANBAVARAN=1): decode ms (median of 7) and its
 COMPRESSION span (host clock, median of 7).
+
+executor: where the streaming executor's time goes on the card's host,
+at the north star's 128-px tiles (q=16, bench.py's 12-image stream):
+the sync scans of one image serial and on pools of 1, 2, 4 and
+os.cpu_count() threads, the upload packing, the pixel placement and the
+staging copy into pinned memory (host clock, medians of 5); cProfile's
+heaviest functions (own time) over 3 one-shot encodes and 3 one-shot
+decodes; the sequential executor stream (4 workers) with its stages
+timed by wrappers on every thread (ms an image, summed over threads),
+beside its wall time an image; then in turns the one-shot loop and the
+executor's streams (4 and os.cpu_count() workers, torch at one intra-op
+thread, the slot's uploads copied by torch instead of numpy, the slots'
+waits spinning on a core instead of blocking, roundtrip): wall and the
+process's CPU time an image, encode and decode apart.
 
 split: the split wiring's K1v/K2v (csrc/vlift.cu) on the north star's
 128-px tile group (80 RGBA tiles, 320 planes), level by level, in turns
@@ -1791,11 +1806,233 @@ def profiler_child(card: str) -> None:
     tally("after 100 s")
 
 
+def executor(card: str, dev=None) -> None:
+    import cProfile
+    import importlib
+    import io
+    import pstats
+    import statistics
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import ako_tpu_torch as P
+    import chip_smoke as cs
+    from ako_tpu_torch.core import container, geometry
+    from ako_tpu_torch.ops.kagari_device import DECODE_BLOCK
+    from ako_tpu_torch.runtime import executor as ex
+    from ako_tpu_torch.runtime.kagari import kagari_sync
+    from ako_tpu_torch.utils.corpus import corpus
+
+    dec_mod = importlib.import_module("ako_tpu_torch.decode")
+    enc_mod = importlib.import_module("ako_tpu_torch.encode")
+    dev = torch.device("cuda:0") if dev is None else dev
+    cs.phase_build()
+    images = corpus(42, 12, 1280, 1024, 4)
+    s = enc_mod.checked_settings(P.Settings(quantization=16, tiles_dimension=128))
+    blob = cs.oracle_encode(images[0], s)
+    view = memoryview(blob)
+    ch, w, h, _ = container.head_read(view)
+    grid = geometry.tile_grid(w, h, s.tiles_dimension)
+
+    def med(fn, runs=5):
+        fn()
+        times = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    blocks, cursor = [], container.HEAD_SIZE
+    for t in grid:
+        payload, cursor = dec_mod.read_tile_block(view, cursor, t, s, ch)
+        blocks.append((t, payload))
+
+    def scan(b):
+        t, payload = b
+        tds, spacing = dec_mod.tile_block_sizes(t, s, ch)
+        return kagari_sync(tds // 2, payload, tds + spacing, DECODE_BLOCK)
+
+    cpus = os.cpu_count() or 1
+    line = {"serial": med(lambda: [scan(b) for b in blocks])}
+    for n in sorted({1, 2, 4, cpus}):
+        with ThreadPoolExecutor(n) as pool:
+            line[f"pool {n}"] = med(lambda: list(pool.map(scan, blocks)))
+    print(f"executor probe: one image's 80 sync scans, ms: "
+          f"{ {k: round(v, 3) for k, v in line.items()} } (os.cpu_count() {cpus}) [{card}]",
+          flush=True)
+    items = [(t, p, sy) for (t, p), sy in zip(blocks, [scan(b) for b in blocks])]
+    pix = np.zeros((len(grid), 128, 128, ch), np.uint8)
+    image = np.empty((h, w, ch), np.uint8)
+
+    def place():
+        for i, t in enumerate(grid):
+            image[t.y : t.y + 128, t.x : t.x + 128] = pix[i]
+
+    slot = ex.Slot(dev)
+    src, _ = enc_mod.staging_source(images[0])
+    host = {
+        "walk": med(lambda: [dec_mod.read_tile_block(view, c, t, s, ch) for t, c in
+                             ex._block_offsets(view, grid, s, ch)]),
+        "pack_entropy_upload": med(lambda: dec_mod.pack_entropy_upload(items)),
+        "placement": med(place),
+        "staging_source": med(lambda: enc_mod.staging_source(images[0])),
+        "stage into pinned": med(lambda: slot.buffer("x", (80, 128, 128, ch - 1), torch.uint8)
+                                 .copy_(enc_mod.stage_tiles(src, grid, 128, 128))),
+    }
+    print(f"executor probe: host stages of one image, ms (median of 5): "
+          f"{ {k: round(v, 3) for k, v in host.items()} } [{card}]", flush=True)
+
+    for name, fn in (("encode", lambda: [P.encode(img, s, device=dev) for img in images[:3]]),
+                     ("decode", lambda: [P.decode(blob, device=dev) for _ in range(3)])):
+        fn()
+        prof = cProfile.Profile()
+        prof.enable()
+        fn()
+        prof.disable()
+        out = io.StringIO()
+        pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(18)
+        print(f"executor probe: cProfile of 3 one-shot {name}s (main thread) [{card}]\n"
+              + "\n".join(out.getvalue().splitlines()[:40]), flush=True)
+
+    # the sequential stream with wrappers that time each stage on its thread
+    acc: dict = {}
+    lock = threading.Lock()
+
+    def timed(mod, name, key=None):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                with lock:
+                    acc[key or name] = acc.get(key or name, 0.0) + time.perf_counter() - t
+
+        setattr(mod, name, wrapper)
+        return mod, name, fn
+
+    patches = [
+        timed(dec_mod, "kagari_sync"), timed(dec_mod, "pack_entropy_upload"),
+        timed(dec_mod, "kagari_decode_device"), timed(dec_mod, "stream_pixels"),
+        timed(ex, "dispatch_tiles_device_entropy"),
+        timed(ex, "dispatch_tiles_fused"), timed(ex, "collect_tiles_blocks"),
+        timed(enc_mod, "staging_source"), timed(enc_mod, "forward_streams"),
+        timed(enc_mod, "kagari_encode_device"),
+        timed(ex.Slot, "upload", "Slot.upload"), timed(ex.Slot, "download", "Slot.download"),
+        timed(ex.Slot, "wait", "Slot.wait"), timed(ex.Slot, "sync", "Slot.sync"),
+        timed(ex.PipelineDecoder, "_collect", "decoder collect"),
+        timed(ex.PipelineDecoder, "_dispatch_blob", "decoder dispatch"),
+    ]
+    enc = ex.PipelineEncoder(s, workers=4, device=dev)
+    dec = ex.PipelineDecoder(workers=4, device=dev)
+    for turn in range(3):
+        acc.clear()
+        t = time.perf_counter()
+        blobs = enc.encode_batch(images)
+        t_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        list(dec.decode_iter(blobs))
+        t_dec = time.perf_counter() - t
+        per = {k: round(v * 1e3 / len(images), 3) for k, v in sorted(acc.items())}
+        print(f"executor probe: sequential stream, turn {turn}: encode {t_enc * 1e3 / 12:.2f}, "
+              f"decode {t_dec * 1e3 / 12:.2f} ms an image (wall); stages, ms an image summed over "
+              f"threads: {per} [{card}]", flush=True)
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+
+    # variants in turns: wall and the process's CPU time (every thread) a
+    # stream of 12, encode and decode apart
+    def torch_upload(self, key, t, device):
+        buf = self.buffer(key, t.shape, t.dtype)
+        buf.copy_(t)
+        return buf.to(device, non_blocking=True)
+
+    orig_upload = ex.Slot.upload
+    orig_wait, orig_sync = ex.Slot.wait, ex.Slot.sync
+
+    def spin_wait(self):  # cudaStreamSynchronize: spins, by the device's default flags
+        if self.stream is not None:
+            self.stream.synchronize()
+
+    spin_sync = spin_wait
+
+    def stream(workers, threads=None, torch_copies=False, roundtrip=False, spin=False):
+        old_threads = torch.get_num_threads()
+        if threads:
+            torch.set_num_threads(threads)
+        if torch_copies:
+            ex.Slot.upload = torch_upload
+        if spin:  # the slots' waits spin on a core, as a plain synchronize() does
+            ex.Slot.wait = spin_wait
+            ex.Slot.sync = spin_sync
+        try:
+            if roundtrip:
+                t, c = time.perf_counter(), time.process_time()
+                list(ex.roundtrip_iter(images, s, workers=workers, device=dev))
+                return (time.perf_counter() - t, time.process_time() - c), (0.0, 0.0)
+            e = ex.PipelineEncoder(s, workers=workers, device=dev)
+            d = ex.PipelineDecoder(workers=workers, device=dev)
+            t, c = time.perf_counter(), time.process_time()
+            out = e.encode_batch(images)
+            enc_t = (time.perf_counter() - t, time.process_time() - c)
+            t, c = time.perf_counter(), time.process_time()
+            list(d.decode_iter(out))
+            return enc_t, (time.perf_counter() - t, time.process_time() - c)
+        finally:
+            torch.set_num_threads(old_threads)
+            ex.Slot.upload = orig_upload
+            ex.Slot.wait, ex.Slot.sync = orig_wait, orig_sync
+
+    def one_shot():
+        t, c = time.perf_counter(), time.process_time()
+        out = [P.encode(img, s, device=dev) for img in images]
+        enc_t = (time.perf_counter() - t, time.process_time() - c)
+        t, c = time.perf_counter(), time.process_time()
+        for b in out:
+            P.decode(b, device=dev)
+        return enc_t, (time.perf_counter() - t, time.process_time() - c)
+
+    variants = {
+        "one-shot": one_shot,
+        "seq 4": lambda: stream(4),
+        "seq 4, torch 1 thread": lambda: stream(4, threads=1),
+        "seq 4, torch copies": lambda: stream(4, torch_copies=True),
+        "seq 4, spin waits": lambda: stream(4, spin=True),
+        f"seq {cpus}": lambda: stream(cpus),
+        "roundtrip 4": lambda: stream(4, roundtrip=True),
+        "roundtrip 4, torch 1 thread": lambda: stream(4, threads=1, roundtrip=True),
+        "roundtrip 4, spin waits": lambda: stream(4, roundtrip=True, spin=True),
+    }
+    got: dict = {k: [] for k in variants}
+    for turn in range(6):
+        for k, fn in (variants.items() if turn % 2 else reversed(variants.items())):
+            r = fn()
+            if turn:
+                got[k].append(r)
+    for k, v in got.items():
+        enc_w = statistics.median(e[0] for e, _ in v) * 1e3 / 12
+        enc_c = statistics.median(e[1] for e, _ in v) * 1e3 / 12
+        dec_w = statistics.median(d[0] for _, d in v) * 1e3 / 12
+        dec_c = statistics.median(d[1] for _, d in v) * 1e3 / 12
+        what = (f"encode and decode {enc_w:.2f} ms an image wall, {enc_c:.2f} CPU"
+                if k.startswith("roundtrip") else
+                f"encode {enc_w:.2f} ms an image wall, {enc_c:.2f} CPU; decode {dec_w:.2f} wall, "
+                f"{dec_c:.2f} CPU")
+        print(f"executor probe: {k}: {what} (medians of 5 turns) [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in (
-            "compare", "k3", "k4", "k6", "k6d", "levels", "split", "profiler", "profiler-child"):
+            "compare", "k3", "k4", "k6", "k6d", "levels", "split", "profiler", "profiler-child",
+            "executor"):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -1823,6 +2060,8 @@ def main() -> int:
         profiler(card)
     elif sys.argv[1] == "profiler-child":
         profiler_child(card)
+    elif sys.argv[1] == "executor":
+        executor(card)
     else:
         k4(other, card)
     return 0

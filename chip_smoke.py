@@ -114,6 +114,19 @@ no result line):
                 group and on the default whole tile: kernel launches,
                 device kernels, torch ops, copies and host waits for the
                 device, from torch.profiler
+  9. executor - runtime/executor.py on bench.py's stream (corpus(42, 12,
+                1280, 1024, 4)) at north_t128: PipelineEncoder /
+                PipelineDecoder (sequential) and roundtrip_iter, then
+                default_whole_manba at 4 images and the host modes
+                (AKO_TPU_ENCODE=host, AKO_TPU_DECODE=host); every blob and
+                image equal to the native oracle, the launches N times one
+                image's, no host fallback; over one warm sequential stream
+                under torch.profiler the codec's kernels on more than one
+                CUDA stream, no pageable copy, and the device busy share;
+                the stream MP/s of both modes (4 and os.cpu_count()
+                workers) against a one-shot encode / decode loop over the
+                same images (medians of 5 turns after a warm-up), and
+                single-image p50 / p95 latency
 
 The second-to-last stdout line is the card's name and power limit from
 nvidia-smi, before it a JSON line with each kernel's launches, error,
@@ -2296,6 +2309,253 @@ def pyramid_times(dev, img, s, card) -> dict:
     return {k: (round(v[0], 4), round(v[1], 4)) for k, v in total.items()}
 
 
+# ------------------------------------------------------------ executor
+
+STREAM_N = 12  # bench.py's stream: corpus(42, 12, 1280, 1024, 4)
+STREAM_RUNS = 5  # timed turns per stream figure, after a warm-up turn
+LATENCY_RUNS = 20  # single-image calls per latency figure
+WORKERS = 4  # bench.py's PipelineEncoder / PipelineDecoder workers
+
+
+def _executor_check(name, blobs, pixels, want, launches, want_launches, fallbacks, want_fb):
+    """Every blob byte-equal and every image bit-equal to the native
+    oracle, the launches exact and the fallbacks as expected."""
+    if len(blobs) != len(want) or len(pixels) != len(want):
+        raise AssertionError(f"executor {name}: {len(blobs)} blobs and {len(pixels)} images for "
+                             f"{len(want)} inputs")
+    for i, (blob, pix, (want_blob, want_pix)) in enumerate(zip(blobs, pixels, want)):
+        if blob != want_blob:
+            raise AssertionError(f"executor {name}: image {i}'s blob differs from the native "
+                                 "oracle")
+        if not np.array_equal(pix, want_pix):
+            raise AssertionError(f"executor {name}: image {i}'s pixels differ from the native "
+                                 "oracle")
+    if launches != want_launches:
+        raise AssertionError(f"executor {name}: launch counts {launches}, expected "
+                             f"{want_launches}")
+    if fallbacks != want_fb:
+        raise AssertionError(f"executor {name}: fallbacks {fallbacks}, expected {want_fb}")
+    log(f"executor {name}: {len(want)} blobs and images equal to the native oracle; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (expected); fallbacks {fallbacks}")
+
+
+def _times_launches(per_image: dict, n: int) -> dict:
+    return {k: n * v for k, v in per_image.items()}
+
+
+def _stream_profile(fn) -> dict:
+    """One warm call of fn under torch.profiler: wall and device busy ms,
+    the CUDA streams the codec's kernels ran on, and the host<->device
+    copies by kind (CUPTI names them "Memcpy HtoD (Pinned -> Device)",
+    "... (Pageable -> Device)", and so on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    host = [e for e in prof.events() if e.device_type != DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev_events):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    copies: dict = {}
+    streams: set = set()
+    kernels = 0
+    for e in dev_events:
+        if "Memcpy" in e.name:
+            copies[e.name] = copies.get(e.name, 0) + 1
+        elif "Memset" not in e.name:
+            kernels += 1
+            if KERNEL_RE.search(e.name):
+                streams.add(e.device_resource_id)
+    return {"wall": wall, "busy": busy / 1e3, "streams": streams, "copies": copies,
+            "events": len(dev_events), "kernels": kernels,
+            "launch_calls": sum(1 for e in host if "Launch" in e.name)}
+
+
+def phase_executor(P, dev, card) -> dict:
+    """runtime/executor.py on the card: bench.py's 12-image stream at
+    north_t128 through PipelineEncoder / PipelineDecoder (sequential) and
+    roundtrip_iter, default_whole_manba at 4 images, and the host modes
+    (AKO_TPU_ENCODE=host, AKO_TPU_DECODE=host) at north_t128: blobs and
+    pixels held to the native oracle, launches exact (N times one image's
+    expected_launches), no host fallback. Then over one warm sequential
+    stream under torch.profiler: the codec's kernels on more than one CUDA
+    stream, no pageable copy, and the device busy share; the stream MP/s of
+    both executor modes against a one-shot P.encode / P.decode loop over
+    the same images (medians of 5 turns after a warm-up), and single-image
+    p50 / p95 latency."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.runtime.executor import PipelineDecoder, PipelineEncoder, roundtrip_iter
+    from ako_tpu_torch.utils import metrics
+    from ako_tpu_torch.utils.corpus import corpus
+
+    t0 = time.perf_counter()
+    images = corpus(NORTH_STAR["seed"], STREAM_N, NORTH_STAR["h"], NORTH_STAR["w"],
+                    NORTH_STAR["ch"])
+    s = north_star_settings(P)["north_t128"]
+    want = [(b, oracle_decode(b)) for b in (oracle_encode(img, s) for img in images)]
+    n, mp = len(images), images[0].shape[0] * images[0].shape[1] / 1e6
+    per_image = expected_launches(images[0], {"north_t128": s}, True, "fused")
+    tiles = sum(len(geometry.tile_grid(img.shape[1], img.shape[0], s.tiles_dimension))
+                for img in images)
+    device_fb = {metrics.ENC_DEVICE: tiles, metrics.ENC_HOST_FALLBACK: 0,
+                 metrics.DEC_DEVICE: tiles, metrics.DEC_HOST_FALLBACK: 0}
+    log(f"executor: {n} images of {images[0].shape}, oracle made in "
+        f"{time.perf_counter() - t0:.1f} s; os.cpu_count() = {os.cpu_count()}")
+
+    enc = PipelineEncoder(s, workers=WORKERS, device=dev)
+    dec = PipelineDecoder(workers=WORKERS, device=dev)
+    list(dec.decode_iter(enc.encode_batch(images[:2])))  # warm: pinned buffers, K3's scratch
+    metrics.reset()
+    reset_launches()
+    blobs = enc.encode_batch(images)
+    pixels = list(dec.decode_iter(blobs))
+    _executor_check("sequential north_t128", blobs, pixels, want, all_launches(),
+                    _times_launches(per_image, n), metrics.fallback_summary(), device_fb)
+
+    metrics.reset()
+    reset_launches()
+    pairs = list(roundtrip_iter(images, s, workers=WORKERS, device=dev))
+    _executor_check("roundtrip north_t128", [b for b, _ in pairs], [p for _, p in pairs], want,
+                    all_launches(), _times_launches(per_image, n), metrics.fallback_summary(),
+                    device_fb)
+
+    m = manba_settings(P)["default_whole_manba"]
+    whole = images[:4]
+    want_m = [(b, oracle_decode(b)) for b in (oracle_encode_manba(img, m) for img in whole)]
+    with manba_env():
+        metrics.reset()
+        reset_launches()
+        blobs_m = PipelineEncoder(m, workers=WORKERS, device=dev).encode_batch(whole)
+        pixels_m = list(PipelineDecoder(workers=WORKERS, device=dev).decode_iter(blobs_m))
+        launches_m = all_launches()
+    m_launches = _times_launches(
+        expected_launches(whole[0], {"default_whole_manba": m}, True, "fused"), len(whole))
+    _executor_check("sequential default_whole_manba", blobs_m, pixels_m, want_m, launches_m,
+                    m_launches, metrics.fallback_summary(),
+                    {metrics.ENC_DEVICE: len(whole), metrics.ENC_HOST_FALLBACK: 0,
+                     metrics.DEC_DEVICE: len(whole), metrics.DEC_HOST_FALLBACK: 0})
+
+    for var in ("AKO_TPU_ENCODE", "AKO_TPU_DECODE"):
+        os.environ[var] = "host"
+    try:
+        metrics.reset()
+        reset_launches()
+        t = time.perf_counter()
+        blobs_h = PipelineEncoder(s, workers=WORKERS, device=dev).encode_batch(images)
+        t_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        pixels_h = list(PipelineDecoder(workers=WORKERS, device=dev).decode_iter(blobs_h))
+        t_dec = time.perf_counter() - t
+        _executor_check("host modes north_t128", blobs_h, pixels_h, want, all_launches(),
+                        dict.fromkeys(per_image, 0), metrics.fallback_summary(),
+                        dict.fromkeys(device_fb, 0))
+        log(f"executor host modes north_t128, one pass: encode {t_enc * 1e3:.1f} ms, decode "
+            f"{t_dec * 1e3:.1f} ms for {n} images ({n * mp / (t_enc + t_dec):.2f} MP/s; "
+            f"{WORKERS} workers, no device work) [{card}]")
+    finally:
+        for var in ("AKO_TPU_ENCODE", "AKO_TPU_DECODE"):
+            os.environ.pop(var)
+
+    # one warm sequential stream under the profiler
+    def stream():
+        list(dec.decode_iter(enc.encode_iter(images)))
+
+    for window in range(1, 4):
+        r = _stream_profile(stream)
+        if r["events"] and r["kernels"] == r["launch_calls"]:
+            break
+    pageable = {k: v for k, v in r["copies"].items() if "Pageable" in k}
+    log(f"executor profile, one warm sequential stream of {n} (window {window}): wall "
+        f"{r['wall']:.1f} ms, device busy {r['busy']:.1f} ms ({100 * r['busy'] / r['wall']:.1f}%, "
+        f"idle {100 * (1 - r['busy'] / r['wall']):.1f}%); {r['kernels']} device kernels for "
+        f"{r['launch_calls']} launch calls; the codec's kernels on {len(r['streams'])} CUDA "
+        f"streams; copies {r['copies']} [{card}]")
+    if not r["events"]:
+        raise AssertionError("executor profile: the profiler recorded no device event")
+    if len(r["streams"]) < 2:
+        raise AssertionError(f"executor profile: the codec's kernels ran on streams "
+                             f"{r['streams']}, expected more than one")
+    if pageable:
+        raise AssertionError(f"executor profile: pageable copies on the device-entropy path: "
+                             f"{pageable}")
+
+    # stream rates, in turns: one-shot loop, sequential, roundtrip
+    def one_shot():
+        t = time.perf_counter()
+        out = [P.encode(img, s, device=dev) for img in images]
+        t_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        for blob in out:
+            P.decode(blob, device=dev)
+        return t_enc, time.perf_counter() - t
+
+    def sequential(workers):
+        e = PipelineEncoder(s, workers=workers, device=dev)
+        d = PipelineDecoder(workers=workers, device=dev)
+        t = time.perf_counter()
+        out = e.encode_batch(images)
+        t_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        list(d.decode_iter(out))
+        return t_enc, time.perf_counter() - t
+
+    def roundtrip(workers):
+        t = time.perf_counter()
+        list(roundtrip_iter(images, s, workers=workers, device=dev))
+        return time.perf_counter() - t, 0.0
+
+    cpus = os.cpu_count() or 1
+    runs = {"one-shot loop": one_shot,
+            f"sequential, {WORKERS} workers": lambda: sequential(WORKERS),
+            f"roundtrip, {WORKERS} workers": lambda: roundtrip(WORKERS),
+            f"sequential, {cpus} workers": lambda: sequential(cpus),
+            f"roundtrip, {cpus} workers": lambda: roundtrip(cpus)}
+    got: dict = {k: [] for k in runs}
+    for turn in range(STREAM_RUNS + 1):
+        for k, fn in runs.items():
+            r_ = fn()
+            if turn:
+                got[k].append(r_)
+    rates = {}
+    for k, v in got.items():
+        total = statistics.median(a + b for a, b in v)
+        rates[k] = n * mp / total
+        split = "" if k.startswith("roundtrip") else (
+            f" (encode {statistics.median(a for a, _ in v) * 1e3 / n:.2f}, decode "
+            f"{statistics.median(b for _, b in v) * 1e3 / n:.2f} ms an image)")
+        log(f"executor stream {k}: {n * mp / total:.2f} MP/s, {total * 1e3:.1f} ms for {n} "
+            f"images{split}, median of {STREAM_RUNS} turns, each "
+            f"{[round((a + b) * 1e3, 1) for a, b in v]} ms [{card}]")
+
+    # single-image latency: through the executor, and one-shot
+    lat: dict = {"executor encode": [], "executor decode": [], "one-shot encode": [],
+                 "one-shot decode": []}
+    img, blob = images[0], want[0][0]
+    for _ in range(LATENCY_RUNS + 1):
+        for k, fn in (("executor encode", lambda: enc.encode_batch([img])),
+                      ("executor decode", lambda: list(dec.decode_iter([blob]))),
+                      ("one-shot encode", lambda: P.encode(img, s, device=dev)),
+                      ("one-shot decode", lambda: P.decode(blob, device=dev))):
+            t = time.perf_counter()
+            fn()
+            lat[k].append((time.perf_counter() - t) * 1e3)
+    for k, v in lat.items():
+        v = sorted(v[1:])
+        p50, p95 = statistics.median(v), v[-(-95 * len(v) // 100) - 1]  # nearest rank
+        log(f"executor latency {k}, one image: p50 {p50:.2f} ms, p95 {p95:.2f} ms "
+            f"({LATENCY_RUNS} calls after a warm-up) [{card}]")
+    log(f"executor: every check passed in {time.perf_counter() - t0:.1f} s")
+    return rates
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2338,6 +2598,7 @@ def main() -> int:
     k6, k6_latency = k6_times(P, dev, img, card)
     times.update(k6)
     phase_streams(P, dev, img, card)
+    phase_executor(P, dev, card)
     bound = bounds_ms(img, oracle["north_t128"][0], oracle["north_t128_manba"][0])
     floor = launch_floor_ms(dev)
     split_launches = expected_launches(img, {"north_t128": north_star_settings(P)["north_t128"]},
