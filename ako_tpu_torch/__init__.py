@@ -24,8 +24,17 @@ For a stream of images, runtime/executor.py (PipelineEncoder,
 PipelineDecoder, roundtrip_iter) keeps several images in flight, each on
 a CUDA stream of its own with pinned host buffers, so that one image's
 host work (staging, framing, the sync scans, placement) overlaps the
-next image's device work. The package imports torch and numpy, never
-JAX, and reads no file of ako_tpu.
+next image's device work.
+
+tools/ holds the command lines (`python -m ako_tpu_torch.tools.akoenc`,
+`... .akodec`) and rate control (tools/rate.encode_with_ratio, akoenc's
+-dev-r): the pyramid is lifted once per colour variant, and each probe of
+the search is one launch per shape group of a kernel that quantizes the
+cached pyramid as it loads it and returns each tile's Kagari payload size
+(in csrc/kagari_encode.cu, beside K3); the chosen q is serialized by
+another (csrc/rate.cu) and packed by K3. The package imports torch and
+numpy, never JAX, and reads no file of ako_tpu (the CLIs read images
+through Pillow).
 """
 
 from ako_tpu_torch.core.settings import (

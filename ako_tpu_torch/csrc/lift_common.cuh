@@ -214,6 +214,7 @@ __device__ __forceinline__ void colour_inv(const V& val, int C, int color, uint8
 struct Divider {
     int qd;
     unsigned m;
+    Divider() = default;  // so that a table of them can live in shared memory
     __device__ explicit Divider(int qd_)
         : qd(qd_), m(qd_ > 1 && qd_ < 65536 ? (unsigned)(((1ull << 32) + qd_ - 1) / qd_) : 0u) {}
     __device__ __forceinline__ int operator()(int x) const {

@@ -237,23 +237,33 @@ def scratch_words(rows: int, chunks: int) -> int:
     return 4 * chunks + (rows + 2) // 2
 
 
-def encode_scratch(device, stream: int, rows: int, chunks: int) -> list:
+def encode_scratch(device, stream: int, rows: int, chunks: int, words=scratch_words) -> list:
     """K3's scratch for a call on (device, stream), and the call's epoch
     taken: [tensor, rows held, chunks held, epoch]. Made zeroed once,
     made again larger when a call needs more, or when the epochs run
     out; otherwise reused as it is (the epoch makes the earlier calls'
-    descriptors stale)."""
-    key = (device.index, stream)
+    descriptors stale). `words` sizes the layout; a kernel with another
+    layout (the rate search's K8p, ops/rate_device.py) passes its own and
+    gets a scratch of its own."""
+    key = (device.index, stream) + (() if words is scratch_words else (words,))
     with _SCRATCH_LOCK:
         s = _SCRATCH.get(key)
         if s is None or rows > s[1] or chunks > s[2] or s[3] + 1 >= K3_EPOCHS:
             rows = max(rows, s[1] if s else 0)
             chunks = max(chunks, s[2] if s else 0)
-            s = [torch.zeros((scratch_words(rows, chunks),), dtype=torch.int64, device=device),
+            s = [torch.zeros((words(rows, chunks),), dtype=torch.int64, device=device),
                  rows, chunks, 0]
             _SCRATCH[key] = s
         s[3] += 1
         return s
+
+
+def take_scratch(device, stream: int, rows: int, chunks: int, words=scratch_words) -> tuple:
+    """encode_scratch's (tensor, rows held, chunks held, epoch), read under
+    its lock as this call took them (the executor launches from two
+    threads at once)."""
+    with _SCRATCH_LOCK:
+        return tuple(encode_scratch(device, stream, rows, chunks, words))
 
 
 def kagari_encode_device(values, capacity_bytes: int, budget_bytes: int | None = None):
@@ -289,9 +299,8 @@ def kagari_encode_device(values, capacity_bytes: int, budget_bytes: int | None =
     if rows:
         with torch.cuda.device(values.device):
             stream = torch.cuda.current_stream().cuda_stream
-            with _SCRATCH_LOCK:  # the epoch read as this call took it
-                scratch, rows_cap, chunks_cap, epoch = encode_scratch(values.device, stream, rows,
-                                                                      rows * chunks)
+            scratch, rows_cap, chunks_cap, epoch = take_scratch(values.device, stream, rows,
+                                                                rows * chunks)
             kernels.kagari_encode(values.data_ptr(), out.data_ptr(), totals.data_ptr(),
                                   scratch.data_ptr(), scratch.numel(), rows_cap, chunks_cap, epoch,
                                   rows, n, row_words, stream)

@@ -4,16 +4,19 @@ lifts along either axis (csrc/vlift.cu), the whole-pyramid lift kernels
 (csrc/lift_pyramid.cu), the one-launch level
 kernels for planes too large for a pyramid block (csrc/lift_level.cu), the
 Kagari tokenize + pack (csrc/kagari_encode.cu, one launch a call), the
-Kagari block decoder (csrc/kagari_decode.cu), and the Manbavaran rANS
-encoder and block decoder (csrc/manba_encode.cu, csrc/manba_decode.cu).
+Kagari block decoder (csrc/kagari_decode.cu), the Manbavaran rANS
+encoder and block decoder (csrc/manba_encode.cu, csrc/manba_decode.cu),
+and the rate search's kernels: its serialization (csrc/rate.cu) and its
+payload sizes (in csrc/kagari_encode.cu beside K3, whose tokenizer and
+look-back it shares).
 
 At first use one `nvcc -c` per source, all started together, then one
 link build a shared library with a plain C interface in this package's
 `_build/` directory, cached by the mtime of the sources and the header
 they share; ctypes binds it. Device pointers and the CUDA stream are
-passed as integers (c_void_p), the pyramid and level kernels' tables as
-a pointer to a PyramidArgs, LevelArgs or VliftArgs (with a VliftPtrs)
-that the C side passes to the kernel by value. Nothing
+passed as integers (c_void_p), the pyramid, level and rate kernels'
+tables as a pointer to a PyramidArgs, LevelArgs, VliftArgs (with a
+VliftPtrs) or RateArgs that the C side passes to the kernel by value. Nothing
 here runs at import: the CPU tests import this module on machines with
 no nvcc and no card.
 """
@@ -32,10 +35,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [
     os.path.join(_PKG, "csrc", f)
     for f in ("lift2d.cu", "vlift.cu", "lift_pyramid.cu", "lift_level.cu", "kagari_encode.cu",
-              "kagari_decode.cu", "manba_encode.cu", "manba_decode.cu")
+              "kagari_decode.cu", "manba_encode.cu", "manba_decode.cu", "rate.cu")
 ]
-#: what the library is rebuilt after: the sources and the header they include
-DEPENDS = [*SOURCES, os.path.join(_PKG, "csrc", "lift_common.cuh")]
+#: what the library is rebuilt after: the sources and the headers they include
+DEPENDS = [*SOURCES, *(os.path.join(_PKG, "csrc", h)
+                       for h in ("lift_common.cuh", "rate_common.cuh"))]
 _LIB = os.path.join(BUILD_DIR, "libako_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,6 +53,8 @@ MAX_CHANNELS = 16
 MAX_CLUSTER = 8
 #: channels of csrc/lift_level.cu's table
 MAX_LEVEL_CHANNELS = 16
+#: (level, channel) segments of csrc/rate_common.cuh's table
+MAX_RATE_SEGS = 496
 
 
 class PyramidArgs(ctypes.Structure):
@@ -92,6 +98,17 @@ class VliftPtrs(ctypes.Structure):
     _fields_ = [("in_", ctypes.c_void_p * 4), ("out", ctypes.c_void_p * 4)]
 
 
+class RateArgs(ctypes.Structure):
+    """csrc/rate_common.cuh RateArgs, field for field."""
+
+    _fields_ = [
+        *((name, ctypes.c_int) for name in ("n", "lp", "segs")),
+        ("start", ctypes.c_int * MAX_RATE_SEGS),
+        ("q", ctypes.c_int16 * MAX_RATE_SEGS),
+        ("g", ctypes.c_int16 * MAX_RATE_SEGS),
+    ]
+
+
 _lock = threading.Lock()
 _lib = None
 #: guards the wrappers' LAUNCHES counters: the executor launches from two
@@ -126,6 +143,8 @@ _SIGNATURES = {
     "ako_unlift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
     "ako_manba_encode": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ako_manba_decode": [_P, _LL] + [_P] * 8 + [_I, _I, _I, _P],
+    "ako_rate_serialize": [_P, _P, _I, ctypes.POINTER(RateArgs), _P],
+    "ako_rate_sizes": [_P, _P, _P, _LL, _I, _I, ctypes.c_uint, _I, ctypes.POINTER(RateArgs), _P],
     # measurements of K6e's chain, called through the library by
     # chip_smoke.py and chip_probe.py; the codec never calls them
     "ako_manba_encode_chains": [_P] * 5 + [_I, _I, _I, _I, _P],
@@ -297,3 +316,20 @@ def manba_decode(pool, pool_words, base, rans_end, extras_off, x, rbyte, ebit, f
     _check(load().ako_manba_decode(pool, pool_words, base, rans_end, extras_off, x, rbyte, ebit,
                                    freq, out, tiles, blocks, n_outputs, stream),
            "ako_manba_decode")
+
+
+def rate_serialize(raw, out, rows, args, stream) -> None:
+    """Launch the rate search's serialization (K8s) on `stream`: `args` a
+    RateArgs, the rest device pointers and the row count, already checked
+    by the caller."""
+    _check(load().ako_rate_serialize(raw, out, rows, ctypes.byref(args), stream),
+           "ako_rate_serialize")
+
+
+def rate_sizes(raw, sizes, scratch, scratch_words, rows_cap, chunks_cap, epoch, rows, args,
+               stream) -> None:
+    """Launch the rate search's payload sizes (K8p, one grid launch with
+    K3's look-back over the reused `scratch`, a new `epoch` each call) on
+    `stream`."""
+    _check(load().ako_rate_sizes(raw, sizes, scratch, scratch_words, rows_cap, chunks_cap, epoch,
+                                 rows, ctypes.byref(args), stream), "ako_rate_sizes")

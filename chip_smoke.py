@@ -10,9 +10,9 @@ no result line):
   1. device   - a CUDA card is present; print its name and power limit
   2. build    - one nvcc per source (csrc/lift2d.cu, vlift.cu,
                 lift_pyramid.cu, lift_level.cu, kagari_encode.cu,
-                kagari_decode.cu, manba_encode.cu, manba_decode.cu), all
-                started together, then a link; cc builds the port's
-                csrc/akort.c
+                kagari_decode.cu, manba_encode.cu, manba_decode.cu,
+                rate.cu), all started together, then a link; cc builds
+                the port's csrc/akort.c
   3. kernels  - every kernel equals its plain torch version bit for bit
                 on the card: K1/K2 on every wavelet x wrap at the north
                 star's 128-px level planes, odd heights and one
@@ -64,6 +64,13 @@ no result line):
                 a multiple of 128, a CTA of one lane, rows not 16-byte
                 aligned, a pool ending on the payload, records that run
                 out of rANS bytes or point past the pool)
+     rate     - K8s (rate_serialize) and K8p (rate_sizes), the rate
+                search's kernels, bit for bit against their plain versions
+                on the raw pyramids the search caches: the north star at
+                128-px tiles and on the whole tile (one 5,242,932-value
+                row), a ragged two-group image, 512x512 crops with 1-4
+                channels, at q 0, 1, 4, 16, 64, 16384 and 65536, gate 0 and
+                16, chroma_loss 0, 1 and 3; and random full-range streams
   4. goldens  - tests/golden blobs and pixels are reproduced exactly,
                 on both entropy paths
   5. north    - the north-star image (fbm corpus, seed 42, 1024x1280
@@ -127,6 +134,22 @@ no result line):
                 workers) against a one-shot encode / decode loop over the
                 same images (medians of 5 turns after a warm-up), and
                 single-image p50 / p95 latency
+ 10. rate     - tools/rate.encode_with_ratio on the north star at 128-px
+                tiles (ratio 4 and 12, gate 0 and 16) and on the whole
+                tile (ratio 12): every probe's size equal to the length of
+                the native codec's blob at its q, the blob byte-equal to the
+                native codec's and to the port's encode at the emitted q,
+                the launches exact (the lift once per colour variant and
+                shape group, one K8p per probe and shape group, one K8s and
+                one K3 per shape group at the end); the probe trajectory,
+                the search's wall ms against one-shot encodes at its q's,
+                a search's device busy share, and K8p and K8s alone
+ 11. cli      - python -m ako_tpu_torch.tools.akoenc / akodec on the card,
+                each in a process of its own, on the north star written
+                by the port's pngout: -t 128 -q 16 byte-equal to the native
+                codec, -dev-r 12 equal to phase 10's blob, the decoded PNG's
+                pixels equal to the native decode's, a truncated blob exit
+                1 with an akodec: message
 
 The second-to-last stdout line is the card's name and power limit from
 nvidia-smi, before it a JSON line with each kernel's launches, error,
@@ -234,6 +257,7 @@ DEVICE_KERNELS = {
     "lift_level": "lift_level", "unlift_level": "unlift_level",
     "manba_stats": "manba_encode", "manba_model": "manba_encode",
     "manba_chain_pack": "manba_encode", "manba_decode": "manba_decode",
+    "rate_serialize": "rate_serialize", "rate_sizes": "rate_sizes",
 }
 #: a kernel's name in a profiler event, demangled ("ns::lift_h<0>(...)")
 #: or mangled ("...6lift_hILi0E...")
@@ -291,15 +315,17 @@ def is_manba(name: str) -> bool:
 
 
 def all_launches() -> dict:
-    from ako_tpu_torch.ops import kagari_device, lift_kernels, manba_device
+    from ako_tpu_torch.ops import kagari_device, lift_kernels, manba_device, rate_device
 
-    return {**lift_kernels.LAUNCHES, **kagari_device.LAUNCHES, **manba_device.LAUNCHES}
+    return {**lift_kernels.LAUNCHES, **kagari_device.LAUNCHES, **manba_device.LAUNCHES,
+            **rate_device.LAUNCHES}
 
 
 def reset_launches() -> None:
-    from ako_tpu_torch.ops import kagari_device, lift_kernels, manba_device
+    from ako_tpu_torch.ops import kagari_device, lift_kernels, manba_device, rate_device
 
-    for counts in (lift_kernels.LAUNCHES, kagari_device.LAUNCHES, manba_device.LAUNCHES):
+    for counts in (lift_kernels.LAUNCHES, kagari_device.LAUNCHES, manba_device.LAUNCHES,
+                   rate_device.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -321,7 +347,7 @@ def phase_build():
     stack = max((int(b) for b in re.findall(r"(\d+) bytes stack frame", kernels.build_log)),
                 default=0)
     log(f"build: nvcc lift2d.cu, vlift.cu, lift_pyramid.cu, lift_level.cu, kagari_encode.cu, "
-        f"kagari_decode.cu, manba_encode.cu, manba_decode.cu "
+        f"kagari_decode.cu, manba_encode.cu, manba_decode.cu, rate.cu "
         f"{t_cuda:.2f} s, cc csrc/akort.c "
         f"{t_akort:.2f} s; ptxas max registers {max(regs, default=0)}, spill stores {spills} B, "
         f"largest stack frame {stack} B")
@@ -329,7 +355,7 @@ def phase_build():
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and any(
                 k in line for k in ("pyramid", "kagari", "lift_level", "unlift_level", "manba",
-                                    "vlift", "vunlift")):
+                                    "vlift", "vunlift", "rate_")):
             log("  ptxas: " + " | ".join(part.strip() for part in lines[i : i + 4]))
 
 
@@ -1110,7 +1136,8 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
     h, w, ch = img.shape
     out = dict.fromkeys(("lift2d", "unlift2d", "vlift", "vunlift", "kagari_encode",
                          "kagari_decode", "lift_pyramid", "unlift_pyramid", "lift_level",
-                         "unlift_level", "manba_encode", "manba_decode"), 0)
+                         "unlift_level", "manba_encode", "manba_decode", "rate_serialize",
+                         "rate_sizes"), 0)
     for name, s in settings.items():
         coder = "manba" if is_manba(name) else "kagari"
         for tw, th in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)):
@@ -1186,10 +1213,10 @@ def phase_north_star(P, dev, img, oracle) -> dict:
     return launches
 
 
-def _median_ms(fn) -> float:
+def _median_ms(fn, runs: int = RUNS) -> float:
     fn()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
@@ -1410,7 +1437,7 @@ def phase_profile(P, dev, img, card) -> dict:
                 f"{per}; {r['kernels']} device kernels for {r['launch_calls']} launch calls "
                 f"(profiled window {r['windows']}) [{card}]")
             for name, k in DEVICE_KERNELS.items():
-                if name in r["per"] and ROW_RUN[k] == (path, setting):
+                if name in r["per"] and ROW_RUN.get(k) == (path, setting):
                     per_kernel[k] = per_kernel.get(k, 0.0) + r["per"][name]
             if mode == "split":
                 check_split_order(r["order"], split_kernel, split_want)
@@ -2556,6 +2583,297 @@ def phase_executor(P, dev, card) -> dict:
     return rates
 
 
+# ---------------------------------------------------------------- rate control (K8)
+
+#: the rate search's kernels: (source, the XLA program of ako_tpu it replaces)
+RATE_KERNELS = {
+    "rate_serialize": ("ako_tpu_torch/csrc/rate.cu", "ako_tpu/tools/rate.py:82"),
+    "rate_sizes": ("ako_tpu_torch/csrc/kagari_encode.cu", "ako_tpu/tools/rate.py:101"),
+}
+#: integer operations per value of K8s (the segment step, the gate's two
+#: compares, the multiply-high and its sign) and of K8p (the same, then
+#: K3's tokenizer without its pack: the zigzag, the neighbour compares, the
+#: max and sum scans, the run counter, a gamma length)
+K8S_OPS = 8
+K8P_OPS = 25
+#: the probes' quantization factors of phase_rate_kernels, the descent's
+#: x4 steps past 2^15 among them (their q/g saturate in level_qg)
+RATE_QS = (0, 1, 4, 16, 64, 16384, 65536)
+#: (name, settings, ratio) of phase_rate: the north star at 128-px tiles
+#: and on the whole tile
+RATE_CASES = [("t128_r4", dict(tiles_dimension=128), 4),
+              ("t128_r12", dict(tiles_dimension=128), 12),
+              ("t128_r4_g16", dict(tiles_dimension=128, gate=16), 4),
+              ("t128_r12_g16", dict(tiles_dimension=128, gate=16), 12), ("whole_r12", {}, 12)]
+#: the rate case whose launches and probe give the K8 rows of the JSON line
+RATE_ROW = "t128_r12"
+SEARCH_RUNS = 5  # timed searches per rate case, after a warm-up
+
+
+def _rate_check(name, raw, schedule, ch, qs, gs) -> dict:
+    """K8s and K8p against their plain versions on one raw group at one
+    probe: {kernel: largest absolute difference}, raising unless both are
+    equal."""
+    from ako_tpu_torch.ops import rate_device as rd
+
+    got = rd.rate_serialize(raw, schedule, ch, qs, gs)
+    ref = rd.serialize_plain(raw, schedule, ch, qs, gs)
+    sizes = rd.rate_sizes(raw, schedule, ch, qs, gs)
+    ref_sizes = rd.probe_sizes_plain(raw, schedule, ch, qs, gs)
+    err = {"rate_serialize": _max_err(got, ref), "rate_sizes": _max_err(sizes, ref_sizes)}
+    if not torch.equal(got, ref) or not torch.equal(sizes, ref_sizes):
+        raise AssertionError(f"K8 != plain on {name} {tuple(raw.shape)} q {qs.tolist()} "
+                             f"g {gs.tolist()}: {err}")
+    return err
+
+
+def phase_rate_kernels(P, dev, img) -> dict:
+    """K8s (rate_serialize) and K8p (rate_sizes) against serialize_plain
+    and probe_sizes_plain on the card, bit for bit: the raw pyramids the
+    rate search caches (tools/rate.py _CachedEncoder) of the north star at
+    128-px tiles and on the whole tile (one 5,242,932-value row, 1281 K3
+    chunks), of a ragged image (two shape groups), and of 512x512 crops
+    with 1-4 channels, at every q of RATE_QS, gate 0 and 16, chroma_loss
+    0, 1 and 3; and random full-range raw streams (-32768 among them).
+    Returns each kernel's largest absolute difference (0)."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import tile_qg
+    from ako_tpu_torch.ops.rate_device import probe_qg
+    from ako_tpu_torch.tools.rate import _CachedEncoder
+
+    h = img.shape[0]
+    images = [("north_t128", img, 128), ("whole", img, 0), ("ragged_t128", img[: h - 10], 128)]
+    images += [(f"{c}ch_512_t128", np.ascontiguousarray(img[:512, :512, :c]), 128)
+               for c in (1, 2, 3, 4)]
+    err = dict.fromkeys(RATE_KERNELS, 0)
+    probes = values = 0
+    for name, im, t in images:
+        ch = im.shape[2]
+        groups = set()
+        for gate, chroma in itertools.product((0, 16), (0, 1, 3)):
+            enc = _CachedEncoder(im, P.Settings(tiles_dimension=t, gate=gate, chroma_loss=chroma),
+                                 dev)
+            for q in RATE_QS:
+                s = enc._settings_at(q)
+                for tiles, raw in enc._tile_pyramids(s):
+                    tw, th = tiles[0].w, tiles[0].h
+                    qs, gs = probe_qg(tile_qg(tw, th, ch, q, gate, chroma), ch)
+                    e = _rate_check(f"{name} gate {gate} chroma {chroma}", raw,
+                                    geometry.lift_schedule(tw, th), ch, qs, gs)
+                    err = {k: max(err[k], e[k]) for k in err}
+                    groups.add((tw, th, raw.shape[0]))
+                    probes += 1
+                    values += raw.numel()
+        log(f"  K8 {name}: shape groups {sorted(groups)}, equal at every q, gate and chroma_loss")
+    rng = np.random.default_rng(8)
+    schedule = geometry.lift_schedule(128, 128)
+    raw = _rand16(rng, (3, schedule.coeff_count(4)), dev)
+    for q in RATE_QS:
+        qs, gs = probe_qg(tile_qg(128, 128, 4, q, 16, 3), 4)
+        e = _rate_check("random streams", raw, schedule, 4, qs, gs)
+        err = {k: max(err[k], e[k]) for k in err}
+    torch.cuda.synchronize()
+    log(f"kernels: K8s and K8p equal to plain on {probes} probes of {values} values, and random "
+        "streams")
+    return err
+
+
+@contextlib.contextmanager
+def recorded_probes():
+    """[(q, size)] of every _CachedEncoder.size_at call inside the block."""
+    from ako_tpu_torch.tools import rate
+
+    probes = []
+    size_at = rate._CachedEncoder.size_at
+
+    def recorded(self, q):
+        n = size_at(self, q)
+        probes.append((q, n))
+        return n
+
+    rate._CachedEncoder.size_at = recorded
+    try:
+        yield probes
+    finally:
+        rate._CachedEncoder.size_at = size_at
+
+
+def rate_expected_launches(img, s, probes) -> dict:
+    """Launches of one encode_with_ratio search: the lift once per colour
+    variant and shape group (lift_level before pyramid_start, then
+    lift_pyramid), one K8p per probe and shape group, and at the end one
+    K8s and one K3 per shape group; nothing else."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import checked_settings
+
+    h, w, _ = img.shape
+    groups = len(geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)))
+    variants = len({checked_settings(s.replace(quantization=q)).color for q, _ in probes})
+    lifts = expected_launches(img, {"rate": s}, False, "fused")
+    out = dict.fromkeys(lifts, 0)
+    out.update(lift_level=variants * lifts["lift_level"],
+               lift_pyramid=variants * lifts["lift_pyramid"], rate_sizes=len(probes) * groups,
+               rate_serialize=groups, kagari_encode=groups)
+    return out
+
+
+def phase_rate(P, dev, img, card) -> dict:
+    """tools/rate.encode_with_ratio on the north star (RATE_CASES), each
+    search with the launch counts reset just before and read just after:
+    every probe's size equal to the length of the native codec's blob at
+    its q (runtime/hostcodec.py), the emitted blob byte-equal to the native
+    codec's and to the port's encode at the emitted q, and the launches
+    exact (rate_expected_launches: no lift launch per probe). Prints each
+    probe trajectory, the search's wall ms (median of 5 after a warm-up)
+    against the sum of one-shot encode ms at the same q's, one warm
+    search's device busy share (profiler), and K8p's and K8s's device ms
+    on the cached pyramid at one probe (profiler; plain versions by CUDA
+    events). Returns {"blobs": {case: blob}, "launches": RATE_ROW's counts,
+    "ms": {kernel: (device ms, plain ms)}, "raw": RATE_ROW's raw shape}."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import tile_qg
+    from ako_tpu_torch.ops import rate_device as rd
+    from ako_tpu_torch.tools.rate import _CachedEncoder, encode_with_ratio
+
+    blobs, row_launches = {}, None
+    for name, kw, ratio in RATE_CASES:
+        s = P.Settings(**kw)
+        reset_launches()
+        with recorded_probes() as probes:
+            blob, q = encode_with_ratio(img, s, ratio, device=dev)
+        launches = all_launches()
+        sizes = dict(probes)
+        emit = probes[-1][0] if probes[-1][1] == sizes[q] else q
+        for pq, size in probes:
+            native = len(oracle_encode(img, s.replace(quantization=pq)))
+            if size != native:
+                raise AssertionError(f"rate {name}: size_at({pq}) = {size}, native codec {native}")
+        if blob != oracle_encode(img, s.replace(quantization=emit)):
+            raise AssertionError(f"rate {name}: blob differs from the native codec's at q {emit}")
+        if blob != P.encode(img, s.replace(quantization=emit), device=dev):
+            raise AssertionError(f"rate {name}: blob differs from the port's encode at q {emit}")
+        want = rate_expected_launches(img, s, probes)
+        if launches != want:
+            raise AssertionError(f"rate {name}: launch counts {launches}, expected {want}")
+        blobs[name] = blob
+        if name == RATE_ROW:
+            row_launches = launches
+        log(f"rate {name}: ratio {ratio}, probes (q, bytes) {probes}, chosen q {q}, emitted at q "
+            f"{emit}: {len(blob)} B, every size and the blob equal to the native codec's; "
+            f"launches { {k: v for k, v in launches.items() if v} } (expected)")
+
+        search = _median_ms(lambda: encode_with_ratio(img, s, ratio, device=dev), SEARCH_RUNS)
+        one_shot = sum(_median_ms(lambda: P.encode(img, s.replace(quantization=pq), device=dev))
+                       for pq, _ in probes)
+        r = _profile_until(lambda: encode_with_ratio(img, s, ratio, device=dev))
+        per = {k: round(v, 4) for k, v in sorted(r["per"].items())}
+        log(f"  rate {name}: search {search:.2f} ms (median of {SEARCH_RUNS}), one-shot encode "
+            f"at its {len(probes)} q's {one_shot:.2f} ms in all; one warm search: wall "
+            f"{r['wall']:.3f} ms, "
+            f"device busy {r['busy']:.4f} ms (idle {100 * (1 - r['busy'] / r['wall']):.1f}%), "
+            f"device ms {per} [{card}]")
+
+    # K8p and K8s alone on the cached pyramid at one probe (q 16)
+    ms = {}
+    for name, t in (("north_t128", 128), ("whole", 0)):
+        s = P.Settings(tiles_dimension=t)
+        enc = _CachedEncoder(img, s, dev)
+        ((tiles, raw),) = enc._tile_pyramids(enc._settings_at(16))
+        tw, th, ch = tiles[0].w, tiles[0].h, img.shape[2]
+        schedule = geometry.lift_schedule(tw, th)
+        qs, gs = rd.probe_qg(tile_qg(tw, th, ch, 16, 0, 1), ch)
+        line = []
+        for k, fn, plain in (
+                ("rate_sizes", lambda: rd.rate_sizes(raw, schedule, ch, qs, gs),
+                 lambda: rd.probe_sizes_plain(raw, schedule, ch, qs, gs)),
+                ("rate_serialize", lambda: rd.rate_serialize(raw, schedule, ch, qs, gs),
+                 lambda: rd.serialize_plain(raw, schedule, ch, qs, gs))):
+            kern, events = _launch_ms(fn, k), _event_ms(fn)
+            plain_ms = _event_ms(plain, iters=3)
+            line.append(f"{k} {kern:.4f} ms (profiler, median of 20), {events:.4f} ms "
+                        f"(CUDA events), plain {plain_ms:.4f} ms")
+            if kern != kern:  # no device time in the profile: CUDA events
+                kern = events
+            if name == "north_t128":
+                ms[k] = (round(kern, 4), round(plain_ms, 4))
+        log(f"  K8 alone on the {name} raw pyramid {tuple(raw.shape)} at q 16: " + "; ".join(line)
+            + f" [{card}]")
+    return {"blobs": blobs, "launches": row_launches, "ms": ms}
+
+
+def _read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_cli(P, dev, img, rate_blob) -> None:
+    """The CLIs on the card, each `python -m` in a process of its own:
+    the north star written as a PNG by the port's pngout; akoenc -t 128
+    -q 16 byte-equal to the native codec; akoenc -t 128 -dev-r 12 equal to
+    phase_rate's blob; akodec to a PNG whose pixels equal the native
+    decode's; a truncated .ako exits 1 with an akodec: message."""
+    import tempfile
+
+    from PIL import Image
+
+    from ako_tpu_torch.tools.pngout import write_png
+
+    # a child of this script with TEARDOWN_CUPTI set would hang in its exit
+    env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+
+    def run(tool, *args):
+        res = subprocess.run([sys.executable, "-m", f"ako_tpu_torch.tools.{tool}", *args],
+                             capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+        return res.returncode, res.stdout, res.stderr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png, ako, rate_ako, out_png, cut = (os.path.join(tmp, f) for f in (
+            "north.png", "north.ako", "rate.ako", "decoded.png", "cut.ako"))
+        write_png(png, img)
+        t = time.perf_counter()
+        rc, out, err = run("akoenc", "-i", png, "-o", ako, "-t", "128", "-q", "16")
+        blob = _read(ako) if rc == 0 else b""
+        if rc != 0 or blob != oracle_encode(img, P.Settings(quantization=16, tiles_dimension=128)):
+            raise AssertionError(f"akoenc -q 16: exit {rc}, blob differs from the native codec's\n"
+                                 f"{out}{err}")
+        log(f"cli: akoenc -t 128 -q 16: {out.strip()} (byte-equal to the native codec)")
+        rc, out, err = run("akoenc", "-i", png, "-o", rate_ako, "-t", "128", "-dev-r", "12")
+        if rc != 0 or _read(rate_ako) != rate_blob:
+            raise AssertionError(f"akoenc -dev-r 12: exit {rc}, blob differs from phase_rate's\n"
+                                 f"{out}{err}")
+        log(f"cli: akoenc -t 128 -dev-r 12: {' | '.join(out.strip().splitlines())} (equal to the "
+            "search's blob)")
+        rc, out, err = run("akodec", "-i", ako, "-o", out_png)
+        pix = np.asarray(Image.open(out_png)) if rc == 0 else None
+        if rc != 0 or not np.array_equal(pix, oracle_decode(blob)):
+            raise AssertionError(f"akodec: exit {rc}, pixels differ from the native decode's\n"
+                                 f"{out}{err}")
+        log(f"cli: akodec: {out.strip()} (pixels equal to the native decode's)")
+        with open(cut, "wb") as f:
+            f.write(blob[: len(blob) // 2])
+        rc, out, err = run("akodec", "-i", cut, "-o", out_png)
+        if rc != 1 or not err.startswith("akodec: "):
+            raise AssertionError(f"akodec on a truncated blob: exit {rc}, stderr {err!r}")
+        log(f"cli: akodec on a truncated blob: exit 1, {err.strip()!r}; four processes in "
+            f"{time.perf_counter() - t:.1f} s")
+
+
+def rate_bounds_ms(raw_shape) -> dict:
+    """Least time of K8p and K8s at one probe on a (T, n) raw pyramid:
+    {kernel: (ms, "bytes" or "operations")}, the larger of the bytes over
+    the card's memory rate (K8p: the raw streams read once and one int64 a
+    row; K8s: the raw streams read once and the streams written once) and
+    the integer operations over the 32-bit scalar rate."""
+    rows, n = raw_shape
+    b = {"rate_sizes": 2 * rows * n + 8 * rows, "rate_serialize": 4 * rows * n}
+    ops = {"rate_sizes": rows * n * K8P_OPS, "rate_serialize": rows * n * K8S_OPS}
+    out = {}
+    for k in b:
+        by_bytes, by_ops = b[k] / HBM_BYTES_PER_S * 1e3, ops[k] / SCALAR_OPS_PER_S * 1e3
+        out[k] = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2589,6 +2907,7 @@ def main() -> int:
     err["kagari_encode"] = phase_k3(P, dev, img)
     err["kagari_decode"] = phase_k4(dev, oracle["north_t128"][0])
     err.update(phase_k6(P, dev, img))
+    err.update(phase_rate_kernels(P, dev, img))
     phase_goldens(P, dev)
     launches = phase_north_star(P, dev, img, oracle)
     device_ms = phase_profile(P, dev, img, card)
@@ -2599,6 +2918,8 @@ def main() -> int:
     times.update(k6)
     phase_streams(P, dev, img, card)
     phase_executor(P, dev, card)
+    rate = phase_rate(P, dev, img, card)
+    phase_cli(P, dev, img, rate["blobs"][RATE_ROW])
     bound = bounds_ms(img, oracle["north_t128"][0], oracle["north_t128_manba"][0])
     floor = launch_floor_ms(dev)
     split_launches = expected_launches(img, {"north_t128": north_star_settings(P)["north_t128"]},
@@ -2638,6 +2959,29 @@ def main() -> int:
         # K1v/K2v: an image's launches, each at least an empty kernel's time
         if row["name"] in ("vlift", "vunlift"):
             row["launch_floor_ms"] = round(split_launches[row["name"]] * floor, 5)
+    # K8: the launches of RATE_ROW's search, the kernels alone at one of
+    # its probes on the north star's 128-px raw pyramid
+    from ako_tpu_torch.core import geometry
+
+    raw_shape = (len(geometry.tile_grid(img.shape[1], img.shape[0], 128)),
+                 geometry.lift_schedule(128, 128).coeff_count(img.shape[2]))
+    rate_bound = rate_bounds_ms(raw_shape)
+    kernels += [
+        {
+            "name": k,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": rate["launches"][k],
+            "max_abs_err": err[k],
+            "ms": rate["ms"][k][0],
+            "plain_ms": rate["ms"][k][1],
+            "bound_ms": round(rate_bound[k][0], 5),
+            "bound_by": rate_bound[k][1],
+            "library_ms": None,
+        }
+        for k, (source, replaces) in RATE_KERNELS.items()
+    ]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
