@@ -118,15 +118,17 @@ __device__ __forceinline__ int line_sample(int s, int len, bool rep) {
 }
 
 // One axis of a CTA's window: of a line of len samples (n pairs), the
-// region's pairs [r0, r1) and the window's pairs [lo, hi), the region and
-// its halo, clipped to the line or, for REPEAT, taken modulo n.
+// region's pairs [r0, r1), the idx-th run of `region` pairs from pair p0
+// cut at p1 (the whole line: 0 and n; lift_level.cu's row windows: a
+// shard's pairs), and the window's pairs [lo, hi), the region and its
+// halo, clipped to the line or, for REPEAT, taken modulo n.
 struct Axis {
     int len, n, r0, r1, lo, hi;
     bool rep;
-    __device__ Axis(int len_, int region, int idx, int halo_, bool rep_)
+    __device__ Axis(int len_, int region, int idx, int halo_, bool rep_, int p0, int p1)
         : len(len_), n((len_ + 1) / 2), rep(rep_) {
-        r0 = idx * region;
-        r1 = min(r0 + region, n);
+        r0 = p0 + idx * region;
+        r1 = min(r0 + region, p1);
         lo = rep ? r0 - halo_ : max(r0 - halo_, 0);
         hi = rep ? r1 + halo_ : min(r1 + halo_, n);
     }

@@ -66,6 +66,38 @@
 //   pixels after the inverse colour transform) is stored coalesced along
 //   rows.
 // Element offsets into the planes and streams are 64-bit.
+//
+// K7, the row-sharded lift level of ako_tpu/parallel/halo.py (the body of
+// forward_tile_sharded, halo.py:349, and of inverse_tile_sharded, :436:
+// XLA shard_map programs whose V pass takes its boundary rows from the
+// neighbouring shards by lax.ppermute, ops/wavelets.py:57-176, with
+// crafted pads and boundary fixes for ragged levels), is the same body
+// launched on one shard's rows (lift_level_rows / unlift_level_rows, the
+// ROWS instances):
+// - The row axis keeps the whole level's global pair indices (len = the
+//   level's height, n = its pairs), so the EDGE steps run at the line's
+//   true ends and REPEAT's halo is taken modulo n, as on the whole plane;
+//   the region grid covers only the shard's pairs [p0, p1).
+// - The source is not the plane but the shard's window, a separate buffer
+//   that ako_tpu_torch/parallel/halo.py copies out of whichever shards own
+//   the rows: every channel's rows of pairs [win_lo, win_lo + win_n), two
+//   rows a pair (the fake odd row of an odd height stored as its even
+//   one), clipped to the line or taken modulo n as a CTA's window is. A
+//   CTA's window slot j is the buffer's row 2 (lo - win_lo) + j. The halo
+//   that lift_level already loads (3 / 1 / 0 pairs) covers every tap of
+//   the shard's outputs, so the window's own ends are never read by them;
+//   no pad and no boundary fix.
+// - Forward: the input is int16 planes after colour (no u8 staging). LL
+//   rows [p0, p1) go to the shard's (C, p1 - p0, tw) LL buffer, and the
+//   q heads and gated, quantized C, B, D to a buffer in stream layout of
+//   the shard's rows alone (per channel [q][C][B][D], p1 - p0 rows each;
+//   halo.py's gather copies them to their wire offsets).
+// - Inverse: the LL window (C, win_n, tw) and the chunk window in that
+//   stream layout (C, 1 + 3 win_n tw, each channel's q head first) are
+//   dequantized as they load; the output is the plane's rows
+//   [2 p0, min(2 p1, h)), (C, rows, w) int16.
+// Bound: bytes, as lift_level (a shard's window read once, its outputs
+// written once); the launches run on each shard's own stream.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -100,6 +132,13 @@ struct LevelArgs {
     int plane;
     int stage;
     int smem;
+    // the row-window launches (K7) alone: the shard's pairs [p0, p1) of
+    // the level's rows, and its window buffer's first pair and pairs per
+    // channel; the whole-plane launches read none of them
+    int p0;
+    int p1;
+    int win_lo;
+    int win_n;
 };
 
 namespace {
@@ -162,25 +201,32 @@ __device__ void step_cols(int16_t* p, int C, int plane, int pitch, int first, in
 }
 
 // The CTA's tile t, its region's index in the tile (row-major over the
-// regions) and its two axes.
+// regions) and its two axes; the rows' regions cover pairs [p0, p1).
 template <int WAV>
 struct Region {
     int t, idx;
     Axis y, x;
-    __device__ Region(const LevelArgs& a, int nx, int ny)
+    __device__ Region(const LevelArgs& a, int p0, int p1, int nx, int ny)
         : t(blockIdx.x / (nx * ny)),
           idx(blockIdx.x - t * nx * ny),
-          y(a.height, a.rh, idx / nx, halo(WAV), a.wrap == REPEAT),
-          x(a.width, a.rw, idx % nx, halo(WAV), a.wrap == REPEAT) {}
-    __device__ explicit Region(const LevelArgs& a)
-        : Region(a, ((a.width + 1) / 2 + a.rw - 1) / a.rw, ((a.height + 1) / 2 + a.rh - 1) / a.rh) {}
+          y(a.height, a.rh, idx / nx, halo(WAV), a.wrap == REPEAT, p0, p1),
+          x(a.width, a.rw, idx % nx, halo(WAV), a.wrap == REPEAT, 0, (a.width + 1) / 2) {}
+    __device__ Region(const LevelArgs& a, int p0, int p1)
+        : Region(a, p0, p1, ((a.width + 1) / 2 + a.rw - 1) / a.rw, (p1 - p0 + a.rh - 1) / a.rh) {}
 };
 
-template <int WAV>
-__global__ void __launch_bounds__(kThreads)
-    lift_level(const LevelArgs a, const void* __restrict__ src, int16_t* stream, int16_t* ll) {
+// The pairs of the level's rows a launch makes: the whole plane's, or
+// (ROWS) the shard's.
+template <bool ROWS>
+__device__ __forceinline__ int first_pair(const LevelArgs& a) { return ROWS ? a.p0 : 0; }
+template <bool ROWS>
+__device__ __forceinline__ int end_pair(const LevelArgs& a) { return ROWS ? a.p1 : (a.height + 1) / 2; }
+
+template <int WAV, bool ROWS>
+__device__ __forceinline__ void lift_body(const LevelArgs& a, const void* __restrict__ src,
+                                          int16_t* stream, int16_t* ll) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Region<WAV> g(a);
+    const Region<WAV> g(a, first_pair<ROWS>(a), end_pair<ROWS>(a));
     const Axis &y = g.y, &x = g.x;
     const int C = a.channels, h = a.height, w = a.width, pitch = a.pitch, plane = a.plane;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -191,10 +237,10 @@ __global__ void __launch_bounds__(kThreads)
     // the int16 planes' rows are 16-byte aligned: the window starts sh
     // samples into its row, so that sample s lands at column s - 2 lo + sh,
     // equal to s modulo 8 (pitch and plane are multiples of 8 samples)
-    const bool vec16 = !a.u8 && (((uintptr_t)src & 15) | (w & 7)) == 0;
+    const bool vec16 = (ROWS || !a.u8) && (((uintptr_t)src & 15) | (w & 7)) == 0;
     int16_t* p = reinterpret_cast<int16_t*>(smem) + (vec16 ? (2 * x.lo) & 7 : 0);
 
-    if (a.u8) {
+    if (!ROWS && a.u8) {
         // the bytes [b0, b1) of each window row, its samples [s0, s1),
         // staged per warp (two rows, one in flight while the other is
         // converted) with 16-byte cp.async copies when the tiles' rows are
@@ -252,13 +298,17 @@ __global__ void __launch_bounds__(kThreads)
         // with aligned rows, the 8-sample chunks that cover [s0, s1) by
         // cp.async (w is a multiple of 8, so the chunks end inside the
         // row) and the window's columns outside them, [0, i0) and [i1, wc),
-        // one sample at a time; else every column one sample at a time
-        const int16_t* planes = static_cast<const int16_t*>(src) + (size_t)g.t * C * h * w;
+        // one sample at a time; else every column one sample at a time.
+        // ROWS: window slot j is row 2 (lo - win_lo) + j of the shard's
+        // window buffer, 2 win_n rows a channel
+        const int src_rows = ROWS ? 2 * a.win_n : h;
+        const int16_t* planes = static_cast<const int16_t*>(src) + (size_t)g.t * C * src_rows * w;
         const int a0 = s0 & ~7, nv = vec16 ? (s1 - a0 + 7) >> 3 : 0;
         const int i0 = vec16 ? s0 - 2 * x.lo : wc, i1 = vec16 ? s1 - 2 * x.lo : wc;
         for (int l = warp; l < C * wr; l += kWarps) {
             const int ch = l / wr, j = l - ch * wr;
-            const int16_t* row = planes + ((size_t)ch * h + y.sample(j)) * w;
+            const int sr = ROWS ? 2 * (y.lo - a.win_lo) + j : y.sample(j);
+            const int16_t* row = planes + ((size_t)ch * src_rows + sr) * w;
             int16_t* dst = p + ch * plane + j * pitch;
             for (int v = lane; v < nv; v += 32)
                 cp_async16(dst + a0 - 2 * x.lo + 8 * v, row + a0 + 8 * v);
@@ -281,8 +331,10 @@ __global__ void __launch_bounds__(kThreads)
     step_cols<WAV, UPDATE>(p, C, plane, pitch, c0, nc, y, y.r0, y.r1, a.wrap);
 
     // LL at the even (row, column) slots, C at the odd rows, B at the odd
-    // columns, D at both -> the LL planes and [q head][C][B][D]
-    const int th = y.n, tw = x.n, n = th * tw, nr = y.r1 - y.r0;
+    // columns, D at both -> the LL planes and [q head][C][B][D] of the
+    // launch's rows [o0, o0 + rows): the whole plane's, or the shard's
+    const int o0 = first_pair<ROWS>(a), rows = end_pair<ROWS>(a) - o0;
+    const int tw = x.n, n = rows * tw, nr = y.r1 - y.r0;
     int16_t* chunks = stream + (size_t)g.t * a.coeffs + a.off;
     if (g.idx == 0 && (int)threadIdx.x < C)
         chunks[threadIdx.x * (1 + 3 * n)] = (int16_t)a.q[threadIdx.x];
@@ -296,8 +348,8 @@ __global__ void __launch_bounds__(kThreads)
             div = Divider(max(a.q[ch], 1));
         }
         auto quant = [&](int v) -> int16_t { return (int16_t)((v < -gate || v > gate) ? div(v) : 0); };
-        int16_t* dst = chunks + ch * (1 + 3 * n) + 1 + (size_t)r * tw;
-        int16_t* out = ll + (size_t)g.t * a.ll_stride + ((size_t)ch * th + r) * tw;
+        int16_t* dst = chunks + ch * (1 + 3 * n) + 1 + (size_t)(r - o0) * tw;
+        int16_t* out = ll + (size_t)g.t * a.ll_stride + ((size_t)ch * rows + r - o0) * tw;
         const int16_t* e = p + ch * plane + 2 * (r - y.lo) * pitch - 2 * x.lo;
         for (int c = x.r0 + lane; c < x.r1; c += 32) {
             const int16_t* s = e + 2 * c;
@@ -309,16 +361,18 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-template <int WAV>
-__global__ void __launch_bounds__(kThreads)
-    unlift_level(const LevelArgs a, const int16_t* ll, const int16_t* stream, void* __restrict__ dst) {
+template <int WAV, bool ROWS>
+__device__ __forceinline__ void unlift_body(const LevelArgs& a, const int16_t* ll,
+                                            const int16_t* stream, void* __restrict__ dst) {
     extern __shared__ __align__(16) unsigned char smem[];
     int16_t* p = reinterpret_cast<int16_t*>(smem);
-    const Region<WAV> g(a);
+    const Region<WAV> g(a, first_pair<ROWS>(a), end_pair<ROWS>(a));
     const Axis &y = g.y, &x = g.x;
     const int C = a.channels, h = a.height, w = a.width, pitch = a.pitch, plane = a.plane;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int th = y.n, tw = x.n, n = th * tw;
+    // pairs a channel of the LL and chunk buffers holds: the plane's, or
+    // (ROWS) the window's, whose first is pair win_lo
+    const int src_pairs = ROWS ? a.win_n : y.n, tw = x.n, n = src_pairs * tw;
     const int npr = y.hi - y.lo, npc = x.hi - x.lo;
 
     // the window's pairs: LL at the even (row, column) slots, C, B, D
@@ -328,11 +382,11 @@ __global__ void __launch_bounds__(kThreads)
     // memory cannot do
     const int16_t* chunks = stream + (size_t)g.t * a.coeffs + a.off;
     for (int l = warp; l < C * npr; l += kWarps) {
-        const int ch = l / npr, i = l - ch * npr, gr = y.pair(i);
+        const int ch = l / npr, i = l - ch * npr, gr = ROWS ? y.lo + i - a.win_lo : y.pair(i);
         const int16_t* chunk = chunks + ch * (1 + 3 * n);
         const int q = chunk[0];
         auto dq = [&](int v) -> int16_t { return (int16_t)(q > 1 ? v * q : v); };
-        const int16_t* lrow = ll + (size_t)g.t * a.ll_stride + ((size_t)ch * th + gr) * tw;
+        const int16_t* lrow = ll + (size_t)g.t * a.ll_stride + ((size_t)ch * src_pairs + gr) * tw;
         const int16_t* crow = chunk + 1 + (size_t)gr * tw;
         int16_t* e = p + ch * plane + 2 * i * pitch;
         for (int j = lane; j < npc; j += 32) {
@@ -357,11 +411,14 @@ __global__ void __launch_bounds__(kThreads)
     step_rows<WAV, UNDO_PREDICT>(p, C, plane, pitch, first, nrows, x, x.r0, x.r1, a.wrap);
 
     const int16_t* win = p + (first - row0) * pitch - 2 * x.lo;  // sample (r, c) at win[r * pitch + c]
-    if (!a.u8) {
-        int16_t* out = static_cast<int16_t*>(dst) + (size_t)g.t * C * h * w;
+    if (ROWS || !a.u8) {
+        // the plane's rows [o0, o0 + rows): all of them, or (ROWS) the
+        // shard's [2 p0, min(2 p1, h))
+        const int o0 = 2 * first_pair<ROWS>(a), rows = min(2 * end_pair<ROWS>(a), h) - o0;
+        int16_t* out = static_cast<int16_t*>(dst) + (size_t)g.t * C * rows * w;
         for (int l = warp; l < C * nrows; l += kWarps) {
             const int ch = l / nrows, r = row0 + l - ch * nrows;
-            int16_t* orow = out + ((size_t)ch * h + r) * w;
+            int16_t* orow = out + ((size_t)ch * rows + r - o0) * w;
             const int16_t* srow = win + ch * plane + r * pitch;
             for (int c = col0 + lane; c < col1; c += 32) orow[c] = srow[c];
         }
@@ -385,18 +442,60 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// The whole-plane kernels (lift_level / unlift_level) and K7's row-window
+// ones (lift_level_rows / unlift_level_rows): one body each way, the
+// window a compile-time choice, so the whole-plane kernels read none of
+// its fields.
+template <int WAV>
+__global__ void __launch_bounds__(kThreads)
+    lift_level(const LevelArgs a, const void* __restrict__ src, int16_t* stream, int16_t* ll) {
+    lift_body<WAV, false>(a, src, stream, ll);
+}
+
+template <int WAV>
+__global__ void __launch_bounds__(kThreads)
+    lift_level_rows(const LevelArgs a, const void* __restrict__ src, int16_t* stream, int16_t* ll) {
+    lift_body<WAV, true>(a, src, stream, ll);
+}
+
+template <int WAV>
+__global__ void __launch_bounds__(kThreads)
+    unlift_level(const LevelArgs a, const int16_t* ll, const int16_t* stream, void* __restrict__ dst) {
+    unlift_body<WAV, false>(a, ll, stream, dst);
+}
+
+template <int WAV>
+__global__ void __launch_bounds__(kThreads)
+    unlift_level_rows(const LevelArgs a, const int16_t* ll, const int16_t* stream,
+                      void* __restrict__ dst) {
+    unlift_body<WAV, true>(a, ll, stream, dst);
+}
+
 // The grid (one CTA per tile and region), or -1 for arguments beyond the
 // kernel's limits. The shared-memory layout is the caller's (level_layout);
 // this checks only that its buffers lie in the bytes the launch asks for,
-// aligned for the 16-byte copies, and that those fit a block.
-long long level_grid(const LevelArgs& a, int tiles, bool stage) {
+// aligned for the 16-byte copies, and that those fit a block. A row-window
+// launch (`rows`) takes int16 planes, and its window must hold its pairs
+// and their halo, clipped to the line or, for REPEAT, unclipped.
+long long level_grid(const LevelArgs& a, int tiles, bool stage, bool rows) {
     if (a.channels < 1 || a.channels > kLevelChannels || a.height < 1 || a.width < 1 ||
         a.rh < 1 || a.rw < 1 || a.pitch < 1 || tiles < 1 || a.wavelet < DD137 || a.wavelet > HAAR)
         return -1;
     const long long used = 2LL * a.channels * a.plane + (stage ? 2LL * kWarps * a.stage : 0);
     if ((a.pitch | a.plane) % 8 || (stage && a.stage % 16) || used > a.smem || a.smem > kMaxSmem)
         return -1;
-    const long long grid = (long long)tiles * (((a.height + 1) / 2 + a.rh - 1) / a.rh) *
+    const int n = (a.height + 1) / 2;
+    int p0 = 0, p1 = n;
+    if (rows) {
+        const int hl = halo(a.wavelet), rep = a.wrap == REPEAT;
+        const int lo = rep ? a.p0 - hl : (a.p0 - hl > 0 ? a.p0 - hl : 0);
+        const int hi = rep ? a.p1 + hl : (a.p1 + hl < n ? a.p1 + hl : n);
+        if (a.u8 || a.p0 < 0 || a.p1 > n || a.p0 >= a.p1 || a.win_lo > lo || a.win_lo + a.win_n < hi)
+            return -1;
+        p0 = a.p0;
+        p1 = a.p1;
+    }
+    const long long grid = (long long)tiles * ((p1 - p0 + a.rh - 1) / a.rh) *
                            (((a.width + 1) / 2 + a.rw - 1) / a.rw);
     return grid > INT_MAX ? -1 : grid;
 }
@@ -421,13 +520,13 @@ int launch(void (*kernel)(P...), long long grid, int smem, cudaStream_t s, A... 
 // the LL planes to ll (tile t's (channels, th, tw) at t * ll_stride).
 // Inverse: the LL planes at ll (same layout) and the stream -> dst, the
 // (tiles, height, width, channels) u8 tiles when args->u8, else the
-// (tiles, channels, height, width) int16 planes. Both return
+// (tiles, channels, height, width) int16 planes. All four return
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // arguments beyond the limits), run on `stream` and do not synchronise.
 extern "C" int ako_lift_level(const LevelArgs* args, const void* src, int16_t* out, int16_t* ll,
                               int tiles, void* stream) {
     const LevelArgs& a = *args;
-    const long long grid = level_grid(a, tiles, a.u8);
+    const long long grid = level_grid(a, tiles, a.u8, false);
     if (grid < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (a.wavelet) {
@@ -440,12 +539,45 @@ extern "C" int ako_lift_level(const LevelArgs* args, const void* src, int16_t* o
 extern "C" int ako_unlift_level(const LevelArgs* args, const int16_t* ll, const int16_t* coeffs,
                                 void* dst, int tiles, void* stream) {
     const LevelArgs& a = *args;
-    const long long grid = level_grid(a, tiles, false);
+    const long long grid = level_grid(a, tiles, false, false);
     if (grid < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (a.wavelet) {
         case DD137: return launch(unlift_level<DD137>, grid, a.smem, s, a, ll, coeffs, dst);
         case CDF53: return launch(unlift_level<CDF53>, grid, a.smem, s, a, ll, coeffs, dst);
         default: return launch(unlift_level<HAAR>, grid, a.smem, s, a, ll, coeffs, dst);
+    }
+}
+
+// K7, one shard's launch (one tile). Forward: win is the shard's (channels,
+// 2 win_n, width) int16 window; the launch writes the q heads and C, B, D
+// of its pairs [p0, p1) to out, (channels, 1 + 3 (p1 - p0) tw) int16 in
+// stream layout, and their LL to ll, (channels, p1 - p0, tw). Inverse: the
+// (channels, win_n, tw) LL window at ll and the (channels, 1 + 3 win_n tw)
+// chunk window at coeffs -> dst, the plane's rows [2 p0, min(2 p1,
+// height)), (channels, rows, width) int16.
+extern "C" int ako_lift_level_rows(const LevelArgs* args, const int16_t* win, int16_t* out,
+                                   int16_t* ll, void* stream) {
+    const LevelArgs& a = *args;
+    const long long grid = level_grid(a, 1, false, true);
+    if (grid < 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (a.wavelet) {
+        case DD137: return launch(lift_level_rows<DD137>, grid, a.smem, s, a, win, out, ll);
+        case CDF53: return launch(lift_level_rows<CDF53>, grid, a.smem, s, a, win, out, ll);
+        default: return launch(lift_level_rows<HAAR>, grid, a.smem, s, a, win, out, ll);
+    }
+}
+
+extern "C" int ako_unlift_level_rows(const LevelArgs* args, const int16_t* ll,
+                                     const int16_t* coeffs, int16_t* dst, void* stream) {
+    const LevelArgs& a = *args;
+    const long long grid = level_grid(a, 1, false, true);
+    if (grid < 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (a.wavelet) {
+        case DD137: return launch(unlift_level_rows<DD137>, grid, a.smem, s, a, ll, coeffs, dst);
+        case CDF53: return launch(unlift_level_rows<CDF53>, grid, a.smem, s, a, ll, coeffs, dst);
+        default: return launch(unlift_level_rows<HAAR>, grid, a.smem, s, a, ll, coeffs, dst);
     }
 }

@@ -14,6 +14,11 @@ ako_tpu/ops/pallas_lift.py, with their plain torch versions.
   order fused (forward), or the dequantize and at level 0 the inverse
   colour transform fused (inverse). The fused wiring runs them on the
   levels before `pyramid_start`, and on every level when it is None.
+- One shard's rows of a level (K7, the row-sharded lift of
+  parallel/halo.py): `lift_level_rows` / `unlift_level_rows`, one launch
+  of lift_level.cu's row-window instances on the shard's window of rows,
+  quantize/gate and the shard's rows of the wire order fused (forward),
+  or the dequantize (inverse).
 - One 2-D level per call, in the two wirings of pallas_lift.py: "fused",
   one K1 (K2) call per level, csrc/lift2d.cu ako_lift2d / ako_unlift2d
   (`lift2d_level` / `unlift2d_level`, the per-level API that
@@ -43,7 +48,7 @@ import os
 
 import torch
 
-from ako_tpu_torch.core.geometry import LiftSchedule
+from ako_tpu_torch.core.geometry import LiftLevel, LiftSchedule
 from ako_tpu_torch.core.settings import Color, Wavelet, Wrap
 from ako_tpu_torch.ops import wavelets
 from ako_tpu_torch.ops.colorspace import to_interleaved_u8, to_planar_yuv
@@ -53,7 +58,7 @@ from ako_tpu_torch.runtime import kernels
 #: kernel launches per wrapper (one per call that reaches the card)
 LAUNCHES = {
     "lift2d": 0, "unlift2d": 0, "vlift": 0, "vunlift": 0, "lift_pyramid": 0, "unlift_pyramid": 0,
-    "lift_level": 0, "unlift_level": 0,
+    "lift_level": 0, "unlift_level": 0, "lift_level_rows": 0, "unlift_level_rows": 0,
 }
 
 #: shared memory a pyramid block may take: at most 64 KB keeps three
@@ -732,3 +737,163 @@ def inverse_levels(ll, coeffs, schedule: LiftSchedule, levels: range, wavelet: W
     for k in reversed(levels):
         ll = unlift_level(ll, coeffs, schedule, k, wavelet, wrap, channels, color)
     return ll
+
+
+# ---------------------------------------------------------------------
+# One shard's rows of a level (K7)
+
+
+def row_window(n: int, pairs: tuple, wavelet_eff: Wavelet, wrap: Wrap) -> tuple:
+    """(win_lo, win_n): the pairs of the window of a shard that owns the
+    pairs [p0, p1) of a level of n pairs: its pairs and LEVEL_HALO on each
+    side, clipped to the line, or for REPEAT unclipped (pair p of the
+    window is the line's p modulo n). Every tap of the shard's outputs
+    lies in it."""
+    p0, p1 = pairs
+    hl = LEVEL_HALO[Wavelet(wavelet_eff)]
+    if wrap == Wrap.REPEAT:
+        return p0 - hl, p1 - p0 + 2 * hl
+    lo = max(p0 - hl, 0)
+    return lo, min(p1 + hl, n) - lo
+
+
+def _check_rows(schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int, win_n: int,
+                wavelet: Wavelet, wrap: Wrap, name: str) -> None:
+    lvl = schedule.levels[k]
+    p0, p1 = pairs
+    lo, wn = row_window(lvl.target_h, pairs,
+                        wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h), wrap)
+    if not 0 <= p0 < p1 <= lvl.target_h or win_lo > lo or win_lo + win_n < lo + wn:
+        raise ValueError(f"{name}: pairs {pairs} of {lvl.target_h} with a window of pairs "
+                         f"[{win_lo}, {win_lo + win_n}), which must hold [{lo}, {lo + wn})")
+
+
+@functools.lru_cache(maxsize=1024)
+def _rows_args(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet, wrap: Wrap, qg,
+               pairs: tuple, win_lo: int, win_n: int, region: tuple):
+    """The kernels' LevelArgs for one shard's launch on level k: the
+    shard's pairs and window, its outputs' layouts (stream layout of its
+    rows alone, off 0) and q/g (None for the inverse)."""
+    base = _level_args(schedule, k, channels, wavelet, wrap, None, Color.NONE, False, 0, region)
+    a = kernels.LevelArgs.from_buffer_copy(base)
+    rows = pairs[1] - pairs[0]
+    tw = schedule.levels[k].target_w
+    a.u8, a.coeffs, a.off, a.ll_stride = 0, channels * (1 + 3 * rows * tw), 0, channels * rows * tw
+    a.p0, a.p1, a.win_lo, a.win_n = pairs[0], pairs[1], win_lo, win_n
+    if qg is not None:
+        qs, gs = qg[k]
+        a.q[:channels] = qs
+        a.g[:channels] = gs
+    return a
+
+
+def _window_level(lvl, win_n: int) -> LiftLevel:
+    """A window of win_n pairs of lvl's rows as a level of its own (even)
+    height."""
+    return LiftLevel(lvl.current_w, 2 * win_n, lvl.target_w, win_n)
+
+
+def lift_level_rows_plain(win, schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int,
+                          wavelet: Wavelet, wrap: Wrap, qg):
+    """The plain torch version of lift_level_rows, on any device: the
+    pairs of row_window cut from the window and lifted as a level of
+    their own height (wavelets.lift2d, the level's effective wavelet),
+    gated and quantized, the shard's pairs kept. Exact: no tap of those
+    pairs reaches the cut's own ends where they are not the line's."""
+    lvl = schedule.levels[k]
+    C = win.shape[0]
+    weff = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+    # the window's end lies at the line's end where it is clipped there,
+    # so the wrap rules of the lift apply where they do on the line
+    lo, win_n = row_window(lvl.target_h, pairs, weff, wrap)
+    win = win[:, 2 * (lo - win_lo) : 2 * (lo - win_lo + win_n)]
+    ll, b, c, d = wavelets.lift2d(weff, wrap, win, _window_level(lvl, win_n))
+    keep = slice(pairs[0] - lo, pairs[1] - lo)
+    qs, gs = qg[k]
+    q = torch.tensor(qs, dtype=torch.int32, device=win.device).view(C, 1, 1)
+    g = torch.tensor(gs, dtype=torch.int32, device=win.device).view(C, 1, 1)
+    parts = [i16(q.view(C, 1))] + [_quantize_gate(x[:, keep], q, g).reshape(C, -1)
+                                   for x in (c, b, d)]
+    return ll[:, keep].contiguous(), torch.cat(parts, dim=1).reshape(-1)
+
+
+def unlift_level_rows_plain(ll, chunk, schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int,
+                            wavelet: Wavelet, wrap: Wrap):
+    """The plain torch version of unlift_level_rows, on any device: the
+    pairs of row_window cut from the windows, C, B, D dequantized by
+    their q heads, unlifted as a level of their own height
+    (wavelets.unlift2d), the shard's rows kept."""
+    lvl = schedule.levels[k]
+    C, n_in, tw = ll.shape
+    weff = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+    lo, win_n = row_window(lvl.target_h, pairs, weff, wrap)
+    keep = slice(lo - win_lo, lo - win_lo + win_n)
+    quads = chunk.view(C, 1 + 3 * n_in * tw)
+    q = i32(quads[:, :1]).view(C, 1, 1, 1)
+    cbd = quads[:, 1:].reshape(C, 3, n_in, tw)[:, :, keep]
+    cbd = torch.where(q > 1, i16(i32(cbd) * q), cbd)
+    out = wavelets.unlift2d(weff, wrap, ll[:, keep], cbd[:, 1], cbd[:, 0], cbd[:, 2],
+                            _window_level(lvl, win_n))
+    r0 = 2 * (pairs[0] - lo)
+    return out[:, r0 : r0 + min(2 * pairs[1], lvl.current_h) - 2 * pairs[0]].contiguous()
+
+
+def lift_level_rows(win, schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int,
+                    wavelet: Wavelet, wrap: Wrap, qg):
+    """K7 forward: one shard's pairs [p0, p1) of level k. win is the
+    shard's (C, 2 win_n, current_w) int16 window, the level's rows of
+    pairs [win_lo, win_lo + win_n), two rows a pair (an odd height's fake
+    odd row stored as its even one), taken modulo the level's pairs for
+    REPEAT; it must hold row_window's pairs. Returns (ll, out): the
+    shard's (C, p1 - p0, target_w) LL, and its q heads and gated,
+    quantized C, B, D in stream layout of its rows, (C * (1 + 3 (p1 - p0)
+    target_w),) int16. One lift_level_rows launch, its CTAs' region the
+    whole level's (level_region for one tile)."""
+    lvl = schedule.levels[k]
+    C, win_n = win.shape[0], win.shape[1] // 2
+    _check_rows(schedule, k, pairs, win_lo, win_n, wavelet, wrap, "lift_level_rows")
+    if not _on_card(win, "lift_level_rows"):
+        return lift_level_rows_plain(win, schedule, k, pairs, win_lo, wavelet, wrap, qg)
+    _check(win, (2 * win_n, lvl.current_w), "lift_level_rows")
+    if win.dim() != 3 or win.shape[1] % 2:
+        raise ValueError(f"lift_level_rows: expected (C, 2 win_n, w) rows, got {tuple(win.shape)}")
+    rows, tw = pairs[1] - pairs[0], lvl.target_w
+    ll = win.new_empty((C, rows, tw))
+    out = win.new_empty((C * (1 + 3 * rows * tw),))
+    args = _rows_args(schedule, k, C, wavelet, wrap, tuple(qg), tuple(pairs), win_lo, win_n,
+                      level_region(schedule, k, C, wavelet, 1, sm_count(win.device)))
+    with torch.cuda.device(win.device):
+        kernels.lift_level_rows(args, win.data_ptr(), out.data_ptr(), ll.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+    kernels.count_launch(LAUNCHES, "lift_level_rows")
+    return ll, out
+
+
+def unlift_level_rows(ll, chunk, schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int,
+                      wavelet: Wavelet, wrap: Wrap):
+    """K7 inverse: one shard's rows of level k's plane. ll is the shard's
+    (C, win_n, target_w) int16 LL window and chunk its (C * (1 + 3 win_n
+    target_w),) chunk window in stream layout (each channel's q head, then
+    its C, B, D rows), both of pairs [win_lo, win_lo + win_n) as
+    lift_level_rows's window. Returns the plane's rows [2 p0, min(2 p1,
+    current_h)), (C, rows, current_w) int16. One unlift_level_rows
+    launch."""
+    lvl = schedule.levels[k]
+    C, win_n, tw = ll.shape
+    _check_rows(schedule, k, pairs, win_lo, win_n, wavelet, wrap, "unlift_level_rows")
+    if not _on_card(ll, "unlift_level_rows"):
+        return unlift_level_rows_plain(ll, chunk, schedule, k, pairs, win_lo, wavelet, wrap)
+    _check(ll, (win_n, lvl.target_w), "unlift_level_rows ll")
+    if (chunk.dtype != torch.int16 or tuple(chunk.shape) != (C * (1 + 3 * win_n * tw),)
+            or not chunk.is_contiguous() or chunk.device != ll.device):
+        raise ValueError(f"unlift_level_rows: expected a contiguous int16 chunk window of "
+                         f"{C * (1 + 3 * win_n * tw)} on {ll.device}, got {chunk.dtype} "
+                         f"{tuple(chunk.shape)} on {chunk.device}")
+    out = ll.new_empty((C, min(2 * pairs[1], lvl.current_h) - 2 * pairs[0], lvl.current_w))
+    args = _rows_args(schedule, k, C, wavelet, wrap, None, tuple(pairs), win_lo, win_n,
+                      level_region(schedule, k, C, wavelet, 1, sm_count(ll.device)))
+    with torch.cuda.device(ll.device):
+        kernels.unlift_level_rows(args, ll.data_ptr(), chunk.data_ptr(), out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    kernels.count_launch(LAUNCHES, "unlift_level_rows")
+    return out

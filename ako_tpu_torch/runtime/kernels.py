@@ -2,7 +2,8 @@
 kernels of the per-level API (csrc/lift2d.cu), the split wiring's V-only
 lifts along either axis (csrc/vlift.cu), the whole-pyramid lift kernels
 (csrc/lift_pyramid.cu), the one-launch level
-kernels for planes too large for a pyramid block (csrc/lift_level.cu), the
+kernels for planes too large for a pyramid block and their row-window
+instances for one shard's rows (K7; csrc/lift_level.cu), the
 Kagari tokenize + pack (csrc/kagari_encode.cu, one launch a call), the
 Kagari block decoder (csrc/kagari_decode.cu), the Manbavaran rANS
 encoder and block decoder (csrc/manba_encode.cu, csrc/manba_decode.cu),
@@ -82,7 +83,8 @@ class LevelArgs(ctypes.Structure):
         )),
         ("q", ctypes.c_int * MAX_LEVEL_CHANNELS),
         ("g", ctypes.c_int * MAX_LEVEL_CHANNELS),
-        *((name, ctypes.c_int) for name in ("pitch", "plane", "stage", "smem")),
+        *((name, ctypes.c_int) for name in ("pitch", "plane", "stage", "smem", "p0", "p1",
+                                            "win_lo", "win_n")),
     ]
 
 
@@ -141,6 +143,8 @@ _SIGNATURES = {
     "ako_unlift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
     "ako_lift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
     "ako_unlift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
+    "ako_lift_level_rows": [ctypes.POINTER(LevelArgs), _P, _P, _P, _P],
+    "ako_unlift_level_rows": [ctypes.POINTER(LevelArgs), _P, _P, _P, _P],
     "ako_manba_encode": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ako_manba_decode": [_P, _LL] + [_P] * 8 + [_I, _I, _I, _P],
     "ako_rate_serialize": [_P, _P, _I, ctypes.POINTER(RateArgs), _P],
@@ -300,6 +304,21 @@ def unlift_level(args, ll, coeffs, dst, tiles, stream) -> None:
     """Launch one inverse level on `stream` (see lift_level)."""
     _check(load().ako_unlift_level(ctypes.byref(args), ll, coeffs, dst, tiles, stream),
            "ako_unlift_level")
+
+
+def lift_level_rows(args, win, out, ll, stream) -> None:
+    """Launch K7's forward, one shard's rows of a level (one CTA per
+    region of them), on `stream`; `args` is a LevelArgs with the shard's
+    pairs and window, the rest device pointers, already checked by the
+    caller."""
+    _check(load().ako_lift_level_rows(ctypes.byref(args), win, out, ll, stream),
+           "ako_lift_level_rows")
+
+
+def unlift_level_rows(args, ll, coeffs, dst, stream) -> None:
+    """Launch K7's inverse on `stream` (see lift_level_rows)."""
+    _check(load().ako_unlift_level_rows(ctypes.byref(args), ll, coeffs, dst, stream),
+           "ako_unlift_level_rows")
 
 
 def manba_encode(values, record, scratch, rans, extras, rows, n, budget, row_words, stream) -> None:

@@ -71,6 +71,14 @@ no result line):
                 row), a ragged two-group image, 512x512 crops with 1-4
                 channels, at q 0, 1, 4, 16, 64, 16384 and 65536, gate 0 and
                 16, chroma_loss 0, 1 and 3; and random full-range streams
+     parallel_kernels
+              - K7 (lift_level_rows / unlift_level_rows, csrc/lift_level.cu's
+                row-window instances) bit for bit against their plain
+                versions: every wavelet x wrap, every sharded level and
+                shard (first, middle, last, one-pair) of the whole tile
+                over 8 and 3 shards, the tractor size (1632x2464) over 8,
+                127x127, 96x100 and T = 25 pairs over 8, each window
+                poisoned outside it; an empty shard refused with no launch
   4. goldens  - tests/golden blobs and pixels are reproduced exactly,
                 on both entropy paths
   5. north    - the north-star image (fbm corpus, seed 42, 1024x1280
@@ -150,6 +158,22 @@ no result line):
                 codec, -dev-r 12 equal to phase 10's blob, the decoded PNG's
                 pixels equal to the native decode's, a truncated blob exit
                 1 with an akodec: message
+ 12. parallel - ako_tpu_torch.parallel, every shard on a stream of its own
+                (a mesh of repeated cuda:0; of distinct cards too when the
+                machine has several): forward/inverse_tile_sharded on the
+                whole tile over 8 and 3 shards under all four wraps and the
+                tractor size over 8, with K7's launches the plan's, each
+                stream equal to forward_tile's and the native codec's and
+                each reconstruction to inverse_tile's and the native one;
+                encode/decode_image_sharded at 128-px tiles over 8 and 3
+                shards (both entropy routes) against the port's encode and
+                the native oracle; a step on a 2 x 4 (tiles, rows) mesh;
+                HostShardedPipeline in two processes sharing the card over
+                gloo (this script with --multihost-worker); then K7 alone
+                on one whole-tile call's launches (profiler, CUDA events,
+                plain, per level, bound), the sharded whole tile's wall and
+                device busy against the one-device routes, the copies, and
+                the tile-sharded encode / decode against the one-shot ones
 
 The second-to-last stdout line is the card's name and power limit from
 nvidia-smi, before it a JSON line with each kernel's launches, error,
@@ -258,6 +282,7 @@ DEVICE_KERNELS = {
     "manba_stats": "manba_encode", "manba_model": "manba_encode",
     "manba_chain_pack": "manba_encode", "manba_decode": "manba_decode",
     "rate_serialize": "rate_serialize", "rate_sizes": "rate_sizes",
+    "lift_level_rows": "lift_level_rows", "unlift_level_rows": "unlift_level_rows",
 }
 #: a kernel's name in a profiler event, demangled ("ns::lift_h<0>(...)")
 #: or mangled ("...6lift_hILi0E...")
@@ -1137,7 +1162,7 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
     out = dict.fromkeys(("lift2d", "unlift2d", "vlift", "vunlift", "kagari_encode",
                          "kagari_decode", "lift_pyramid", "unlift_pyramid", "lift_level",
                          "unlift_level", "manba_encode", "manba_decode", "rate_serialize",
-                         "rate_sizes"), 0)
+                         "rate_sizes", "lift_level_rows", "unlift_level_rows"), 0)
     for name, s in settings.items():
         coder = "manba" if is_manba(name) else "kagari"
         for tw, th in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)):
@@ -2874,6 +2899,480 @@ def rate_bounds_ms(raw_shape) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- parallel
+
+#: K7: the row-window instances of csrc/lift_level.cu (parallel/halo.py)
+K7 = {
+    "lift_level_rows": "ako_tpu/parallel/halo.py:349",
+    "unlift_level_rows": "ako_tpu/parallel/halo.py:436",
+}
+K7_SOURCE = "ako_tpu_torch/csrc/lift_level.cu"
+#: (w, h, channels, shards) of the parallel_kernels phase: the whole
+#: north-star tile's levels over 8 and 3 shards (every level ragged over
+#: 3), the tractor size over 8 (ragged from level 2, odd sides at level
+#: 5), odd sides, and T = 25 pairs over 8 (a one-pair and an empty shard)
+K7_SHAPES = [(1024, 1280, 4, 8), (1024, 1280, 4, 3), (1632, 2464, 4, 8), (127, 127, 3, 8),
+             (96, 100, 3, 8), (40, 50, 2, 8)]
+TRACTOR = dict(seed=43, h=2464, w=1632, ch=4)  # tests/test_parallel.py:145's size
+K7_POISON = 2  # poisoned pairs on each side of a K7 window buffer
+MULTIHOST_IMAGES = 4  # images of the two-process HostShardedPipeline check
+
+
+def _poison_rows(t, dim: int, poison: int, gen):
+    """t inside a buffer with `poison` random rows (along dim) on each
+    side of it."""
+    shape = list(t.shape)
+    shape[dim] += 2 * poison
+    buf = torch.randint(-32768, 32768, shape, dtype=torch.int16, device=t.device, generator=gen)
+    buf.narrow(dim, poison, t.shape[dim]).copy_(t)
+    return buf
+
+
+def k7_windows(plane, ll_plane, chunk, schedule, k, pairs, wavelet, wrap, gen):
+    """The K7 inputs of one shard's pairs at level k, from the level's
+    (C, h, w) plane, its (C, T, tw) LL and its (C, 1 + 3 T tw) chunk,
+    each window inside K7_POISON poisoned pairs on each side: the
+    forward's window, and the inverse's LL and chunk windows; with their
+    first pair."""
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops.wavelets import effective_wavelet
+    from ako_tpu_torch.parallel import halo
+
+    lvl = schedule.levels[k]
+    T, tw, C = lvl.target_h, lvl.target_w, plane.shape[0]
+    win_lo, win_n = lk.row_window(T, pairs, effective_wavelet(wavelet, tw, T), wrap)
+    dev = plane.device
+    rows = torch.tensor(halo.window_rows(win_lo, win_n, lvl, wrap), device=dev)
+    win = _poison_rows(plane[:, rows], 1, 2 * K7_POISON, gen)
+    pr = torch.tensor(halo.window_pairs(win_lo, win_n, T, wrap), device=dev)
+    llw = _poison_rows(ll_plane[:, pr], 1, K7_POISON, gen)
+    cbd = _poison_rows(chunk[:, 1:].view(C, 3, T, tw)[:, :, pr], 2, K7_POISON, gen)
+    cw = torch.cat([chunk[:, :1], cbd.reshape(C, -1)], dim=1).reshape(-1)
+    return win, llw, cw, win_lo - K7_POISON
+
+
+def phase_parallel_kernels(dev) -> dict:
+    """K7 (lift_level_rows / unlift_level_rows) against its plain versions
+    on the card, bit for bit: every wavelet x wrap on each of K7_SHAPES,
+    every sharded level (plan_levels) of random int16 planes and random
+    streams whose q heads wrap, every shard (first, middle, last,
+    one-pair), each window poisoned outside it (K7 must read none of
+    those rows; the plain version cuts them off), and an empty shard
+    refused with no launch. Returns the largest absolute difference per
+    kernel (must be 0)."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.core.settings import Wavelet, Wrap
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops.quantization import level_qg
+    from ako_tpu_torch.parallel import halo
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    err = dict.fromkeys(K7, 0)
+    cases = refused = 0
+    combos = list(itertools.product([Wavelet.DD137, Wavelet.CDF53, Wavelet.HAAR], list(Wrap)))
+    heads = torch.tensor([0, 1, 7, 300, -5], dtype=torch.int16, device=dev)
+    for w, h, ch, n in K7_SHAPES:
+        schedule = geometry.lift_schedule(w, h)
+        for i, (wavelet, wrap) in enumerate(combos):
+            qg = level_qg(schedule, ch, (0, 1, 16)[i % 3], 3, 2)
+            for k in range(sum(halo.plan_levels(schedule, n, wavelet, wrap))):
+                lvl = schedule.levels[k]
+                T, tw = lvl.target_h, lvl.target_w
+                rand = lambda *shape: torch.randint(-32768, 32768, shape, dtype=torch.int16,
+                                                    device=dev, generator=gen)
+                plane, ll_plane = rand(ch, lvl.current_h, lvl.current_w), rand(ch, T, tw)
+                chunk = rand(ch, 1 + 3 * T * tw)
+                chunk[:, 0] = heads[torch.randint(0, 5, (ch,), device=dev, generator=gen)]
+                for pairs in halo.shard_pairs(T, n):
+                    if pairs[0] == pairs[1]:
+                        before = lk.LAUNCHES["lift_level_rows"]
+                        try:
+                            lk.lift_level_rows(plane, schedule, k, pairs, 0, wavelet, wrap, qg)
+                        except ValueError:
+                            refused += lk.LAUNCHES["lift_level_rows"] == before
+                            continue
+                        raise AssertionError(f"K7 took an empty shard {pairs} of {T} pairs")
+                    win, llw, cw, lo = k7_windows(plane, ll_plane, chunk, schedule, k, pairs,
+                                                  wavelet, wrap, gen)
+                    fwd = (schedule, k, pairs, lo, wavelet, wrap)
+                    got, ref = (f(win, *fwd, qg) for f in (lk.lift_level_rows,
+                                                          lk.lift_level_rows_plain))
+                    e_fwd = max(_max_err(got[0], ref[0]), _max_err(got[1], ref[1]))
+                    e_inv = _max_err(lk.unlift_level_rows(llw, cw, *fwd),
+                                     lk.unlift_level_rows_plain(llw, cw, *fwd))
+                    err["lift_level_rows"] = max(err["lift_level_rows"], e_fwd)
+                    err["unlift_level_rows"] = max(err["unlift_level_rows"], e_inv)
+                    cases += 1
+                    if e_fwd or e_inv:
+                        raise AssertionError(
+                            f"K7 != plain for {w}x{h}x{ch} over {n}, level {k}, pairs {pairs}, "
+                            f"{wavelet.name} {wrap.name}: forward {e_fwd}, inverse {e_inv}")
+    torch.cuda.synchronize()
+    if not refused:
+        raise AssertionError("parallel_kernels: no empty shard was tried")
+    log(f"parallel_kernels: lift_level_rows/unlift_level_rows equal to plain on {cases} shard "
+        f"launches each way ({len(K7_SHAPES)} shapes x 3 wavelets x 4 wraps, every sharded level "
+        f"and shard, windows poisoned outside); {refused} empty shards refused with no launch")
+    return err
+
+
+def _planes(img, s):
+    """The tile's int16 planes after the colour transform, on the card."""
+    from ako_tpu_torch.encode import checked_settings
+    from ako_tpu_torch.ops.colorspace import to_planar_yuv
+
+    s = checked_settings(s)
+    x = torch.from_numpy(np.ascontiguousarray(img)).cuda()
+    return to_planar_yuv(x, s.color, bool(s.discard_non_visible)).contiguous()
+
+
+def k7_launches(schedule, n, wavelet, wrap) -> int:
+    """K7 launches of one sharded forward (or inverse): the non-empty
+    shards of every sharded level."""
+    from ako_tpu_torch.parallel import halo
+
+    plan = halo.plan_levels(schedule, n, wavelet, wrap)
+    return sum(p0 < p1 for k in range(sum(plan))
+               for p0, p1 in halo.shard_pairs(schedule.levels[k].target_h, n))
+
+
+def multihost_worker(coord: str, nproc: str, pid: str, outfile: str) -> int:
+    """One process of the two-process HostShardedPipeline check: joins the
+    gloo group, runs its round-robin shard of MULTIHOST_IMAGES north-star
+    images through the executor on the card, and pickles its blobs, its
+    decoded images and the process-wide mesh's shape."""
+    import pickle
+
+    import ako_tpu_torch as P
+    from ako_tpu_torch.parallel import multihost
+    from ako_tpu_torch.utils.corpus import corpus
+
+    multihost.initialize(coord, int(nproc), int(pid))
+    mesh = multihost.global_mesh()
+    images = corpus(NORTH_STAR["seed"], MULTIHOST_IMAGES, NORTH_STAR["h"], NORTH_STAR["w"],
+                    NORTH_STAR["ch"])
+    s = north_star_settings(P)["north_t128"]
+    pipe = multihost.HostShardedPipeline(s, workers=4, device="cuda:0")
+    blobs = dict(pipe.encode_shard(images))
+    own = [blobs.get(i) for i in range(len(images))]
+    pixels = dict(pipe.decode_shard(own))
+    with open(outfile, "wb") as f:
+        pickle.dump({"blobs": blobs, "pixels": pixels, "mesh_shape": mesh.shape,
+                     "process": multihost.process_info()}, f)
+    return 0
+
+
+def _multihost_check(P, card) -> None:
+    """HostShardedPipeline in two processes sharing the card over gloo: each
+    process's blobs by global index equal a one-process encode and the
+    native oracle, its images the native decode, and the union of the
+    shards covers the stream exactly once."""
+    import pickle
+    import socket
+
+    from ako_tpu_torch.utils.corpus import corpus
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    out_dir = os.path.join(ROOT, "ako_tpu_torch", "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"multihost{pid}.pkl") for pid in range(2)]
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-worker",
+                               coord, "2", str(pid), outs[pid]], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for pid in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost worker failed ({p.returncode}):\n{text[-3000:]}")
+    wall = time.perf_counter() - t
+    results = []
+    for path in outs:
+        with open(path, "rb") as f:
+            results.append(pickle.load(f))
+        os.remove(path)
+    images = corpus(NORTH_STAR["seed"], MULTIHOST_IMAGES, NORTH_STAR["h"], NORTH_STAR["w"],
+                    NORTH_STAR["ch"])
+    s = north_star_settings(P)["north_t128"]
+    want = [oracle_encode(img, s) for img in images]
+    for pid, r in enumerate(results):
+        if r["process"] != (pid, 2) or r["mesh_shape"] != {"hosts": 2,
+                                                          "tiles": torch.cuda.device_count()}:
+            raise AssertionError(f"multihost process {pid}: {r['process']}, {r['mesh_shape']}")
+        for gidx, blob in r["blobs"].items():
+            if blob != want[gidx] or blob != P.encode(images[gidx], s, device="cuda:0"):
+                raise AssertionError(f"multihost: blob {gidx} differs from a one-process encode")
+            if not np.array_equal(r["pixels"][gidx], oracle_decode(blob)):
+                raise AssertionError(f"multihost: image {gidx} differs from the native decode")
+    got = sorted(i for r in results for i in r["blobs"])
+    if got != list(range(MULTIHOST_IMAGES)):
+        raise AssertionError(f"multihost: the shards cover {got}")
+    log(f"parallel: HostShardedPipeline in 2 processes sharing the card over gloo: {got} covered "
+        f"once, blobs equal to a one-process encode and the native codec, images to the native "
+        f"decode; {wall:.1f} s wall with the processes' start-up [{card}]")
+
+
+def phase_parallel(P, dev, img, oracle, card) -> dict:
+    """ako_tpu_torch.parallel on the card, every shard a stream of its own.
+    The main path, driven with the launch counts reset just before and
+    read just after: forward_tile_sharded / inverse_tile_sharded on the
+    north star's whole tile (1024x1280 RGBA planes after colour) over 8
+    shards of cuda:0 and over 3, under all four wraps, and on the tractor
+    size over 8; K7's launches must be the plan's. Then every stream
+    equal to the one-device forward_tile's and the native codec's, every
+    reconstruction to the one-device inverse_tile's and the native one;
+    encode_image_sharded / decode_image_sharded (both entropy routes) on
+    the north star at 128-px tiles over 8 and 3 shards against the port's
+    encode and the native oracle; a step on a 2 x 4 ("tiles", "rows") mesh;
+    the same on distinct cards when there are several; and
+    HostShardedPipeline in two processes. Returns K7's row material:
+    launches, device ms, plain ms and bound."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.core.settings import Wrap
+    from ako_tpu_torch.encode import checked_settings, tile_qg
+    from ako_tpu_torch.ops import lifting
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.parallel import halo, make_mesh
+    from ako_tpu_torch.parallel import tiles as ptiles
+    from ako_tpu_torch.runtime import hostcodec
+    from ako_tpu_torch.utils.corpus import corpus
+
+    t0 = time.perf_counter()
+    s = checked_settings(P.Settings())
+    tractor = corpus(TRACTOR["seed"], 1, TRACTOR["h"], TRACTOR["w"], TRACTOR["ch"])[0]
+    tiles = {"north": (img, _planes(img, s)), "tractor": (tractor, _planes(tractor, s))}
+    mesh8 = make_mesh((8,), ("rows",), devices=[dev] * 8)
+    mesh3 = make_mesh((3,), ("rows",), devices=[dev] * 3)
+    runs = [("north", mesh8, wrap) for wrap in Wrap] + [("north", mesh3, wrap) for wrap in Wrap]
+    runs.append(("tractor", mesh8, s.wrap))
+    for name in ("north", "tractor"):
+        schedule = geometry.lift_schedule(tiles[name][0].shape[1], tiles[name][0].shape[0])
+        want = 5 if name == "north" else 6
+        if sum(halo.plan_levels(schedule, 8, s.wavelet, s.wrap)) < want:
+            raise AssertionError(f"parallel: {name} shards fewer than {want} levels over 8")
+
+    def args(name, wrap):
+        h, w, ch = tiles[name][0].shape
+        schedule = geometry.lift_schedule(w, h)
+        return schedule, tile_qg(w, h, ch, s.quantization, s.gate, s.chroma_loss), ch
+
+    # the main path
+    reset_launches()
+    out = []
+    for name, mesh, wrap in runs:
+        schedule, qg, ch = args(name, wrap)
+        stream = halo.forward_tile_sharded(tiles[name][1], schedule, s.wavelet, wrap, qg, mesh)
+        out.append((stream, halo.inverse_tile_sharded(stream, schedule, s.wavelet, wrap, ch, mesh)))
+    torch.cuda.synchronize()
+    launches = {k: all_launches()[k] for k in K7}
+    want = sum(k7_launches(args(name, wrap)[0], mesh.size, s.wavelet, wrap)
+               for name, mesh, wrap in runs)
+    if launches != dict.fromkeys(K7, want):
+        raise AssertionError(f"parallel: K7 launches {launches}, the plan gives {want} each way")
+
+    for (name, mesh, wrap), (stream, rec) in zip(runs, out):
+        schedule, qg, ch = args(name, wrap)
+        planes = tiles[name][1]
+        one = lifting.forward_tile(planes, schedule, s.wavelet, wrap, qg)
+        native = hostcodec.tile_lift(planes.cpu().numpy(), s.wavelet, wrap, qg)
+        if not (torch.equal(stream, one) and np.array_equal(stream.cpu().numpy(), native)):
+            raise AssertionError(f"parallel: {name} over {mesh.size} {wrap.name}: the sharded "
+                                 "stream differs from forward_tile's or the native codec's")
+        back = lifting.inverse_tile(stream, schedule, s.wavelet, wrap, ch)
+        h, w = planes.shape[1:]
+        if not (torch.equal(rec, back) and np.array_equal(rec.cpu().numpy(), hostcodec.tile_unlift(
+                stream.cpu().numpy(), w, h, ch, s.wavelet, wrap))):
+            raise AssertionError(f"parallel: {name} over {mesh.size} {wrap.name}: the sharded "
+                                 "reconstruction differs from inverse_tile's or the native one")
+    log(f"parallel: forward/inverse_tile_sharded on the whole tile over 8 and 3 shards of "
+        f"cuda:0 (4 wraps each) and the tractor size over 8: streams equal to forward_tile's and "
+        f"the native codec's, reconstructions to inverse_tile's and the native one; K7 "
+        f"{launches} (the plan's)")
+
+    # the tile path
+    st = north_star_settings(P)["north_t128"]
+    want_blob, want_pix = oracle["north_t128"]
+    tmesh = {n: make_mesh((n,), ("tiles",), devices=[dev] * n) for n in (8, 3)}
+    for n, mesh in tmesh.items():
+        blob = ptiles.encode_image_sharded(img, st, mesh)
+        if blob != want_blob or blob != P.encode(img, st, device=dev):
+            raise AssertionError(f"parallel: encode_image_sharded over {n}: blob differs")
+        for de in (True, False):
+            pix, _, _ = ptiles.decode_image_sharded(blob, mesh, device_entropy=de)
+            if not np.array_equal(pix, want_pix):
+                raise AssertionError(f"parallel: decode_image_sharded over {n} (device entropy "
+                                     f"{de}): pixels differ")
+    log("parallel: encode_image_sharded / decode_image_sharded (device entropy on and off) on "
+        "the north star at 128-px tiles over 8 and 3 shards (80 tiles, padded to 81): blobs "
+        "equal to the port's encode and the native codec, pixels to the native decode")
+
+    # a step on a 2 x 4 ("tiles", "rows") mesh, as dryrun_multichip
+    mesh2 = make_mesh((2, 4), ("tiles", "rows"), devices=[dev] * 8)
+    small = img[:128, :128]
+    got = ptiles.encode_tiles_sharded(small, checked_settings(P.Settings(tiles_dimension=32)),
+                                      mesh2)
+    from ako_tpu_torch.encode import encode_tiles_device
+
+    ref = encode_tiles_device(small, checked_settings(P.Settings(tiles_dimension=32)), dev)
+    schedule, qg, ch = args("north", s.wrap)
+    planes = tiles["north"][1]
+    stream = halo.forward_tile_sharded(planes, schedule, s.wavelet, s.wrap, qg, mesh2, "rows")
+    rec = halo.inverse_tile_sharded(stream, schedule, s.wavelet, s.wrap, ch, mesh2, "rows")
+    if (any(not np.array_equal(a, b) for a, b in zip(got, ref)) or not torch.equal(stream, out[0][0])
+            or not torch.equal(rec, out[0][1])):
+        raise AssertionError("parallel: the 2 x 4 mesh step differs from the one-device results")
+    log("parallel: one step on a 2 x 4 (tiles, rows) mesh of cuda:0: the tile streams and the "
+        "row-sharded whole tile equal to the one-device results")
+
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        mesh_c = make_mesh((cards,), ("rows",))
+        stream = halo.forward_tile_sharded(planes, schedule, s.wavelet, s.wrap, qg, mesh_c)
+        rec = halo.inverse_tile_sharded(stream, schedule, s.wavelet, s.wrap, ch, mesh_c)
+        blob = ptiles.encode_image_sharded(img, st, make_mesh((cards,), ("tiles",)))
+        pix, _, _ = ptiles.decode_image_sharded(blob, make_mesh((cards,), ("tiles",)))
+        if (not torch.equal(stream.to(dev), out[0][0]) or not torch.equal(rec.to(dev), out[0][1])
+                or blob != want_blob or not np.array_equal(pix, want_pix)):
+            raise AssertionError(f"parallel: the mesh of {cards} distinct cards differs")
+    log(f"parallel: {cards} CUDA device(s); "
+        + ("the same results on a mesh of distinct cards" if cards > 1 else
+           "no mesh of distinct cards on this machine"))
+    _multihost_check(P, card)
+    row = k7_times(P, dev, img, s, tiles["north"][1], st, card)
+    for k in K7:
+        row[k]["launches"] = launches[k]
+    log(f"parallel: phase {time.perf_counter() - t0:.1f} s")
+    return row
+
+
+def k7_times(P, dev, img, s, planes, st, card) -> dict:
+    """K7 alone on the launches of one sharded whole-tile forward (inverse)
+    over 8 shards (captured from that call): device ms under the profiler,
+    CUDA-event ms back to back, the plain versions' ms on the same inputs,
+    per launch and per level; the bound of those launches; the sharded
+    whole tile's wall and device busy ms against the one-device routes,
+    and the tile-sharded encode / decode against the one-shot ones, with
+    the copies each makes."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import tile_qg
+    from ako_tpu_torch.ops import lifting
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.parallel import halo, make_mesh
+    from ako_tpu_torch.parallel import tiles as ptiles
+
+    h, w, ch = img.shape
+    schedule = geometry.lift_schedule(w, h)
+    qg = tile_qg(w, h, ch, s.quantization, s.gate, s.chroma_loss)
+    mesh = make_mesh((8,), ("rows",), devices=[dev] * 8)
+    fwd = lambda: halo.forward_tile_sharded(planes, schedule, s.wavelet, s.wrap, qg, mesh)
+    stream = fwd()
+    inv = lambda: halo.inverse_tile_sharded(stream, schedule, s.wavelet, s.wrap, ch, mesh)
+
+    # the K7 launches of one call, their inputs captured
+    calls = {k: [] for k in K7}
+    real = {k: getattr(lk, k) for k in K7}
+
+    def spy(name):
+        def run(*a):
+            calls[name].append(a)
+            return real[name](*a)
+        return run
+
+    for k in K7:
+        setattr(lk, k, spy(k))
+    try:
+        fwd()
+        inv()
+    finally:
+        for k in K7:
+            setattr(lk, k, real[k])
+    torch.cuda.synchronize()
+    plain = {"lift_level_rows": lk.lift_level_rows_plain,
+             "unlift_level_rows": lk.unlift_level_rows_plain}
+    row = {}
+    for k in K7:
+        alone = lambda: [real[k](*a) for a in calls[k]]
+        prof = _profile_until(alone)
+        dev_ms = prof["per"].get(k, float("nan"))
+        ev_ms = _event_ms(alone, iters=10)
+        plain_ms = _event_ms(lambda: [plain[k](*a) for a in calls[k]], iters=3)
+        nbytes = ops = 0
+        for a in calls[k]:
+            if k == "lift_level_rows":
+                win, pairs = a[0], a[3]
+                lvl = schedule.levels[a[2]]
+                rows = pairs[1] - pairs[0]
+                nbytes += 2 * (win.numel() + ch * rows * lvl.target_w * 4 + ch)
+            else:
+                ll, chunk, pairs = a[0], a[1], a[4]
+                lvl = schedule.levels[a[3]]
+                rows = min(2 * pairs[1], lvl.current_h) - 2 * pairs[0]
+                nbytes += 2 * (ll.numel() + chunk.numel() + ch * rows * lvl.current_w)
+            ops += ch * rows * (2 if k == "lift_level_rows" else 1) * lvl.current_w * 2 * LIFT_OPS
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+        bound = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        per_level = {}
+        for a in calls[k]:
+            lvl_k = a[2] if k == "lift_level_rows" else a[3]
+            per_level.setdefault(lvl_k, []).append(a)
+        levels = {}
+        for lvl_k, group in sorted(per_level.items()):
+            levels[lvl_k] = (_launch_ms(lambda: [real[k](*a) for a in group], k, iters=10),
+                             len(group))
+        log(f"  {k}: {len(calls[k])} launches a whole-tile call over 8 shards: device "
+            f"{dev_ms:.4f} ms (profiler), {ev_ms:.4f} ms back to back (CUDA events), plain "
+            f"{plain_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]}: {nbytes} B, {ops} ops); "
+            f"per level (device ms per launch, median; launches): "
+            f"{ {lv: (round(t, 4), n) for lv, (t, n) in levels.items()} } [{card}]")
+        row[k] = {"launches": 0, "ms": round(dev_ms if dev_ms == dev_ms else ev_ms, 4),
+                  "plain_ms": round(plain_ms, 4), "bound": bound}
+
+    # the sharded whole tile against the one-device routes
+    tile = torch.from_numpy(np.ascontiguousarray(img[None])).to(dev)
+    one_fwd = lambda: lifting.forward_tiles(tile, schedule, s.wavelet, s.wrap, qg, s.color,
+                                            bool(s.discard_non_visible))
+    one_stream = one_fwd()
+    routes = {
+        "sharded forward (8 shards)": fwd,
+        "sharded inverse (8 shards)": inv,
+        "one-device forward_tiles (u8, fused route)": one_fwd,
+        "one-device inverse_tiles (u8, fused route)":
+            lambda: lifting.inverse_tiles(one_stream, schedule, s.wavelet, s.wrap, ch, s.color),
+        "one-device forward_tile (planes, K1 a level)":
+            lambda: lifting.forward_tile(planes, schedule, s.wavelet, s.wrap, qg),
+        "one-device inverse_tile (planes, K2 a level)":
+            lambda: lifting.inverse_tile(stream, schedule, s.wavelet, s.wrap, ch),
+    }
+    for name, fn in routes.items():
+        before = dict(halo.COPIES)
+        fn()
+        copies = {k: halo.COPIES[k] - before[k] for k in before}
+        r = _profile_until(fn)
+        log(f"  {name}: wall {_median_ms(fn):.3f} ms (median of {RUNS}), device busy "
+            f"{r['busy']:.3f} ms, {r['kernels']} kernels, {r['copies']} device copies; "
+            f"halo copies {copies} [{card}]")
+    for n in (8, 3):
+        tmesh = make_mesh((n,), ("tiles",), devices=[dev] * n)
+        blob = ptiles.encode_image_sharded(img, st, tmesh)
+        enc = _median_ms(lambda: ptiles.encode_image_sharded(img, st, tmesh))
+        dec = _median_ms(lambda: ptiles.decode_image_sharded(blob, tmesh))
+        log(f"  tile-sharded north_t128 over {n} shards of cuda:0: encode {enc:.2f} ms, decode "
+            f"{dec:.2f} ms (median of {RUNS}) [{card}]")
+    blob = P.encode(img, st, device=dev)
+    log(f"  one-shot north_t128: encode {_median_ms(lambda: P.encode(img, st, device=dev)):.2f} "
+        f"ms, decode {_median_ms(lambda: P.decode(blob, device=dev)):.2f} ms [{card}]")
+    return row
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2908,6 +3407,7 @@ def main() -> int:
     err["kagari_decode"] = phase_k4(dev, oracle["north_t128"][0])
     err.update(phase_k6(P, dev, img))
     err.update(phase_rate_kernels(P, dev, img))
+    err.update(phase_parallel_kernels(dev))
     phase_goldens(P, dev)
     launches = phase_north_star(P, dev, img, oracle)
     device_ms = phase_profile(P, dev, img, card)
@@ -2920,6 +3420,7 @@ def main() -> int:
     phase_executor(P, dev, card)
     rate = phase_rate(P, dev, img, card)
     phase_cli(P, dev, img, rate["blobs"][RATE_ROW])
+    k7 = phase_parallel(P, dev, img, oracle, card)
     bound = bounds_ms(img, oracle["north_t128"][0], oracle["north_t128_manba"][0])
     floor = launch_floor_ms(dev)
     split_launches = expected_launches(img, {"north_t128": north_star_settings(P)["north_t128"]},
@@ -2982,6 +3483,24 @@ def main() -> int:
         }
         for k, (source, replaces) in RATE_KERNELS.items()
     ]
+    # K7: the launches of the parallel phase's main path, the kernels alone
+    # on the launches of one sharded whole-tile call over 8 shards
+    kernels += [
+        {
+            "name": k,
+            "route": "cuda",
+            "source": K7_SOURCE,
+            "replaces": replaces,
+            "launches": k7[k]["launches"],
+            "max_abs_err": err[k],
+            "ms": k7[k]["ms"],
+            "plain_ms": k7[k]["plain_ms"],
+            "bound_ms": round(k7[k]["bound"][0], 5),
+            "bound_by": k7[k]["bound"][1],
+            "library_ms": None,
+        }
+        for k, replaces in K7.items()
+    ]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -2998,7 +3517,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--multihost-worker"]:
+            code = multihost_worker(*sys.argv[2:])
+        else:
+            code = main()
     except BaseException:
         traceback.print_exc()
         code = 1

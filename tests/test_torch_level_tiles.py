@@ -69,12 +69,13 @@ def _tap(i, d, n, wrap):
 
 class _Axis:
     """csrc/lift_level.cu Axis: of a line of `length` samples, the
-    region's pairs [r0, r1) and the window's pairs [lo, hi)."""
+    region's pairs [r0, r1), the idx-th run of `region` pairs from p0 cut
+    at p1 (the whole line by default), and the window's pairs [lo, hi)."""
 
-    def __init__(self, length, region, idx, halo, rep):
+    def __init__(self, length, region, idx, halo, rep, p0=0, p1=None):
         self.len, self.n, self.rep = length, (length + 1) // 2, rep
-        self.r0 = idx * region
-        self.r1 = min(self.r0 + region, self.n)
+        self.r0 = p0 + idx * region
+        self.r1 = min(self.r0 + region, self.n if p1 is None else p1)
         self.lo = self.r0 - halo if rep else max(self.r0 - halo, 0)
         self.hi = self.r1 + halo if rep else min(self.r1 + halo, self.n)
 
@@ -655,3 +656,240 @@ def test_kernel_constants_match_source():
     fields = re.findall(r"int (\w+)(?:\[kLevelChannels\])?;", body)
     assert fields == [name for name, _ in kernels.LevelArgs._fields_]
     assert int(re.search(r"kLevelChannels = (\d+);", src).group(1)) == kernels.MAX_LEVEL_CHANNELS
+
+
+# ---------------------------------------------------------------------
+# K7: the row-window instances (lift_level_rows / unlift_level_rows) on
+# one shard's pairs, and the sharded lift of parallel/halo.py through them
+
+POISON_ROWS = 5  # poisoned rows on each side of a window buffer
+
+
+class _Rows:
+    """A CTA's rows of the window buffer, in place of _Axis.samples() for
+    _load_planes: the row axis of a ROWS launch loads window slot j from
+    the buffer's row 2 (lo - win_lo) + j (csrc/lift_level.cu lift_body),
+    shifted past the poisoned rows before the window."""
+
+    def __init__(self, y, win_lo, win_n):
+        j = 2 * (y.lo - win_lo) + np.arange(2 * (y.hi - y.lo))
+        assert (j >= 0).all() and (j < 2 * win_n).all(), "a row outside the shard's window"
+        self.rows = POISON_ROWS + j
+
+    def samples(self):
+        return self.rows
+
+
+def _poisoned(buf, rng, axis):
+    """buf with POISON_ROWS random rows before and after it along `axis`."""
+    shape = list(buf.shape)
+    shape[axis] = POISON_ROWS
+    pad = [rng.integers(-32768, 32768, size=shape) for _ in range(2)]
+    return np.concatenate([pad[0], buf, pad[1]], axis=axis)
+
+
+def emulate_lift_rows(win, win_lo, pairs, h, w, wav, wrap, region, seed=0):
+    """lift_level_rows's lift, CTA by CTA: win is the shard's (C, 2 win_n,
+    w) window of pairs [win_lo, win_lo + win_n) of a level of h rows ->
+    (ll, b, c, d) of the shard's pairs, each (C, p1 - p0, tw) int64. The
+    regions cover [p0, p1) from p0, the axes keep the level's global pair
+    indices (edge steps at the line's ends alone), the buffer's rows
+    outside the window are poisoned and every tap must hit a loaded slot."""
+    rng = np.random.default_rng(seed)
+    C = win.shape[0]
+    p0, p1 = pairs
+    tw, hl, rep = (w + 1) // 2, lk.LEVEL_HALO[wav], wrap == Wrap.REPEAT
+    buf = _poisoned(win.astype(np.int64), rng, 1)
+    pitch, plane, _, _ = lk.level_layout(C, region, wav, False)
+    quads = np.zeros((4, C, p1 - p0, tw), np.int64)
+    stores = np.zeros((C, p1 - p0, tw), np.int64)
+    for iy, ix in itertools.product(range(-(-(p1 - p0) // region[0])), range(-(-tw // region[1]))):
+        y = _Axis(h, region[0], iy, hl, rep, p0, p1)
+        xa = _Axis(w, region[1], ix, hl, rep)
+        raw = rng.integers(-32768, 32768, size=(C, plane // pitch, pitch))
+        wr, wc = 2 * (y.hi - y.lo), len(xa.samples())
+        sh = _load_planes(raw, buf, _Rows(y, win_lo, win.shape[1] // 2), xa, w)
+        win_s = raw[:, :, sh:]
+        m = np.zeros(win_s.shape, bool)
+        m[:, :wr, :wc] = True
+        _step(win_s[:, :wr], m[:, :wr], PREDICT, wav, max(xa.r0 - PL[wav], xa.lo),
+              min(xa.r1 + PR[wav], xa.hi), xa, wrap)
+        _step(win_s[:, :wr], m[:, :wr], UPDATE, wav, xa.r0, xa.r1, xa, wrap)
+        c0, c1 = 2 * (xa.r0 - xa.lo), 2 * (xa.r1 - xa.lo)
+        cols, cm = win_s[:, :, c0:c1].swapaxes(1, 2), m[:, :, c0:c1].swapaxes(1, 2)
+        _step(cols, cm, PREDICT, wav, max(y.r0 - PL[wav], y.lo), min(y.r1 + PR[wav], y.hi), y, wrap)
+        _step(cols, cm, UPDATE, wav, y.r0, y.r1, y, wrap)
+        rr, cc = 2 * (np.arange(y.r0, y.r1) - y.lo), 2 * (np.arange(xa.r0, xa.r1) - xa.lo)
+        for q, (dr, dc) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):  # ll, b, c, d
+            quads[q, :, y.r0 - p0 : y.r1 - p0, xa.r0 : xa.r1] = win_s[:, rr + dr][:, :, cc + dc]
+        stores[:, y.r0 - p0 : y.r1 - p0, xa.r0 : xa.r1] += 1
+    assert (stores == 1).all(), "the regions do not tile the shard's quadrants"
+    return quads
+
+
+def emulate_unlift_rows(ll, chunk, win_lo, pairs, h, w, wav, wrap, region, seed=0):
+    """unlift_level_rows, CTA by CTA: the (C, win_n, tw) LL window and the
+    (C, 1 + 3 win_n tw) chunk window (q heads, then C, B, D rows), each
+    poisoned outside the window, dequantized as they load -> the plane's
+    rows [2 p0, min(2 p1, h)), (C, rows, w) int16."""
+    rng = np.random.default_rng(seed)
+    C, win_n, tw = ll.shape
+    p0, p1 = pairs
+    hl, rep = lk.LEVEL_HALO[wav], wrap == Wrap.REPEAT
+    q = chunk[:, :1].astype(np.int64)[:, :, None]
+    cbd = chunk[:, 1:].reshape(C, 3, win_n, tw).astype(np.int64)
+    cbd = _w16(np.where(q[:, :, :, None] > 1, cbd * q[:, :, :, None], cbd))
+    # LL, B, C, D windows, poisoned outside the window
+    bufs = [_poisoned(x, rng, 1) for x in (ll.astype(np.int64), cbd[:, 1], cbd[:, 0], cbd[:, 2])]
+    pitch, plane, _, _ = lk.level_layout(C, region, wav, False)
+    o0, rows = 2 * p0, min(2 * p1, h) - 2 * p0
+    out = np.zeros((C, rows, w), np.int64)
+    stores = np.zeros(out.shape, np.int64)
+    for iy, ix in itertools.product(range(-(-(p1 - p0) // region[0])), range(-(-tw // region[1]))):
+        y = _Axis(h, region[0], iy, hl, rep, p0, p1)
+        xa = _Axis(w, region[1], ix, hl, rep)
+        gr = y.lo - win_lo + np.arange(y.hi - y.lo)  # csrc/lift_level.cu unlift_body's gr
+        assert (gr >= 0).all() and (gr < win_n).all(), "a pair outside the shard's window"
+        win_s = rng.integers(-32768, 32768, size=(C, plane // pitch, pitch))
+        m = np.zeros(win_s.shape, bool)
+        pc = xa.pairs()
+        i, j = np.arange(len(gr))[:, None], np.arange(len(pc))[None, :]
+        for b, (dr, dc) in zip(bufs, ((0, 0), (0, 1), (1, 0), (1, 1))):
+            win_s[:, 2 * i + dr, 2 * j + dc] = b[:, POISON_ROWS + gr][:, :, pc]
+        m[:, : 2 * len(gr), : 2 * len(pc)] = True
+        cols, cm = win_s[:, :, : 2 * len(pc)].swapaxes(1, 2), m[:, :, : 2 * len(pc)].swapaxes(1, 2)
+        _step(cols, cm, UNDO_UPDATE, wav, max(y.r0 - UL[wav], y.lo), min(y.r1 + UR[wav], y.hi), y,
+              wrap)
+        _step(cols, cm, UNDO_PREDICT, wav, y.r0, y.r1, y, wrap)
+        row0, row1, col0, col1 = 2 * y.r0, min(2 * y.r1, h), 2 * xa.r0, min(2 * xa.r1, w)
+        first = 2 * (y.r0 - y.lo)
+        rw, rm = win_s[:, first : first + row1 - row0], m[:, first : first + row1 - row0]
+        _step(rw, rm, UNDO_UPDATE, wav, max(xa.r0 - UL[wav], xa.lo), min(xa.r1 + UR[wav], xa.hi),
+              xa, wrap)
+        _step(rw, rm, UNDO_PREDICT, wav, xa.r0, xa.r1, xa, wrap)
+        out[:, row0 - o0 : row1 - o0, col0:col1] = rw[:, :, col0 - 2 * xa.lo : col1 - 2 * xa.lo]
+        stores[:, row0 - o0 : row1 - o0, col0:col1] += 1
+    assert (stores == 1).all(), "the regions do not tile the shard's rows"
+    return out.astype(np.int16)
+
+
+def _emulated_rows_kernels(heads):
+    """Stand-ins for lk.lift_level_rows / unlift_level_rows that run the
+    emulations at the region the wrappers pick (level_region for one tile
+    on an H100 SXM), and check each launch against the plain version. The
+    forward's q heads are stored by the launch's first region alone, at
+    channel c's offset c (1 + 3 n) of the stream-layout rows; `heads`
+    counts the stores."""
+
+    def lift(win, schedule, k, pairs, win_lo, wavelet, wrap, qg):
+        lvl = schedule.levels[k]
+        C = win.shape[0]
+        wav = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+        region = lk.level_region(schedule, k, C, wavelet, 1, H100_SMS)
+        ll, b, c, d = emulate_lift_rows(win.numpy(), win_lo, pairs, lvl.current_h, lvl.current_w,
+                                        wav, wrap, region, seed=k)
+        n = (pairs[1] - pairs[0]) * lvl.target_w
+        out = np.zeros(C * (1 + 3 * n), np.int16)
+        qs, gs = qg[k]
+        for ch in range(C):
+            base = ch * (1 + 3 * n)
+            out[base] = qs[ch]
+            heads[(k, pairs)] = heads.get((k, pairs), 0) + 1
+            for j, quad in enumerate((c, b, d)):
+                out[base + 1 + j * n : base + 1 + (j + 1) * n] = _quantize(
+                    quad[ch], qs[ch], gs[ch]).reshape(-1)
+        plain = lk.lift_level_rows_plain(win, schedule, k, pairs, win_lo, wavelet, wrap, qg)
+        np.testing.assert_array_equal(ll, plain[0].numpy())
+        np.testing.assert_array_equal(out, plain[1].numpy())
+        return torch.from_numpy(ll.astype(np.int16)), torch.from_numpy(out)
+
+    def unlift(ll, chunk, schedule, k, pairs, win_lo, wavelet, wrap):
+        lvl = schedule.levels[k]
+        C, win_n, tw = ll.shape
+        wav = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+        region = lk.level_region(schedule, k, C, wavelet, 1, H100_SMS)
+        got = emulate_unlift_rows(ll.numpy(), chunk.numpy().reshape(C, -1), win_lo, pairs,
+                                  lvl.current_h, lvl.current_w, wav, wrap, region, seed=k)
+        plain = lk.unlift_level_rows_plain(ll, chunk, schedule, k, pairs, win_lo, wavelet, wrap)
+        np.testing.assert_array_equal(got, plain.numpy())
+        return torch.from_numpy(got)
+
+    return lift, unlift
+
+
+# (w, h, shards, channels, wavelet, wrap): the trouble shapes at narrow
+# widths (raggedness is in the rows): the whole north-star tile's
+# 1280 rows over 3 shards (every level ragged), the tractor's 2464 over 8
+# (ragged from level 2, odd sides at level 5), T = 25 over 8 (a one-pair
+# and an empty shard), odd and ragged sides, REPEAT and MIRROR at both ends
+ROWS_CASES = [
+    (40, 1280, 3, 1, DD, Wrap.MIRROR),
+    (24, 2464, 8, 1, DD, Wrap.REPEAT),
+    (20, 50, 8, 2, DD, Wrap.REPEAT),
+    (20, 50, 8, 2, CDF, Wrap.MIRROR),
+    (127, 127, 8, 2, CDF, Wrap.REPEAT),
+    (96, 100, 8, 2, DD, Wrap.ZERO),
+    (77, 93, 8, 1, DD, Wrap.CLAMP),
+    (96, 100, 8, 2, HAAR, Wrap.REPEAT),
+]
+
+
+@pytest.mark.parametrize("case", ROWS_CASES,
+                         ids=[f"{w}x{h}-{n}sh-{wv.name}-{wr.name}" for w, h, n, _, wv, wr in ROWS_CASES])
+def test_rows_kernels_through_the_sharded_lift(case, monkeypatch):
+    """parallel/halo.py's forward_tile_sharded / inverse_tile_sharded on a
+    CPU mesh with K7 emulated CTA by CTA (each launch also equal to the
+    plain version), against ako_tpu's forward_tile / inverse_tile under
+    JAX: windows from the port's own helper, the shard's quadrant rows
+    gathered to their wire offsets, one CTA per launch storing the q
+    heads, a launch per non-empty shard of each sharded level."""
+    from ako_tpu_torch.parallel import halo, make_mesh
+
+    w, h, n, ch, wavelet, wrap = case
+    heads: dict = {}
+    lift, unlift = _emulated_rows_kernels(heads)
+    monkeypatch.setattr(lk, "lift_level_rows", lift)
+    monkeypatch.setattr(lk, "unlift_level_rows", unlift)
+    rng = np.random.default_rng(w * h + n)
+    planes = rng.integers(-512, 512, size=(ch, h, w)).astype(np.int16)
+    schedule = geometry.lift_schedule(w, h)
+    qg = quantization.level_qg(schedule, ch, 16, 2, 1)
+    ref_sched = ref_geometry.lift_schedule(w, h)
+    ref = np.asarray(jax.jit(lambda p: ref_lifting.forward_tile(p, ref_sched, wavelet, wrap, qg,
+                                                                False))(jnp.asarray(planes)))
+    mesh = make_mesh((n,), ("rows",), devices=[torch.device("cpu")] * n)
+    got = halo.forward_tile_sharded(torch.from_numpy(planes), schedule, wavelet, wrap, qg, mesh)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    plan = halo.plan_levels(schedule, n, wavelet, wrap)
+    want = {(k, pr): ch for k in range(sum(plan))
+            for pr in halo.shard_pairs(schedule.levels[k].target_h, n) if pr[0] < pr[1]}
+    assert heads == want  # every non-empty shard launched once, its heads stored once a channel
+    back = halo.inverse_tile_sharded(torch.from_numpy(ref.copy()), schedule, wavelet, wrap, ch,
+                                     mesh)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jax.jit(
+        lambda c: ref_lifting.inverse_tile(c, ref_sched, wavelet, wrap, ch, False))(ref)))
+
+
+def test_rows_window_maps_to_global_pairs():
+    """A ROWS launch's axes: regions from the shard's first pair, cut at
+    its last; the CTA's window slots inside the shard's window; REPEAT's
+    window unclipped (pairs taken modulo n), others clipped to the line;
+    and the source lines that the emulation repeats."""
+    import os
+
+    y = _Axis(50, 2, 1, 3, False, 20, 24)  # T = 25 over 8 shards: shard 5, its second region
+    assert (y.r0, y.r1, y.lo, y.hi) == (22, 24, 19, 25)
+    assert lk.row_window(25, (20, 24), DD, Wrap.CLAMP) == (17, 8)
+    assert lk.row_window(25, (24, 25), DD, Wrap.CLAMP) == (21, 4)
+    assert lk.row_window(25, (0, 4), DD, Wrap.REPEAT) == (-3, 10)
+    assert lk.row_window(25, (0, 4), CDF, Wrap.MIRROR) == (0, 5)
+    assert lk.row_window(25, (4, 8), HAAR, Wrap.REPEAT) == (4, 4)
+    rows = _Rows(_Axis(50, 4, 0, 3, True, 0, 4), -3, 10)
+    np.testing.assert_array_equal(rows.samples() - POISON_ROWS, np.arange(20))
+    with pytest.raises(AssertionError, match="outside the shard's window"):
+        _Rows(_Axis(50, 4, 0, 3, True, 0, 4), -2, 9)
+    src = open(os.path.join(os.path.dirname(lk.__file__), "..", "csrc", "lift_level.cu")).read()
+    assert "const int sr = ROWS ? 2 * (y.lo - a.win_lo) + j : y.sample(j);" in src
+    assert "gr = ROWS ? y.lo + i - a.win_lo : y.pair(i);" in src
+    assert "const int o0 = first_pair<ROWS>(a), rows = end_pair<ROWS>(a) - o0;" in src
+    assert "if (g.idx == 0 && (int)threadIdx.x < C)" in src
