@@ -72,32 +72,48 @@
 // XLA shard_map programs whose V pass takes its boundary rows from the
 // neighbouring shards by lax.ppermute, ops/wavelets.py:57-176, with
 // crafted pads and boundary fixes for ragged levels), is the same body
-// launched on one shard's rows (lift_level_rows / unlift_level_rows, the
-// ROWS instances):
-// - The row axis keeps the whole level's global pair indices (len = the
-//   level's height, n = its pairs), so the EDGE steps run at the line's
-//   true ends and REPEAT's halo is taken modulo n, as on the whole plane;
-//   the region grid covers only the shard's pairs [p0, p1).
-// - The source is not the plane but the shard's window, a separate buffer
-//   that ako_tpu_torch/parallel/halo.py copies out of whichever shards own
-//   the rows: every channel's rows of pairs [win_lo, win_lo + win_n), two
-//   rows a pair (the fake odd row of an odd height stored as its even
-//   one), clipped to the line or taken modulo n as a CTA's window is. A
-//   CTA's window slot j is the buffer's row 2 (lo - win_lo) + j. The halo
-//   that lift_level already loads (3 / 1 / 0 pairs) covers every tap of
-//   the shard's outputs, so the window's own ends are never read by them;
-//   no pad and no boundary fix.
-// - Forward: the input is int16 planes after colour (no u8 staging). LL
-//   rows [p0, p1) go to the shard's (C, p1 - p0, tw) LL buffer, and the
-//   q heads and gated, quantized C, B, D to a buffer in stream layout of
-//   the shard's rows alone (per channel [q][C][B][D], p1 - p0 rows each;
-//   halo.py's gather copies them to their wire offsets).
-// - Inverse: the LL window (C, win_n, tw) and the chunk window in that
-//   stream layout (C, 1 + 3 win_n tw, each channel's q head first) are
-//   dequantized as they load; the output is the plane's rows
-//   [2 p0, min(2 p1, h)), (C, rows, w) int16.
-// Bound: bytes, as lift_level (a shard's window read once, its outputs
-// written once); the launches run on each shard's own stream.
+// launched once per sharded level and device over all of that device's
+// shards (lift_level_shards / unlift_level_shards, the SHARDS instances),
+// with a ShardArgs table beside the LevelArgs:
+// - The shard table: each shard's pairs [p0, p1) of the level's rows (up
+//   to kMaxShards, in order) and the prefix count of its CTAs, which the
+//   launcher fills. A CTA finds its shard by a short scan of the prefix
+//   counts, then runs as a whole-plane CTA whose regions cover only the
+//   shard's pairs, from its first: the row axis keeps the whole level's
+//   global pair indices (len = the level's height, n = its pairs), so the
+//   EDGE steps run at the line's true ends and REPEAT's halo is taken
+//   modulo n, and ragged, one-pair or empty shards (an empty one is left
+//   out of the table) need nothing. The region (rh x rw) is chosen for the
+//   launch's total CTAs (ops/lift_kernels.py shards_region): on one card
+//   the whole level's, 320 CTAs at the whole tile's level 0.
+// - The segment table: runs of rows [r0, r1) of the source, each a base
+//   pointer and its channel, quadrant and row strides. Rows are read in
+//   place: a CTA computes each window slot's plane row as the whole-plane
+//   path does (y.sample on the global pair, REPEAT's modulo and the fake
+//   odd row of an odd height included) and loads it from the segment that
+//   holds it (the first one, by a scan), with 16-byte cp.async copies
+//   where the row is 16-byte aligned and the plane's rows a multiple of 8
+//   samples, else one sample at a time. The host (parallel/halo.py) gives
+//   a launch one segment a source, its device's buffer at the source's
+//   full height, into which it first copies, at their own rows, only the
+//   rows that the device's windows need from other devices.
+// - Forward: the input is int16 planes after colour (no u8 staging): the
+//   level's plane at level 0, then the previous level's LL. LL rows, and
+//   the q heads and gated, quantized C, B, D at their wire offsets, go to
+//   outputs that hold pairs [out_p0, out_p0 + out_len) in stream layout
+//   (on the home device the output stream's level chunk itself, out_p0 =
+//   0); the shard whose first pair is out_p0 stores the q heads.
+// - Inverse: two tables in one, the LL rows by pair [0, lls) and the C, B,
+//   D rows by pair [lls, segs) (the stream's chunk on the home device),
+//   and the q heads by pointer and stride; dequantized as they load. The
+//   output holds the plane's rows [2 out_p0, 2 out_p0 + out_len).
+// Bound: bytes, as lift_level (on one card a level's plane read once and
+// its outputs written once); one launch fills the SMs as lift_level's
+// does, so a launch costs about lift_level's time on the level, and the
+// small levels (3 and 4 of the whole tile) about a launch's floor.
+// lift_level_rows / unlift_level_rows (ops/lift_kernels.py) are the
+// one-shard case: a table of one shard whose segments are its window
+// buffer's runs of rows.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -132,13 +148,42 @@ struct LevelArgs {
     int plane;
     int stage;
     int smem;
-    // the row-window launches (K7) alone: the shard's pairs [p0, p1) of
-    // the level's rows, and its window buffer's first pair and pairs per
-    // channel; the whole-plane launches read none of them
-    int p0;
-    int p1;
-    int win_lo;
-    int win_n;
+};
+
+constexpr int kMaxShards = 32;
+constexpr int kMaxSegs = 64;
+
+// A run of rows [r0, r1) of a K7 launch's source: forward, rows of the
+// level's plane; inverse, pairs of the level (its LL rows, or its C, B, D
+// rows). Row r of channel ch (quadrant q of C, B, D) at base + ch * chan +
+// q * quad + (r - r0) * pitch, in int16 elements. Mirrors kernels.Seg.
+struct Seg {
+    const int16_t* base;
+    long long chan;
+    long long quad;
+    int r0;
+    int r1;
+    int pitch;
+};
+
+// K7's tables (SHARDS instances alone; mirrors kernels.ShardArgs): the
+// shards, in pair order, the first CTA of each (cta0[shards] the grid;
+// set by the launcher), the segments (inverse: the LL ones [0, lls), the
+// C, B, D ones [lls, segs)), the outputs' pairs (forward) or rows
+// (inverse) [out_p0, out_p0 + out_len) (inverse: rows from 2 out_p0), and
+// the inverse's q heads, channel ch's at heads[ch * head_stride].
+struct ShardArgs {
+    int shards;
+    int p0[kMaxShards];
+    int p1[kMaxShards];
+    int cta0[kMaxShards + 1];
+    int segs;
+    int lls;
+    int out_p0;
+    int out_len;
+    const int16_t* heads;
+    long long head_stride;
+    Seg seg[kMaxSegs];
 };
 
 namespace {
@@ -200,33 +245,52 @@ __device__ void step_cols(int16_t* p, int C, int plane, int pitch, int first, in
     __syncthreads();
 }
 
-// The CTA's tile t, its region's index in the tile (row-major over the
-// regions) and its two axes; the rows' regions cover pairs [p0, p1).
+// The CTA's tile t, its region's index (row-major over the regions of its
+// tile, or of its shard) and its two axes; the rows' regions cover pairs
+// [p0, p1).
 template <int WAV>
 struct Region {
     int t, idx;
     Axis y, x;
-    __device__ Region(const LevelArgs& a, int p0, int p1, int nx, int ny)
-        : t(blockIdx.x / (nx * ny)),
-          idx(blockIdx.x - t * nx * ny),
-          y(a.height, a.rh, idx / nx, halo(WAV), a.wrap == REPEAT, p0, p1),
-          x(a.width, a.rw, idx % nx, halo(WAV), a.wrap == REPEAT, 0, (a.width + 1) / 2) {}
-    __device__ Region(const LevelArgs& a, int p0, int p1)
-        : Region(a, p0, p1, ((a.width + 1) / 2 + a.rw - 1) / a.rw, (p1 - p0 + a.rh - 1) / a.rh) {}
+    __device__ Region(const LevelArgs& a, int t_, int idx_, int nx, int p0, int p1)
+        : t(t_),
+          idx(idx_),
+          y(a.height, a.rh, idx_ / nx, halo(WAV), a.wrap == REPEAT, p0, p1),
+          x(a.width, a.rw, idx_ % nx, halo(WAV), a.wrap == REPEAT, 0, (a.width + 1) / 2) {}
 };
 
-// The pairs of the level's rows a launch makes: the whole plane's, or
-// (ROWS) the shard's.
-template <bool ROWS>
-__device__ __forceinline__ int first_pair(const LevelArgs& a) { return ROWS ? a.p0 : 0; }
-template <bool ROWS>
-__device__ __forceinline__ int end_pair(const LevelArgs& a) { return ROWS ? a.p1 : (a.height + 1) / 2; }
+// The whole plane's CTAs, tile by tile; or (SHARDS) the shard's whose CTAs
+// hold blockIdx.x, found by a scan of the prefix counts.
+template <int WAV, bool SHARDS>
+__device__ __forceinline__ Region<WAV> region(const LevelArgs& a, const ShardArgs* s) {
+    const int nx = ((a.width + 1) / 2 + a.rw - 1) / a.rw, b = blockIdx.x;
+    if constexpr (SHARDS) {
+        int i = 0;
+        while (i + 1 < s->shards && s->cta0[i + 1] <= b) ++i;
+        return Region<WAV>(a, 0, b - s->cta0[i], nx, s->p0[i], s->p1[i]);
+    } else {
+        const int n = (a.height + 1) / 2, per = nx * ((n + a.rh - 1) / a.rh), t = b / per;
+        return Region<WAV>(a, t, b - t * per, nx, 0, n);
+    }
+}
 
-template <int WAV, bool ROWS>
-__device__ __forceinline__ void lift_body(const LevelArgs& a, const void* __restrict__ src,
-                                          int16_t* stream, int16_t* ll) {
+// The first of segments [first, end) that holds row r (the host's tables
+// cover every row a CTA reads), and channel ch's row r in a segment.
+__device__ __forceinline__ const Seg& seg_of(const ShardArgs* s, int first, int end, int r) {
+    int i = first;
+    while (i + 1 < end && (r < s->seg[i].r0 || r >= s->seg[i].r1)) ++i;
+    return s->seg[i];
+}
+__device__ __forceinline__ const int16_t* seg_row(const Seg& g, int ch, int r) {
+    return g.base + ch * g.chan + (long long)(r - g.r0) * g.pitch;
+}
+
+template <int WAV, bool SHARDS>
+__device__ __forceinline__ void lift_body(const LevelArgs& a, const ShardArgs* s,
+                                          const void* __restrict__ src, int16_t* stream,
+                                          int16_t* ll) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Region<WAV> g(a, first_pair<ROWS>(a), end_pair<ROWS>(a));
+    const Region<WAV> g = region<WAV, SHARDS>(a, s);
     const Axis &y = g.y, &x = g.x;
     const int C = a.channels, h = a.height, w = a.width, pitch = a.pitch, plane = a.plane;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -236,11 +300,13 @@ __device__ __forceinline__ void lift_body(const LevelArgs& a, const void* __rest
     const int s0 = 2 * max(x.lo, 0), s1 = min(w, 2 * min(x.hi, x.n));
     // the int16 planes' rows are 16-byte aligned: the window starts sh
     // samples into its row, so that sample s lands at column s - 2 lo + sh,
-    // equal to s modulo 8 (pitch and plane are multiples of 8 samples)
-    const bool vec16 = (ROWS || !a.u8) && (((uintptr_t)src & 15) | (w & 7)) == 0;
+    // equal to s modulo 8 (pitch and plane are multiples of 8 samples).
+    // SHARDS: rows a multiple of 8 samples; each row's alignment is its
+    // segment's, checked as it loads
+    const bool vec16 = SHARDS ? (w & 7) == 0 : !a.u8 && (((uintptr_t)src & 15) | (w & 7)) == 0;
     int16_t* p = reinterpret_cast<int16_t*>(smem) + (vec16 ? (2 * x.lo) & 7 : 0);
 
-    if (!ROWS && a.u8) {
+    if (!SHARDS && a.u8) {
         // the bytes [b0, b1) of each window row, its samples [s0, s1),
         // staged per warp (two rows, one in flight while the other is
         // converted) with 16-byte cp.async copies when the tiles' rows are
@@ -299,21 +365,24 @@ __device__ __forceinline__ void lift_body(const LevelArgs& a, const void* __rest
         // cp.async (w is a multiple of 8, so the chunks end inside the
         // row) and the window's columns outside them, [0, i0) and [i1, wc),
         // one sample at a time; else every column one sample at a time.
-        // ROWS: window slot j is row 2 (lo - win_lo) + j of the shard's
-        // window buffer, 2 win_n rows a channel
-        const int src_rows = ROWS ? 2 * a.win_n : h;
-        const int16_t* planes = static_cast<const int16_t*>(src) + (size_t)g.t * C * src_rows * w;
+        // SHARDS: window slot j's plane row read in place from the segment
+        // that holds it, one sample at a time where it is not 16-byte aligned
+        const int16_t* planes =
+            SHARDS ? nullptr : static_cast<const int16_t*>(src) + (size_t)g.t * C * h * w;
         const int a0 = s0 & ~7, nv = vec16 ? (s1 - a0 + 7) >> 3 : 0;
         const int i0 = vec16 ? s0 - 2 * x.lo : wc, i1 = vec16 ? s1 - 2 * x.lo : wc;
         for (int l = warp; l < C * wr; l += kWarps) {
             const int ch = l / wr, j = l - ch * wr;
-            const int sr = ROWS ? 2 * (y.lo - a.win_lo) + j : y.sample(j);
-            const int16_t* row = planes + ((size_t)ch * src_rows + sr) * w;
+            const int16_t* row;
+            if constexpr (SHARDS) row = seg_row(seg_of(s, 0, s->segs, y.sample(j)), ch, y.sample(j));
+            else row = planes + ((size_t)ch * h + y.sample(j)) * w;
+            const bool rv = !SHARDS || ((uintptr_t)row & 15) == 0;
+            const int rnv = rv ? nv : 0, ri0 = rv ? i0 : wc, ri1 = rv ? i1 : wc;
             int16_t* dst = p + ch * plane + j * pitch;
-            for (int v = lane; v < nv; v += 32)
+            for (int v = lane; v < rnv; v += 32)
                 cp_async16(dst + a0 - 2 * x.lo + 8 * v, row + a0 + 8 * v);
-            for (int i = lane; i < i0; i += 32) dst[i] = row[x.sample(i)];
-            for (int i = i1 + lane; i < wc; i += 32) dst[i] = row[x.sample(i)];
+            for (int i = lane; i < ri0; i += 32) dst[i] = row[x.sample(i)];
+            for (int i = ri1 + lane; i < wc; i += 32) dst[i] = row[x.sample(i)];
         }
         cp_async_commit();
         cp_async_wait<0>();
@@ -331,12 +400,13 @@ __device__ __forceinline__ void lift_body(const LevelArgs& a, const void* __rest
     step_cols<WAV, UPDATE>(p, C, plane, pitch, c0, nc, y, y.r0, y.r1, a.wrap);
 
     // LL at the even (row, column) slots, C at the odd rows, B at the odd
-    // columns, D at both -> the LL planes and [q head][C][B][D] of the
-    // launch's rows [o0, o0 + rows): the whole plane's, or the shard's
-    const int o0 = first_pair<ROWS>(a), rows = end_pair<ROWS>(a) - o0;
+    // columns, D at both -> the LL planes and [q head][C][B][D] of pairs
+    // [o0, o0 + rows): the whole plane's, or (SHARDS) the outputs'; the q
+    // heads by the region at pair o0's first column
+    const int o0 = SHARDS ? s->out_p0 : 0, rows = SHARDS ? s->out_len : (h + 1) / 2;
     const int tw = x.n, n = rows * tw, nr = y.r1 - y.r0;
     int16_t* chunks = stream + (size_t)g.t * a.coeffs + a.off;
-    if (g.idx == 0 && (int)threadIdx.x < C)
+    if (g.idx == 0 && y.r0 == o0 && (int)threadIdx.x < C)
         chunks[threadIdx.x * (1 + 3 * n)] = (int16_t)a.q[threadIdx.x];
     Divider div(1);
     int cur = -1, gate = 0;
@@ -361,40 +431,51 @@ __device__ __forceinline__ void lift_body(const LevelArgs& a, const void* __rest
     }
 }
 
-template <int WAV, bool ROWS>
-__device__ __forceinline__ void unlift_body(const LevelArgs& a, const int16_t* ll,
-                                            const int16_t* stream, void* __restrict__ dst) {
+template <int WAV, bool SHARDS>
+__device__ __forceinline__ void unlift_body(const LevelArgs& a, const ShardArgs* s,
+                                            const int16_t* ll, const int16_t* stream,
+                                            void* __restrict__ dst) {
     extern __shared__ __align__(16) unsigned char smem[];
     int16_t* p = reinterpret_cast<int16_t*>(smem);
-    const Region<WAV> g(a, first_pair<ROWS>(a), end_pair<ROWS>(a));
+    const Region<WAV> g = region<WAV, SHARDS>(a, s);
     const Axis &y = g.y, &x = g.x;
     const int C = a.channels, h = a.height, w = a.width, pitch = a.pitch, plane = a.plane;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    // pairs a channel of the LL and chunk buffers holds: the plane's, or
-    // (ROWS) the window's, whose first is pair win_lo
-    const int src_pairs = ROWS ? a.win_n : y.n, tw = x.n, n = src_pairs * tw;
+    const int tw = x.n, n = y.n * tw;
     const int npr = y.hi - y.lo, npc = x.hi - x.lo;
 
     // the window's pairs: LL at the even (row, column) slots, C, B, D
     // dequantized by the channel's q head at the odd ones. Loaded through
     // registers, coalesced along rows: each quadrant's row lands at every
     // other slot and C, B, D are multiplied, which a byte copy into shared
-    // memory cannot do
-    const int16_t* chunks = stream + (size_t)g.t * a.coeffs + a.off;
+    // memory cannot do. SHARDS: pair gr's LL and C, B, D rows from the
+    // segments that hold them, the q heads from their own pointer
     for (int l = warp; l < C * npr; l += kWarps) {
-        const int ch = l / npr, i = l - ch * npr, gr = ROWS ? y.lo + i - a.win_lo : y.pair(i);
-        const int16_t* chunk = chunks + ch * (1 + 3 * n);
-        const int q = chunk[0];
+        const int ch = l / npr, i = l - ch * npr, gr = y.pair(i);
+        const int16_t *lrow, *crow;
+        long long qs;  // elements from a pair's C row to its B row, and B to D
+        int q;
+        if constexpr (SHARDS) {
+            const Seg& c = seg_of(s, s->lls, s->segs, gr);
+            lrow = seg_row(seg_of(s, 0, s->lls, gr), ch, gr);
+            crow = seg_row(c, ch, gr);
+            qs = c.quad;
+            q = s->heads[ch * s->head_stride];
+        } else {
+            const int16_t* chunk = stream + (size_t)g.t * a.coeffs + a.off + ch * (1 + 3 * n);
+            q = chunk[0];
+            lrow = ll + (size_t)g.t * a.ll_stride + ((size_t)ch * y.n + gr) * tw;
+            crow = chunk + 1 + (size_t)gr * tw;
+            qs = n;
+        }
         auto dq = [&](int v) -> int16_t { return (int16_t)(q > 1 ? v * q : v); };
-        const int16_t* lrow = ll + (size_t)g.t * a.ll_stride + ((size_t)ch * src_pairs + gr) * tw;
-        const int16_t* crow = chunk + 1 + (size_t)gr * tw;
         int16_t* e = p + ch * plane + 2 * i * pitch;
         for (int j = lane; j < npc; j += 32) {
             const int gc = x.pair(j);
             e[2 * j] = lrow[gc];
-            e[pitch + 2 * j] = dq(crow[gc]);              // C
-            e[2 * j + 1] = dq(crow[n + gc]);              // B
-            e[pitch + 2 * j + 1] = dq(crow[2 * n + gc]);  // D
+            e[pitch + 2 * j] = dq(crow[gc]);               // C
+            e[2 * j + 1] = dq(crow[qs + gc]);              // B
+            e[pitch + 2 * j + 1] = dq(crow[2 * qs + gc]);  // D
         }
     }
     __syncthreads();
@@ -411,10 +492,10 @@ __device__ __forceinline__ void unlift_body(const LevelArgs& a, const int16_t* l
     step_rows<WAV, UNDO_PREDICT>(p, C, plane, pitch, first, nrows, x, x.r0, x.r1, a.wrap);
 
     const int16_t* win = p + (first - row0) * pitch - 2 * x.lo;  // sample (r, c) at win[r * pitch + c]
-    if (ROWS || !a.u8) {
-        // the plane's rows [o0, o0 + rows): all of them, or (ROWS) the
-        // shard's [2 p0, min(2 p1, h))
-        const int o0 = 2 * first_pair<ROWS>(a), rows = min(2 * end_pair<ROWS>(a), h) - o0;
+    if (SHARDS || !a.u8) {
+        // the plane's rows [o0, o0 + rows): all of them, or (SHARDS) the
+        // output's
+        const int o0 = SHARDS ? 2 * s->out_p0 : 0, rows = SHARDS ? s->out_len : h;
         int16_t* out = static_cast<int16_t*>(dst) + (size_t)g.t * C * rows * w;
         for (int l = warp; l < C * nrows; l += kWarps) {
             const int ch = l / nrows, r = row0 + l - ch * nrows;
@@ -442,62 +523,77 @@ __device__ __forceinline__ void unlift_body(const LevelArgs& a, const int16_t* l
     }
 }
 
-// The whole-plane kernels (lift_level / unlift_level) and K7's row-window
-// ones (lift_level_rows / unlift_level_rows): one body each way, the
-// window a compile-time choice, so the whole-plane kernels read none of
-// its fields.
+// The whole-plane kernels (lift_level / unlift_level) and K7's shard-table
+// ones (lift_level_shards / unlift_level_shards): one body each way, the
+// tables a compile-time choice, so the whole-plane kernels read none of
+// them.
 template <int WAV>
 __global__ void __launch_bounds__(kThreads)
     lift_level(const LevelArgs a, const void* __restrict__ src, int16_t* stream, int16_t* ll) {
-    lift_body<WAV, false>(a, src, stream, ll);
+    lift_body<WAV, false>(a, nullptr, src, stream, ll);
 }
 
 template <int WAV>
 __global__ void __launch_bounds__(kThreads)
-    lift_level_rows(const LevelArgs a, const void* __restrict__ src, int16_t* stream, int16_t* ll) {
-    lift_body<WAV, true>(a, src, stream, ll);
+    lift_level_shards(const LevelArgs a, const __grid_constant__ ShardArgs s, int16_t* stream,
+                      int16_t* ll) {
+    lift_body<WAV, true>(a, &s, nullptr, stream, ll);
 }
 
 template <int WAV>
 __global__ void __launch_bounds__(kThreads)
     unlift_level(const LevelArgs a, const int16_t* ll, const int16_t* stream, void* __restrict__ dst) {
-    unlift_body<WAV, false>(a, ll, stream, dst);
+    unlift_body<WAV, false>(a, nullptr, ll, stream, dst);
 }
 
 template <int WAV>
 __global__ void __launch_bounds__(kThreads)
-    unlift_level_rows(const LevelArgs a, const int16_t* ll, const int16_t* stream,
-                      void* __restrict__ dst) {
-    unlift_body<WAV, true>(a, ll, stream, dst);
+    unlift_level_shards(const LevelArgs a, const __grid_constant__ ShardArgs s,
+                        void* __restrict__ dst) {
+    unlift_body<WAV, true>(a, &s, nullptr, nullptr, dst);
 }
 
 // The grid (one CTA per tile and region), or -1 for arguments beyond the
 // kernel's limits. The shared-memory layout is the caller's (level_layout);
 // this checks only that its buffers lie in the bytes the launch asks for,
-// aligned for the 16-byte copies, and that those fit a block. A row-window
-// launch (`rows`) takes int16 planes, and its window must hold its pairs
-// and their halo, clipped to the line or, for REPEAT, unclipped.
-long long level_grid(const LevelArgs& a, int tiles, bool stage, bool rows) {
+// aligned for the 16-byte copies, and that those fit a block.
+long long level_grid(const LevelArgs& a, int tiles, bool stage) {
     if (a.channels < 1 || a.channels > kLevelChannels || a.height < 1 || a.width < 1 ||
         a.rh < 1 || a.rw < 1 || a.pitch < 1 || tiles < 1 || a.wavelet < DD137 || a.wavelet > HAAR)
         return -1;
     const long long used = 2LL * a.channels * a.plane + (stage ? 2LL * kWarps * a.stage : 0);
     if ((a.pitch | a.plane) % 8 || (stage && a.stage % 16) || used > a.smem || a.smem > kMaxSmem)
         return -1;
-    const int n = (a.height + 1) / 2;
-    int p0 = 0, p1 = n;
-    if (rows) {
-        const int hl = halo(a.wavelet), rep = a.wrap == REPEAT;
-        const int lo = rep ? a.p0 - hl : (a.p0 - hl > 0 ? a.p0 - hl : 0);
-        const int hi = rep ? a.p1 + hl : (a.p1 + hl < n ? a.p1 + hl : n);
-        if (a.u8 || a.p0 < 0 || a.p1 > n || a.p0 >= a.p1 || a.win_lo > lo || a.win_lo + a.win_n < hi)
-            return -1;
-        p0 = a.p0;
-        p1 = a.p1;
-    }
-    const long long grid = (long long)tiles * ((p1 - p0 + a.rh - 1) / a.rh) *
+    const long long grid = (long long)tiles * (((a.height + 1) / 2 + a.rh - 1) / a.rh) *
                            (((a.width + 1) / 2 + a.rw - 1) / a.rw);
     return grid > INT_MAX ? -1 : grid;
+}
+
+// K7's grid, with s.cta0 filled, or -1: int16 planes of one tile, 1 to
+// kMaxShards non-empty shards in pair order inside the outputs' pairs, 1
+// to kMaxSegs segments (the inverse's LL ones and its C, B, D ones both
+// present), the inverse's q heads. That the segments hold every row the
+// windows read is the caller's to check (ops/lift_kernels.py).
+long long shard_grid(const LevelArgs& a, ShardArgs& s, bool inverse) {
+    if (a.u8 || level_grid(a, 1, false) < 0 || s.shards < 1 || s.shards > kMaxShards ||
+        s.segs < 1 || s.segs > kMaxSegs || s.out_p0 < 0 || s.out_len < 1 ||
+        (inverse ? s.lls < 1 || s.lls >= s.segs || !s.heads : s.lls != 0))
+        return -1;
+    const int n = (a.height + 1) / 2, nx = ((a.width + 1) / 2 + a.rw - 1) / a.rw;
+    long long ctas = 0;
+    for (int i = 0; i < s.shards; ++i) {
+        const int p0 = s.p0[i], p1 = s.p1[i];
+        const bool out = inverse ? 2 * p0 < 2 * s.out_p0 || min(2 * p1, a.height) > 2 * s.out_p0 + s.out_len
+                                 : p0 < s.out_p0 || p1 > s.out_p0 + s.out_len;
+        if (p0 < (i ? s.p1[i - 1] : 0) || p1 <= p0 || p1 > n || out) return -1;
+        s.cta0[i] = (int)ctas;
+        ctas += (long long)((p1 - p0 + a.rh - 1) / a.rh) * nx;
+        if (ctas > INT_MAX) return -1;
+    }
+    s.cta0[s.shards] = (int)ctas;
+    for (int i = 0; i < s.segs; ++i)
+        if (!s.seg[i].base || s.seg[i].r0 >= s.seg[i].r1 || s.seg[i].pitch < 1) return -1;
+    return ctas;
 }
 
 template <class... P, class... A>
@@ -526,7 +622,7 @@ int launch(void (*kernel)(P...), long long grid, int smem, cudaStream_t s, A... 
 extern "C" int ako_lift_level(const LevelArgs* args, const void* src, int16_t* out, int16_t* ll,
                               int tiles, void* stream) {
     const LevelArgs& a = *args;
-    const long long grid = level_grid(a, tiles, a.u8, false);
+    const long long grid = level_grid(a, tiles, a.u8);
     if (grid < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (a.wavelet) {
@@ -539,7 +635,7 @@ extern "C" int ako_lift_level(const LevelArgs* args, const void* src, int16_t* o
 extern "C" int ako_unlift_level(const LevelArgs* args, const int16_t* ll, const int16_t* coeffs,
                                 void* dst, int tiles, void* stream) {
     const LevelArgs& a = *args;
-    const long long grid = level_grid(a, tiles, false, false);
+    const long long grid = level_grid(a, tiles, false);
     if (grid < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (a.wavelet) {
@@ -549,35 +645,38 @@ extern "C" int ako_unlift_level(const LevelArgs* args, const int16_t* ll, const 
     }
 }
 
-// K7, one shard's launch (one tile). Forward: win is the shard's (channels,
-// 2 win_n, width) int16 window; the launch writes the q heads and C, B, D
-// of its pairs [p0, p1) to out, (channels, 1 + 3 (p1 - p0) tw) int16 in
-// stream layout, and their LL to ll, (channels, p1 - p0, tw). Inverse: the
-// (channels, win_n, tw) LL window at ll and the (channels, 1 + 3 win_n tw)
-// chunk window at coeffs -> dst, the plane's rows [2 p0, min(2 p1,
-// height)), (channels, rows, width) int16.
-extern "C" int ako_lift_level_rows(const LevelArgs* args, const int16_t* win, int16_t* out,
-                                   int16_t* ll, void* stream) {
+// K7, one launch over a device's shards of a level (one tile). Forward:
+// rows from the segments of `shards` (the plane's rows); the launch writes
+// the q heads and C, B, D of its shards' pairs to out, (channels, 1 + 3
+// out_len tw) int16 in stream layout of pairs [out_p0, out_p0 + out_len),
+// and their LL to ll, (channels, out_len, tw). Inverse: the LL and C, B, D
+// rows of the pairs from the segments and the q heads -> dst, the plane's
+// rows [2 out_p0, 2 out_p0 + out_len), (channels, out_len, width) int16.
+// `shards` is copied: the launcher fills its CTA counts.
+extern "C" int ako_lift_level_shards(const LevelArgs* args, const ShardArgs* shards, int16_t* out,
+                                     int16_t* ll, void* stream) {
     const LevelArgs& a = *args;
-    const long long grid = level_grid(a, 1, false, true);
+    ShardArgs t = *shards;
+    const long long grid = shard_grid(a, t, false);
     if (grid < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (a.wavelet) {
-        case DD137: return launch(lift_level_rows<DD137>, grid, a.smem, s, a, win, out, ll);
-        case CDF53: return launch(lift_level_rows<CDF53>, grid, a.smem, s, a, win, out, ll);
-        default: return launch(lift_level_rows<HAAR>, grid, a.smem, s, a, win, out, ll);
+        case DD137: return launch(lift_level_shards<DD137>, grid, a.smem, s, a, t, out, ll);
+        case CDF53: return launch(lift_level_shards<CDF53>, grid, a.smem, s, a, t, out, ll);
+        default: return launch(lift_level_shards<HAAR>, grid, a.smem, s, a, t, out, ll);
     }
 }
 
-extern "C" int ako_unlift_level_rows(const LevelArgs* args, const int16_t* ll,
-                                     const int16_t* coeffs, int16_t* dst, void* stream) {
+extern "C" int ako_unlift_level_shards(const LevelArgs* args, const ShardArgs* shards,
+                                       int16_t* dst, void* stream) {
     const LevelArgs& a = *args;
-    const long long grid = level_grid(a, 1, false, true);
+    ShardArgs t = *shards;
+    const long long grid = shard_grid(a, t, true);
     if (grid < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (a.wavelet) {
-        case DD137: return launch(unlift_level_rows<DD137>, grid, a.smem, s, a, ll, coeffs, dst);
-        case CDF53: return launch(unlift_level_rows<CDF53>, grid, a.smem, s, a, ll, coeffs, dst);
-        default: return launch(unlift_level_rows<HAAR>, grid, a.smem, s, a, ll, coeffs, dst);
+        case DD137: return launch(unlift_level_shards<DD137>, grid, a.smem, s, a, t, (void*)dst);
+        case CDF53: return launch(unlift_level_shards<CDF53>, grid, a.smem, s, a, t, (void*)dst);
+        default: return launch(unlift_level_shards<HAAR>, grid, a.smem, s, a, t, (void*)dst);
     }
 }

@@ -14,11 +14,13 @@ ako_tpu/ops/pallas_lift.py, with their plain torch versions.
   order fused (forward), or the dequantize and at level 0 the inverse
   colour transform fused (inverse). The fused wiring runs them on the
   levels before `pyramid_start`, and on every level when it is None.
-- One shard's rows of a level (K7, the row-sharded lift of
-  parallel/halo.py): `lift_level_rows` / `unlift_level_rows`, one launch
-  of lift_level.cu's row-window instances on the shard's window of rows,
-  quantize/gate and the shard's rows of the wire order fused (forward),
-  or the dequantize (inverse).
+- A device's shards of a row-sharded level (K7, the row-sharded lift of
+  parallel/halo.py): `lift_level_shards` / `unlift_level_shards`, one
+  launch of lift_level.cu's shard-table instances over the shards, their
+  rows read in place from a table of segments, quantize/gate and the wire
+  order fused (forward), or the dequantize (inverse).
+  `lift_level_rows` / `unlift_level_rows` are its one-shard case on a
+  window buffer of the shard's rows.
 - One 2-D level per call, in the two wirings of pallas_lift.py: "fused",
   one K1 (K2) call per level, csrc/lift2d.cu ako_lift2d / ako_unlift2d
   (`lift2d_level` / `unlift2d_level`, the per-level API that
@@ -45,6 +47,7 @@ from __future__ import annotations
 import functools
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -58,7 +61,7 @@ from ako_tpu_torch.runtime import kernels
 #: kernel launches per wrapper (one per call that reaches the card)
 LAUNCHES = {
     "lift2d": 0, "unlift2d": 0, "vlift": 0, "vunlift": 0, "lift_pyramid": 0, "unlift_pyramid": 0,
-    "lift_level": 0, "unlift_level": 0, "lift_level_rows": 0, "unlift_level_rows": 0,
+    "lift_level": 0, "unlift_level": 0, "lift_level_shards": 0, "unlift_level_shards": 0,
 }
 
 #: shared memory a pyramid block may take: at most 64 KB keeps three
@@ -535,6 +538,23 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _fitting_regions(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet) -> list:
+    lvl = schedule.levels[k]
+    weff = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+    fits = [r for r in LEVEL_REGIONS if level_layout(channels, r, weff, True)[3] <= LEVEL_SMEM_BYTES]
+    if not fits or channels > kernels.MAX_LEVEL_CHANNELS:
+        raise ValueError(f"lift_level: no region fits {channels} channels")
+    return fits
+
+
+def _pick_region(fits: list, ctas, sms: int) -> tuple:
+    for r in fits:
+        n = ctas(r)
+        if sms // 2 <= n <= sms or n >= 2 * sms:
+            return r
+    return fits[-1]
+
+
 @functools.lru_cache(maxsize=256)
 def level_region(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet, tiles: int,
                  sms: int) -> tuple:
@@ -551,15 +571,22 @@ def level_region(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet
     list there (chip_probe.py levels). A pure function of the shape and
     the card."""
     lvl = schedule.levels[k]
-    weff = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
-    fits = [r for r in LEVEL_REGIONS if level_layout(channels, r, weff, True)[3] <= LEVEL_SMEM_BYTES]
-    if not fits or channels > kernels.MAX_LEVEL_CHANNELS:
-        raise ValueError(f"lift_level: no region fits {channels} channels")
-    for rh, rw in fits:
-        ctas = tiles * -(-lvl.target_h // rh) * -(-lvl.target_w // rw)
-        if sms // 2 <= ctas <= sms or ctas >= 2 * sms:
-            return rh, rw
-    return fits[-1]
+    return _pick_region(_fitting_regions(schedule, k, channels, wavelet),
+                        lambda r: tiles * -(-lvl.target_h // r[0]) * -(-lvl.target_w // r[1]), sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def shards_region(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet, shards: tuple,
+                  sms: int) -> tuple:
+    """The region of a K7 launch over `shards`, the (p0, p1) pairs of level
+    k it lifts: level_region's rule on the launch's CTAs (each shard's
+    regions start at its first pair). A launch over every shard of a level,
+    as on one card, takes the whole level's region (16x64 at the whole
+    tile's levels 0 and 1 over 8 shards, 320 and 96 CTAs)."""
+    tw = schedule.levels[k].target_w
+    return _pick_region(
+        _fitting_regions(schedule, k, channels, wavelet),
+        lambda r: sum(-(-(p1 - p0) // r[0]) for p0, p1 in shards) * -(-tw // r[1]), sms)
 
 
 @functools.lru_cache(maxsize=256)
@@ -740,7 +767,7 @@ def inverse_levels(ll, coeffs, schedule: LiftSchedule, levels: range, wavelet: W
 
 
 # ---------------------------------------------------------------------
-# One shard's rows of a level (K7)
+# A device's shards of a row-sharded level (K7)
 
 
 def row_window(n: int, pairs: tuple, wavelet_eff: Wavelet, wrap: Wrap) -> tuple:
@@ -757,6 +784,64 @@ def row_window(n: int, pairs: tuple, wavelet_eff: Wavelet, wrap: Wrap) -> tuple:
     return lo, min(p1 + hl, n) - lo
 
 
+def window_pairs(win_lo: int, win_n: int, T: int, wrap: Wrap) -> list:
+    """The level's pair at each window pair: pair p, or p modulo T for
+    REPEAT."""
+    return [p % T if wrap == Wrap.REPEAT else p for p in range(win_lo, win_lo + win_n)]
+
+
+def window_rows(win_lo: int, win_n: int, lvl, wrap: Wrap) -> list:
+    """The plane's row at each row of a forward window: two a pair, an
+    odd height's fake odd row its last even one."""
+    return [min(2 * p + odd, lvl.current_h - 1)
+            for p in window_pairs(win_lo, win_n, lvl.target_h, wrap) for odd in (0, 1)]
+
+
+def pair_runs(lo: int, hi: int, n: int, wrap: Wrap) -> list:
+    """Window pairs [lo, hi) of a line of n pairs as runs [a, b) of the
+    line's pairs, in window order: one run, or for REPEAT one per stretch
+    between its wraps modulo n."""
+    if wrap != Wrap.REPEAT:
+        return [(lo, hi)]
+    runs = []
+    while lo < hi:
+        a = lo % n
+        b = min(n, a + hi - lo)
+        runs.append((a, b))
+        lo += b - a
+    return runs
+
+
+class Segment(NamedTuple):
+    """Rows [lo, lo + t.shape[-2]) of a K7 launch's source, read in place:
+    for the forward a (C, rows, current_w) view of the level's plane rows
+    from lo; for the inverse a (C, pairs, target_w) view of its LL rows or
+    a (C, 3, pairs, target_w) view of its C, B, D rows from pair lo. Any
+    strides, but rows contiguous."""
+
+    lo: int
+    t: torch.Tensor
+
+
+def window_segments(win, win_lo: int, lvl, pairs: tuple, wavelet_eff: Wavelet, wrap: Wrap,
+                    per_pair: int) -> list:
+    """The window of the shard that owns `pairs` (row_window's pairs) in a
+    window buffer of the level's pairs from win_lo (along dim -2, per_pair
+    rows a pair: 2 for the forward's plane rows, 1 for the inverse's LL or
+    C, B, D rows), as Segments by the plane's rows (below its height) or
+    the level's pairs: one, or for REPEAT's wrapped window one per run of
+    pair_runs. The buffer's other pairs are not in them."""
+    T = lvl.target_h
+    lo, n = row_window(T, pairs, wavelet_eff, wrap)
+    limit = lvl.current_h if per_pair == 2 else T
+    segs, i = [], per_pair * (lo - win_lo)
+    for a, b in pair_runs(lo, lo + n, T, wrap):
+        rows = min(per_pair * b, limit) - per_pair * a
+        segs.append(Segment(per_pair * a, win.narrow(-2, i, rows)))
+        i += per_pair * (b - a)
+    return segs
+
+
 def _check_rows(schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int, win_n: int,
                 wavelet: Wavelet, wrap: Wrap, name: str) -> None:
     lvl = schedule.levels[k]
@@ -768,23 +853,245 @@ def _check_rows(schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int, win_n
                          f"[{win_lo}, {win_lo + win_n}), which must hold [{lo}, {lo + wn})")
 
 
+def _spans(segs) -> list:
+    """The segments' rows [lo, hi), sorted."""
+    return sorted((s.lo, s.lo + s.t.shape[-2]) for s in segs)
+
+
+def _covers(spans, end: int) -> bool:
+    """The spans hold every row of [0, end)."""
+    a = 0
+    for lo, hi in spans:
+        if lo <= a < hi:
+            a = hi
+    return a >= end
+
+
+def _covered(spans, runs) -> bool:
+    """Every row of the runs [a, b) lies in a span."""
+    for a, b in runs:
+        for lo, hi in spans:
+            if lo <= a < hi:
+                a = hi
+            if a >= b:
+                break
+        if a < b:
+            return False
+    return True
+
+
+def _check_segs(segs, shape: tuple, device, name: str) -> None:
+    for s in segs:
+        t = s.t
+        if (t.dtype != torch.int16 or t.dim() != len(shape) + 1 or tuple(t.shape[:-2]) != shape[:-1]
+                or t.shape[-1] != shape[-1] or t.shape[-2] < 1 or t.stride(-1) != 1
+                or t.device != device):
+            raise ValueError(f"{name}: a segment of {t.dtype} {tuple(t.shape)} strides "
+                             f"{t.stride()} on {t.device}; expected int16 ({', '.join(map(str, shape[:-1]))}, "
+                             f"rows, {shape[-1]}) rows contiguous on {device}")
+
+
+def _check_shards(schedule: LiftSchedule, k: int, shards: tuple, seg_tables, out_p0: int,
+                  out_len: int, wavelet: Wavelet, wrap: Wrap, inverse: bool, name: str) -> None:
+    """A K7 launch's table: 1 to MAX_SHARDS non-empty shards in pair order,
+    inside the outputs, at most MAX_SEGS segments, and each table of
+    segments holding every row (forward) or pair (inverse) of each shard's
+    window (row_window: its pairs and halo, REPEAT's wrapped)."""
+    lvl = schedule.levels[k]
+    T, h = lvl.target_h, lvl.current_h
+    if not 1 <= len(shards) <= kernels.MAX_SHARDS:
+        raise ValueError(f"{name}: {len(shards)} shards; a launch takes 1 to {kernels.MAX_SHARDS}")
+    n_segs = sum(len(t) for t in seg_tables)
+    if n_segs > kernels.MAX_SEGS or not all(seg_tables):
+        raise ValueError(f"{name}: {n_segs} segments; a launch takes 1 to {kernels.MAX_SEGS} "
+                         "of each source")
+    weff = wavelets.effective_wavelet(wavelet, lvl.target_w, T)
+    # a table that holds the whole source holds every window
+    partial = [sp for sp in map(_spans, seg_tables) if not _covers(sp, T if inverse else h)]
+    prev = 0
+    for p0, p1 in shards:
+        inside = (2 * out_p0 <= 2 * p0 and min(2 * p1, h) <= 2 * out_p0 + out_len if inverse
+                  else out_p0 <= p0 and p1 <= out_p0 + out_len)
+        if not prev <= p0 < p1 <= T or not inside:
+            raise ValueError(f"{name}: shards {shards} of {T} pairs, outputs from {out_p0} "
+                             f"({out_len} a channel): each non-empty, in order, inside the outputs")
+        prev = p1
+        if not partial:
+            continue
+        lo, wn = row_window(T, (p0, p1), weff, wrap)
+        runs = pair_runs(lo, lo + wn, T, wrap)
+        if not inverse:
+            runs = [(2 * a, min(2 * b, h)) for a, b in runs]
+        for spans in partial:
+            if not _covered(spans, runs):
+                raise ValueError(f"{name}: the segments do not hold the window of pairs "
+                                 f"[{lo}, {lo + wn}) of shard {(p0, p1)}")
+
+
 @functools.lru_cache(maxsize=1024)
-def _rows_args(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet, wrap: Wrap, qg,
-               pairs: tuple, win_lo: int, win_n: int, region: tuple):
-    """The kernels' LevelArgs for one shard's launch on level k: the
-    shard's pairs and window, its outputs' layouts (stream layout of its
-    rows alone, off 0) and q/g (None for the inverse)."""
+def _k7_args(schedule: LiftSchedule, k: int, channels: int, wavelet: Wavelet, wrap: Wrap, qg,
+             region: tuple):
+    """The kernels' LevelArgs for a K7 launch on level k: int16 planes of
+    one tile, the outputs addressed by the ShardArgs (off 0), q/g (None
+    for the inverse)."""
     base = _level_args(schedule, k, channels, wavelet, wrap, None, Color.NONE, False, 0, region)
     a = kernels.LevelArgs.from_buffer_copy(base)
-    rows = pairs[1] - pairs[0]
-    tw = schedule.levels[k].target_w
-    a.u8, a.coeffs, a.off, a.ll_stride = 0, channels * (1 + 3 * rows * tw), 0, channels * rows * tw
-    a.p0, a.p1, a.win_lo, a.win_n = pairs[0], pairs[1], win_lo, win_n
+    a.u8, a.coeffs, a.off = 0, 0, 0
     if qg is not None:
         qs, gs = qg[k]
         a.q[:channels] = qs
         a.g[:channels] = gs
     return a
+
+
+def _shard_table(shards: tuple, seg_tables, out_p0: int, out_len: int, heads=None):
+    """A ShardArgs: the shards and the segments, table after table (the
+    inverse's LL ones first, `lls` of them)."""
+    t = kernels.ShardArgs()
+    t.shards = len(shards)
+    for i, (p0, p1) in enumerate(shards):
+        t.p0[i], t.p1[i] = p0, p1
+    segs = [s for table in seg_tables for s in table]
+    t.segs, t.lls = len(segs), len(seg_tables[0]) if len(seg_tables) > 1 else 0
+    for e, s in zip(t.seg, segs):
+        x = s.t
+        e.base, e.chan, e.pitch = x.data_ptr(), x.stride(0), x.stride(-2)
+        e.quad = x.stride(1) if x.dim() == 4 else 0
+        e.r0, e.r1 = s.lo, s.lo + x.shape[-2]
+    t.out_p0, t.out_len = out_p0, out_len
+    if heads is not None:
+        t.heads, t.head_stride = heads.data_ptr(), heads.stride(0)
+    return t
+
+
+def _window_of(segs, idx, dim: int):
+    """Rows idx (along dim) of the source the segments hold, each from the
+    first segment that holds it, in that order along dim."""
+    picks: dict = {}
+    for j, r in enumerate(idx):
+        i = next(i for i, s in enumerate(segs) if s.lo <= r < s.lo + s.t.shape[-2])
+        picks.setdefault(i, ([], []))
+        picks[i][0].append(j)
+        picks[i][1].append(r - segs[i].lo)
+    t0 = segs[0].t
+    out = t0.new_empty((*t0.shape[:dim], len(idx), *t0.shape[dim + 1 :]))
+    for i, (js, rs) in picks.items():
+        src = segs[i].t.index_select(dim, torch.tensor(rs, device=t0.device))
+        out.index_copy_(dim, torch.tensor(js, device=t0.device), src)
+    return out
+
+
+def lift_level_shards_plain(segs, schedule: LiftSchedule, k: int, shards, ll, chunk, out_p0: int,
+                            wavelet: Wavelet, wrap: Wrap, qg) -> None:
+    """The plain torch version of lift_level_shards, on any device: each
+    shard's window of rows (row_window) assembled from the segments by
+    indexing, lift_level_rows_plain on it, its outputs stored at their
+    offsets."""
+    lvl = schedule.levels[k]
+    C, out_len, tw = ll.shape
+    weff = wavelets.effective_wavelet(wavelet, tw, lvl.target_h)
+    cv = chunk.view(C, 1 + 3 * out_len * tw)
+    quads = cv[:, 1:].view(C, 3, out_len, tw)
+    for p0, p1 in shards:
+        win_lo, win_n = row_window(lvl.target_h, (p0, p1), weff, wrap)
+        win = _window_of(segs, window_rows(win_lo, win_n, lvl, wrap), 1)
+        sll, rows = lift_level_rows_plain(win, schedule, k, (p0, p1), win_lo, wavelet, wrap, qg)
+        rv = rows.view(C, 1 + 3 * (p1 - p0) * tw)
+        ll[:, p0 - out_p0 : p1 - out_p0] = sll
+        quads[:, :, p0 - out_p0 : p1 - out_p0] = rv[:, 1:].view(C, 3, p1 - p0, tw)
+        if p0 == out_p0:
+            cv[:, 0] = rv[:, 0]
+
+
+def unlift_level_shards_plain(ll_segs, cbd_segs, heads, schedule: LiftSchedule, k: int, shards,
+                              out, out_p0: int, wavelet: Wavelet, wrap: Wrap) -> None:
+    """The plain torch version of unlift_level_shards, on any device: each
+    shard's LL and chunk windows (row_window's pairs, the q heads first)
+    assembled from the segments by indexing, unlift_level_rows_plain on
+    them, its rows stored at their offset."""
+    lvl = schedule.levels[k]
+    C, T, tw = out.shape[0], lvl.target_h, lvl.target_w
+    weff = wavelets.effective_wavelet(wavelet, tw, T)
+    for p0, p1 in shards:
+        win_lo, win_n = row_window(T, (p0, p1), weff, wrap)
+        pairs = window_pairs(win_lo, win_n, T, wrap)
+        llw = _window_of(ll_segs, pairs, 1)
+        cbd = _window_of(cbd_segs, pairs, 2)
+        cw = torch.cat([heads.view(C, 1), cbd.reshape(C, -1)], dim=1).reshape(-1)
+        rows = unlift_level_rows_plain(llw, cw, schedule, k, (p0, p1), win_lo, wavelet, wrap)
+        out[:, 2 * (p0 - out_p0) : 2 * (p0 - out_p0) + rows.shape[1]] = rows
+
+
+def lift_level_shards(segs, schedule: LiftSchedule, k: int, shards, ll, chunk, out_p0: int,
+                      wavelet: Wavelet, wrap: Wrap, qg) -> None:
+    """K7 forward: one launch over `shards`, the non-empty pairs [p0, p1)
+    of level k in order (at most MAX_SHARDS). Rows are read in place from
+    `segs`, Segments of the level's (C, current_h, current_w) int16 plane
+    (at most MAX_SEGS; the first that holds a row serves it), which must
+    hold every row of each shard's window (row_window). Writes the shards'
+    LL rows to ll, (C, out_len, target_w) contiguous int16 holding pairs
+    [out_p0, out_p0 + out_len), and their gated, quantized C, B, D, with
+    the q heads when a shard starts at out_p0, to chunk, (C * (1 + 3
+    out_len target_w),) int16 in stream layout of those pairs (a level's
+    chunk of the stream when out_p0 is 0 and out_len the level's pairs).
+    One lift_level_shards launch, its region shards_region's."""
+    lvl = schedule.levels[k]
+    C, out_len, tw = ll.shape
+    shards = tuple(tuple(p) for p in shards)
+    _check_shards(schedule, k, shards, (segs,), out_p0, out_len, wavelet, wrap, False,
+                  "lift_level_shards")
+    _check_segs(segs, (C, lvl.current_w), ll.device, "lift_level_shards")
+    _check(ll, (out_len, lvl.target_w), "lift_level_shards ll")
+    if (chunk.dtype != torch.int16 or tuple(chunk.shape) != (C * (1 + 3 * out_len * tw),)
+            or not chunk.is_contiguous() or chunk.device != ll.device):
+        raise ValueError(f"lift_level_shards: expected a contiguous int16 chunk of "
+                         f"{C * (1 + 3 * out_len * tw)} on {ll.device}, got {chunk.dtype} "
+                         f"{tuple(chunk.shape)} on {chunk.device}")
+    if not _on_card(ll, "lift_level_shards"):
+        return lift_level_shards_plain(segs, schedule, k, shards, ll, chunk, out_p0, wavelet, wrap,
+                                       qg)
+    args = _k7_args(schedule, k, C, wavelet, wrap, tuple(qg),
+                    shards_region(schedule, k, C, wavelet, shards, sm_count(ll.device)))
+    table = _shard_table(shards, (segs,), out_p0, out_len)
+    with torch.cuda.device(ll.device):
+        kernels.lift_level_shards(args, table, chunk.data_ptr(), ll.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    kernels.count_launch(LAUNCHES, "lift_level_shards")
+
+
+def unlift_level_shards(ll_segs, cbd_segs, heads, schedule: LiftSchedule, k: int, shards, out,
+                        out_p0: int, wavelet: Wavelet, wrap: Wrap) -> None:
+    """K7 inverse: one launch over `shards` (as lift_level_shards). The LL
+    rows of level k by pair from `ll_segs`, Segments of its (C, target_h,
+    target_w) int16 LL, its C, B, D rows by pair from `cbd_segs`, Segments
+    of its (C, 3, target_h, target_w) quadrants (a level's chunk of the
+    stream: cv[:, 1:].view(C, 3, T, tw)), each table holding every pair of
+    each shard's window; the q heads are `heads`, (C,) int16 (any
+    stride); each shard's C, B, D are dequantized by them as they load.
+    Writes the shards' plane rows [2 p0, min(2 p1, current_h)) to out,
+    (C, out_len, current_w) contiguous int16 holding rows [2 out_p0, 2
+    out_p0 + out_len). One unlift_level_shards launch."""
+    lvl = schedule.levels[k]
+    C, out_len = out.shape[0], out.shape[1]
+    shards = tuple(tuple(p) for p in shards)
+    _check_shards(schedule, k, shards, (ll_segs, cbd_segs), out_p0, out_len, wavelet, wrap, True,
+                  "unlift_level_shards")
+    _check_segs(ll_segs, (C, lvl.target_w), out.device, "unlift_level_shards")
+    _check_segs(cbd_segs, (C, 3, lvl.target_w), out.device, "unlift_level_shards")
+    _check(out, (out_len, lvl.current_w), "unlift_level_shards out")
+    if heads.dtype != torch.int16 or tuple(heads.shape) != (C,) or heads.device != out.device:
+        raise ValueError(f"unlift_level_shards: expected int16 ({C},) q heads on {out.device}, "
+                         f"got {heads.dtype} {tuple(heads.shape)} on {heads.device}")
+    if not _on_card(out, "unlift_level_shards"):
+        return unlift_level_shards_plain(ll_segs, cbd_segs, heads, schedule, k, shards, out, out_p0,
+                                         wavelet, wrap)
+    args = _k7_args(schedule, k, C, wavelet, wrap, None,
+                    shards_region(schedule, k, C, wavelet, shards, sm_count(out.device)))
+    table = _shard_table(shards, (ll_segs, cbd_segs), out_p0, out_len, heads)
+    with torch.cuda.device(out.device):
+        kernels.unlift_level_shards(args, table, out.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+    kernels.count_launch(LAUNCHES, "unlift_level_shards")
 
 
 def _window_level(lvl, win_n: int) -> LiftLevel:
@@ -840,15 +1147,16 @@ def unlift_level_rows_plain(ll, chunk, schedule: LiftSchedule, k: int, pairs: tu
 
 def lift_level_rows(win, schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int,
                     wavelet: Wavelet, wrap: Wrap, qg):
-    """K7 forward: one shard's pairs [p0, p1) of level k. win is the
-    shard's (C, 2 win_n, current_w) int16 window, the level's rows of
-    pairs [win_lo, win_lo + win_n), two rows a pair (an odd height's fake
-    odd row stored as its even one), taken modulo the level's pairs for
-    REPEAT; it must hold row_window's pairs. Returns (ll, out): the
-    shard's (C, p1 - p0, target_w) LL, and its q heads and gated,
-    quantized C, B, D in stream layout of its rows, (C * (1 + 3 (p1 - p0)
-    target_w),) int16. One lift_level_rows launch, its CTAs' region the
-    whole level's (level_region for one tile)."""
+    """K7 forward on one shard's window buffer: the pairs [p0, p1) of
+    level k. win is the shard's (C, 2 win_n, current_w) int16 window, the
+    level's rows of pairs [win_lo, win_lo + win_n), two rows a pair (an
+    odd height's fake odd row stored as its even one), taken modulo the
+    level's pairs for REPEAT; it must hold row_window's pairs. Returns
+    (ll, out): the shard's (C, p1 - p0, target_w) LL, and its q heads and
+    gated, quantized C, B, D in stream layout of its rows, (C * (1 + 3
+    (p1 - p0) target_w),) int16. On the card one lift_level_shards launch
+    of one shard, its segments row_window's pairs of the buffer
+    (window_segments)."""
     lvl = schedule.levels[k]
     C, win_n = win.shape[0], win.shape[1] // 2
     _check_rows(schedule, k, pairs, win_lo, win_n, wavelet, wrap, "lift_level_rows")
@@ -857,27 +1165,24 @@ def lift_level_rows(win, schedule: LiftSchedule, k: int, pairs: tuple, win_lo: i
     _check(win, (2 * win_n, lvl.current_w), "lift_level_rows")
     if win.dim() != 3 or win.shape[1] % 2:
         raise ValueError(f"lift_level_rows: expected (C, 2 win_n, w) rows, got {tuple(win.shape)}")
-    rows, tw = pairs[1] - pairs[0], lvl.target_w
-    ll = win.new_empty((C, rows, tw))
-    out = win.new_empty((C * (1 + 3 * rows * tw),))
-    args = _rows_args(schedule, k, C, wavelet, wrap, tuple(qg), tuple(pairs), win_lo, win_n,
-                      level_region(schedule, k, C, wavelet, 1, sm_count(win.device)))
-    with torch.cuda.device(win.device):
-        kernels.lift_level_rows(args, win.data_ptr(), out.data_ptr(), ll.data_ptr(),
-                                torch.cuda.current_stream().cuda_stream)
-    kernels.count_launch(LAUNCHES, "lift_level_rows")
+    rows = pairs[1] - pairs[0]
+    ll = win.new_empty((C, rows, lvl.target_w))
+    out = win.new_empty((C * (1 + 3 * rows * lvl.target_w),))
+    weff = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+    lift_level_shards(window_segments(win, win_lo, lvl, pairs, weff, wrap, 2), schedule, k,
+                      [pairs], ll, out, pairs[0], wavelet, wrap, qg)
     return ll, out
 
 
 def unlift_level_rows(ll, chunk, schedule: LiftSchedule, k: int, pairs: tuple, win_lo: int,
                       wavelet: Wavelet, wrap: Wrap):
-    """K7 inverse: one shard's rows of level k's plane. ll is the shard's
-    (C, win_n, target_w) int16 LL window and chunk its (C * (1 + 3 win_n
+    """K7 inverse on one shard's window buffers: ll is the shard's (C,
+    win_n, target_w) int16 LL window and chunk its (C * (1 + 3 win_n
     target_w),) chunk window in stream layout (each channel's q head, then
     its C, B, D rows), both of pairs [win_lo, win_lo + win_n) as
     lift_level_rows's window. Returns the plane's rows [2 p0, min(2 p1,
-    current_h)), (C, rows, current_w) int16. One unlift_level_rows
-    launch."""
+    current_h)), (C, rows, current_w) int16. On the card one
+    unlift_level_shards launch of one shard."""
     lvl = schedule.levels[k]
     C, win_n, tw = ll.shape
     _check_rows(schedule, k, pairs, win_lo, win_n, wavelet, wrap, "unlift_level_rows")
@@ -890,10 +1195,10 @@ def unlift_level_rows(ll, chunk, schedule: LiftSchedule, k: int, pairs: tuple, w
                          f"{C * (1 + 3 * win_n * tw)} on {ll.device}, got {chunk.dtype} "
                          f"{tuple(chunk.shape)} on {chunk.device}")
     out = ll.new_empty((C, min(2 * pairs[1], lvl.current_h) - 2 * pairs[0], lvl.current_w))
-    args = _rows_args(schedule, k, C, wavelet, wrap, None, tuple(pairs), win_lo, win_n,
-                      level_region(schedule, k, C, wavelet, 1, sm_count(ll.device)))
-    with torch.cuda.device(ll.device):
-        kernels.unlift_level_rows(args, ll.data_ptr(), chunk.data_ptr(), out.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
-    kernels.count_launch(LAUNCHES, "unlift_level_rows")
+    cv = chunk.view(C, 1 + 3 * win_n * tw)
+    weff = wavelets.effective_wavelet(wavelet, tw, lvl.target_h)
+    unlift_level_shards(window_segments(ll, win_lo, lvl, pairs, weff, wrap, 1),
+                        window_segments(cv[:, 1:].view(C, 3, win_n, tw), win_lo, lvl, pairs, weff,
+                                        wrap, 1),
+                        cv[:, 0], schedule, k, [pairs], out, pairs[0], wavelet, wrap)
     return out

@@ -5,8 +5,9 @@ ako_tpu/parallel/):
   shape group cut over a mesh axis, each shard running the one-device
   encode / decode on its tiles on its own stream.
 - `halo`: sharded-single-tile lifting — one huge tile's rows sharded
-  over the mesh, each level's shards lifted by K7 (csrc/lift_level.cu's
-  row-window instances) on windows of rows copied from their neighbours.
+  over the mesh, each sharded level lifted by one K7 launch per device
+  (csrc/lift_level.cu's shard-table instances) that reads its shards'
+  rows and halos in place, only rows held on another device copied.
 - `multihost`: images sharded over processes (gloo), no codec byte
   crossing them.
 """

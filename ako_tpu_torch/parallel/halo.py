@@ -1,39 +1,46 @@
 """Sharded-single-tile lifting: one tile's rows sharded over a mesh axis
 (the port of ako_tpu/parallel/halo.py).
 
-Each level whose V pass shards (`plan_levels`, as ako_tpu's) runs one K7
-launch per non-empty shard: lift_kernels.lift_level_rows /
-unlift_level_rows, the row-window instances of csrc/lift_level.cu, whose
-row axis keeps the whole level's global pair indices, so that the edge
-rules apply where the true edge lies. Shard s of a sharded level owns the
-pairs [s m, min((s + 1) m, T)) of its T, m = ceil(T / n): the last shards
-may be partial or empty, as in ako_tpu's plan, and an empty one launches
-nothing.
+Shard s of a sharded level (`plan_levels`, as ako_tpu's) owns the pairs
+[s m, min((s + 1) m, T)) of its T, m = ceil(T / n): the last shards may be
+partial or empty, as in ako_tpu's plan. Each sharded level runs one K7
+launch per device over that device's non-empty shards
+(lift_kernels.lift_level_shards / unlift_level_shards, the shard-table
+instances of csrc/lift_level.cu), on the stream of the device's first
+shard, after an event from each source. The kernel's row axis keeps the
+whole level's global pair indices, so the edge rules apply where the true
+edge lies and REPEAT's halo is taken modulo the pairs; ragged or empty
+shards need nothing, so ako_tpu's crafted pads and boundary fixes
+(_pad_fwd, _pad_inv, _fix_fwd, _fix_inv), which exist because shard_map
+needs equal blocks, have no counterpart.
 
 What ako_tpu's shard_map programs take from their neighbours by a cyclic
-lax.ppermute, the port copies: `_fill_rows` builds a shard's window, the
-level's rows of its pairs and their halo (3 pairs for DD 13/7, 1 for
-CDF 5/3, 0 for Haar; lift_kernels.row_window), clipped to the line or
-for REPEAT taken modulo the pairs, out of whichever shards own those
-rows, into a separate allocation on the shard's device, on the shard's
-stream, after an event from each source's stream. The same copies
-reshard between levels (m changes per level), and gather the shards'
-rows of each quadrant into the output stream. Shards may be ragged, so
-ako_tpu's crafted pads and boundary fixes (_pad_fwd, _pad_inv,
-_fix_fwd, _fix_inv), which exist because shard_map needs equal blocks,
-have no counterpart. A window never aliases another shard's storage,
-even on one device: the copies that several cards need are the copies
-one card makes.
+lax.ppermute, a launch reads in place: each of its sources is one segment,
+a buffer of its device at the source's full height that holds its shards'
+rows (the input planes, each level's LL or plane, one buffer a device and
+level) or, on the device of the axis's first shard (home), the stream.
+Only rows held on another device are copied: the rows of the device's
+windows (each shard's pairs and their halo, 3 pairs for DD 13/7, 1 for
+CDF 5/3, 0 for Haar; lift_kernels.row_window) that lie there, one copy per
+run of rows, into that buffer at their own rows (a new one where the
+device holds none of the source). The forward writes C, B, D and the
+q heads straight to their wire offsets on home, and each level's LL to
+its device's buffer, which on home is the next replicated level's input
+or the stream's LP head; the inverse writes each level's plane to its
+device's buffer, at level 0 straight into the output on home. A device
+other than home writes into buffers of its own, gathered to home by one
+copy per run of rows. So on one card a call copies nothing.
 
-The levels too small to shard run replicated on the axis's first device
-through the port's one-device route (lift_kernels.forward_levels up to
-pyramid_start, then forward_pyramid; the inverse likewise), writing
-straight into the stream. Copies between cards go through Tensor.copy_
-(peer to peer where the cards allow it); nothing here needs a collective.
+The levels too small to shard run replicated on home through the port's
+one-device route (lift_kernels.forward_levels up to pyramid_start, then
+forward_pyramid; the inverse likewise), writing straight into the stream.
+Copies between cards go through Tensor.copy_ (peer to peer where the cards
+allow it); nothing here needs a collective.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -42,16 +49,20 @@ from ako_tpu_torch.core.geometry import LiftLevel, LiftSchedule
 from ako_tpu_torch.core.settings import Color, Wavelet, Wrap
 from ako_tpu_torch.ops import lift_kernels as lk
 from ako_tpu_torch.ops import lifting
+from ako_tpu_torch.ops.lift_kernels import Segment, pair_runs
+# the windows' pairs and rows, as ako_tpu_torch.parallel.halo names them
+from ako_tpu_torch.ops.lift_kernels import window_pairs, window_rows  # noqa: F401
 from ako_tpu_torch.ops.wavelets import effective_wavelet
 from ako_tpu_torch.parallel.mesh import Caller, Mesh, Shard
-from ako_tpu_torch.runtime.kernels import count_launch
+from ako_tpu_torch.runtime.kernels import MAX_SHARDS, count_launch
 
 # Minimum evens a shard must keep for the DD137 V-stencil's MIRROR /
 # second-tap substitutions and ppermute halo slices to stay local.
 _MIN_LOCAL_EVENS = 4
 
-#: copies made by the sharded lift (window rows and reshards, gathers
-#: into the output), counted as the kernels' launches are
+#: copies made by the sharded lift (rows of another device into a
+#: launch's source buffer at their own rows, and gathers into home's
+#: outputs), counted as the kernels' launches are
 COPIES = {"window": 0, "gather": 0}
 
 
@@ -94,15 +105,79 @@ def shard_pairs(T: int, n: int) -> List[Tuple[int, int]]:
     return [(min(s * m, T), min((s + 1) * m, T)) for s in range(n)]
 
 
+def _device_key(shard: Shard):
+    """What shards are grouped by into one launch: their device. Shards of
+    one device read each other's rows in place."""
+    return shard.device
+
+
+def _check_mesh(shards: Sequence[Shard]) -> None:
+    """A device's launch takes at most MAX_SHARDS shards: a mesh with more
+    on one device is refused before any launch. (Its segments are one a
+    source, whatever the mesh.)"""
+    counts: dict = {}
+    for shard in shards:
+        key = _device_key(shard)
+        counts[key] = counts.get(key, 0) + 1
+    if max(counts.values()) > MAX_SHARDS:
+        raise ValueError(f"a row-sharded lift takes at most {MAX_SHARDS} shards a device, got "
+                         f"{max(counts.values())}")
+
+
+class _Group(NamedTuple):
+    """A device's non-empty shards of a level: its grouping key, the shard
+    whose stream launches, and the shards' pairs in order."""
+
+    key: object
+    launch: Shard
+    pairs: Tuple[Tuple[int, int], ...]
+
+
+def _groups(shards: Sequence[Shard], T: int) -> List[_Group]:
+    """The level's non-empty shards grouped by _device_key, in order of
+    each device's first shard."""
+    groups: dict = {}
+    for shard, (p0, p1) in zip(shards, shard_pairs(T, len(shards))):
+        if p0 < p1:
+            key = _device_key(shard)
+            launch, pairs = groups.get(key, (shard, ()))
+            groups[key] = (launch, pairs + ((p0, p1),))
+    return [_Group(key, launch, pairs) for key, (launch, pairs) in groups.items()]
+
+
 class _Rows(NamedTuple):
-    """Rows [lo, hi) of a plane (along dim -2 of t), held by a shard and
-    ready after `event` on its stream."""
+    """Rows [lo, hi) (along dim -2) of buf, a buffer of a plane's rows from
+    row 0 on the device of grouping key `key`, written by `shard`'s stream
+    and ready after `event`. The parts of one device and source are runs
+    of one buffer."""
 
     lo: int
     hi: int
-    t: torch.Tensor
+    buf: torch.Tensor
     shard: Shard
     event: object
+    key: object
+
+    def rows(self):
+        return self.buf.narrow(-2, self.lo, self.hi - self.lo)
+
+
+def _merged(runs) -> List[Tuple[int, int]]:
+    """Runs [a, b) sorted, overlapping or adjacent ones merged."""
+    out: List[Tuple[int, int]] = []
+    for a, b in sorted(runs):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _used_on(t, shard: Shard) -> None:
+    """t is read or written on shard's stream: not reused before that
+    stream is done with it."""
+    if shard.stream is not None:
+        t.record_stream(shard.stream)
 
 
 def _copy(dst, dst_shard: Shard, src, src_shard: Shard, event, kind: str) -> None:
@@ -113,8 +188,7 @@ def _copy(dst, dst_shard: Shard, src, src_shard: Shard, event, kind: str) -> Non
         dst_shard.wait(event)
         with dst_shard.use():
             dst.copy_(src, non_blocking=True)
-        if src_shard.stream is not None and src_shard.stream != dst_shard.stream:
-            src.record_stream(dst_shard.stream)  # read there: not reused before it is done
+        _used_on(src, dst_shard)
     else:
         # Tensor.copy_ between two cards runs on the source card's current
         # stream, between barriers with the destination card's current one
@@ -122,38 +196,59 @@ def _copy(dst, dst_shard: Shard, src, src_shard: Shard, event, kind: str) -> Non
             dst.copy_(src, non_blocking=True)
 
 
-def _fill_rows(dst, shard: Shard, parts: Sequence[_Rows], rows: Sequence[int],
-               kind: str = "window") -> None:
-    """dst[..., i, :] = row rows[i] of the plane the parts hold: one copy
-    per run of consecutive rows within one part, on `shard`'s stream."""
-    i = 0
-    while i < len(rows):
-        r = rows[i]
-        part = next(p for p in parts if p.lo <= r < p.hi)
-        j = i + 1
-        while j < len(rows) and rows[j] == rows[j - 1] + 1 and rows[j] < part.hi:
-            j += 1
-        _copy(dst[..., i:j, :], shard, part.t[..., r - part.lo : r - part.lo + j - i, :],
-              part.shard, part.event, kind)
-        i = j
-
-
-def window_pairs(win_lo: int, win_n: int, T: int, wrap: Wrap) -> List[int]:
-    """The level's pair at each window pair: pair p, or p modulo T for
-    REPEAT."""
-    return [p % T if wrap == Wrap.REPEAT else p for p in range(win_lo, win_lo + win_n)]
-
-
-def window_rows(win_lo: int, win_n: int, lvl: LiftLevel, wrap: Wrap) -> List[int]:
-    """The plane's row at each row of a forward window: two a pair, an
-    odd height's fake odd row its last even one."""
-    return [min(2 * p + odd, lvl.current_h - 1)
-            for p in window_pairs(win_lo, win_n, lvl.target_h, wrap) for odd in (0, 1)]
-
-
 def _empty(shard: Shard, shape):
     with shard.use():
         return torch.empty(shape, dtype=torch.int16, device=shard.device)
+
+
+def _source(g: _Group, parts: Sequence[_Rows], need, shape: tuple) -> List[Segment]:
+    """The one segment of a source, rows from 0, that a launch of group g
+    reads: the buffer of g's device that the parts on it are runs of (their
+    writers' events waited for on g's stream), else a new one of `shape`;
+    the rows need() (runs [a, b), merged; asked for only when a part lies
+    on another device) that another device's parts hold are copied into it
+    at their own rows, one copy per run."""
+    own = [part for part in parts if part.key == g.key]
+    for part in own:
+        g.launch.wait(part.event)
+    buf = own[0].buf if own else _empty(g.launch, shape)
+    _used_on(buf, g.launch)
+    for part in parts:
+        if part.key != g.key:
+            for a, b in need():
+                a, b = max(a, part.lo), min(b, part.hi)
+                if a < b:
+                    _copy(buf.narrow(-2, a, b - a), g.launch, part.buf.narrow(-2, a, b - a),
+                          part.shard, part.event, "window")
+    return [Segment(0, buf)]
+
+
+def _window_runs(g: _Group, lvl: LiftLevel, weff: Wavelet, wrap: Wrap,
+                 rows: bool) -> List[Tuple[int, int]]:
+    """The pairs of g's windows (row_window), as merged runs of the line's
+    pairs, or (rows) of the plane's rows."""
+    runs = []
+    for pr in g.pairs:
+        lo, wn = lk.row_window(lvl.target_h, pr, weff, wrap)
+        runs += pair_runs(lo, lo + wn, lvl.target_h, wrap)
+    if rows:
+        runs = [(2 * a, min(2 * b, lvl.current_h)) for a, b in runs]
+    return _merged(runs)
+
+
+def _gather(dst, home: Shard, home_key, parts: Sequence[_Rows]) -> None:
+    """dst's rows (along dim -2, from row 0) that parts on other devices
+    than home hold, one copy per part (a run of rows)."""
+    for part in parts:
+        if part.key != home_key:
+            _copy(dst.narrow(-2, part.lo, part.hi - part.lo), home, part.rows(), part.shard,
+                  part.event, "gather")
+
+
+def _own_parts(g: _Group, buf, rows, event) -> List[_Rows]:
+    """The runs of rows [a, b) of buf (along dim -2, from row 0) that g's
+    launch wrote, as parts."""
+    return [_Rows(a, b, buf, g.launch, event, g.key) for a, b in _merged(rows)]
 
 
 def forward_tile_sharded(
@@ -171,45 +266,56 @@ def forward_tile_sharded(
     shards = mesh.shards(axis_name)
     C = planes.shape[-3]
     home = Caller(shards[0].device)
+    planes = planes.to(home.device).contiguous()
     ks = sum(plan_levels(schedule, len(shards), wavelet, wrap))
     if ks == 0:
-        return lifting.forward_tile(planes.to(home.device).contiguous(), schedule, wavelet, wrap, qg)
+        return lifting.forward_tile(planes, schedule, wavelet, wrap, qg)
+    _check_mesh(shards)
+    L = len(schedule.levels)
+    home_key = _device_key(shards[0])
     out = _empty(home, (schedule.coeff_count(C),))
     offs = lk.level_offsets(schedule, C)
-    src = Caller(planes.device)
-    parts = [_Rows(0, planes.shape[-2], planes, src, src.record())]
+    parts = [_Rows(0, planes.shape[-2], planes, home, home.record(), home_key)]
     for k in range(ks):
         lvl = schedule.levels[k]
-        T, tw = lvl.target_h, lvl.target_w
+        T, tw, w = lvl.target_h, lvl.target_w, lvl.current_w
         weff = effective_wavelet(wavelet, tw, T)
-        chunk = out[offs[k] : offs[k] + C * (1 + 3 * T * tw)].view(C, 1 + 3 * T * tw)
-        quads = chunk[:, 1:].view(C, 3, T, tw)
+        n = C * (1 + 3 * T * tw)
+        quads = out[offs[k] : offs[k] + n].view(C, 1 + 3 * T * tw)[:, 1:].view(C, 3, T, tw)
         level_parts = []
-        for shard, (p0, p1) in zip(shards, shard_pairs(T, len(shards))):
-            if p0 == p1:
-                continue
-            win_lo, win_n = lk.row_window(T, (p0, p1), weff, wrap)
-            win = _empty(shard, (C, 2 * win_n, lvl.current_w))
-            _fill_rows(win, shard, parts, window_rows(win_lo, win_n, lvl, wrap))
-            with shard.use():
-                ll, rows = lk.lift_level_rows(win, schedule, k, (p0, p1), win_lo, wavelet, wrap, qg)
-            ev = shard.record()
-            level_parts.append(_Rows(p0, p1, ll, shard, ev))
-            # the shard's rows of each quadrant to their wire offsets; the q
-            # heads from the shard that owns pair 0
-            rv = rows.view(C, 1 + 3 * (p1 - p0) * tw)
-            _copy(quads[:, :, p0:p1], home, rv[:, 1:].view(C, 3, p1 - p0, tw), shard, ev, "gather")
-            if p0 == 0:
-                _copy(chunk[:, :1], home, rv[:, :1], shard, ev, "gather")
+        for g in _groups(shards, T):
+            segs = _source(g, parts, partial(_window_runs, g, lvl, weff, wrap, True),
+                           (C, lvl.current_h, w))
+            on_home = g.key == home_key
+            # LL: the stream's LP head after the last level, else a buffer
+            # of the device's (on home, the next replicated level's input)
+            if on_home and k == L - 1:
+                ll = lk.lp_view(out.view(1, -1), schedule, C)[0]
+            else:
+                ll = _empty(g.launch, (C, T, tw))
+            chunk = out[offs[k] : offs[k] + n] if on_home else _empty(g.launch, (n,))
+            with g.launch.use():
+                lk.lift_level_shards(segs, schedule, k, g.pairs, ll, chunk, 0, wavelet, wrap, qg)
+            for t in (ll, chunk):
+                _used_on(t, g.launch)
+            ev = g.launch.record()
+            level_parts += _own_parts(g, ll, g.pairs, ev)
+            if on_home:
+                home.wait(ev)
+                home_ll = ll
+            else:
+                # the device's rows of each quadrant to their wire offsets
+                src = chunk.view(C, 1 + 3 * T * tw)[:, 1:].view(C, 3, T, tw)
+                for a, b in _merged(g.pairs):
+                    _copy(quads[:, :, a:b], home, src[:, :, a:b], g.launch, ev, "gather")
         parts = level_parts
-    if ks == len(schedule.levels):
-        _fill_rows(lk.lp_view(out.view(1, -1), schedule, C)[0], home, parts, range(schedule.lp_h),
-                   "gather")
+    # home's LL of the last sharded level, the other devices' rows gathered
+    # into it: the stream's LP head, or the first replicated level's input
+    _gather(home_ll, home, home_key, parts)
+    if ks == L:
         return out
-    # the first replicated level gathers the LL on the first device
-    lvl = schedule.levels[ks]
-    x = _empty(home, (1, C, lvl.current_h, lvl.current_w))
-    _fill_rows(x[0], home, parts, range(lvl.current_h), "gather")
+    _used_on(home_ll, home)
+    x = home_ll.unsqueeze(0)
     start = lk.pyramid_start(schedule, C)
     stream = out.view(1, -1)
     if start is None or ks < start:
@@ -242,6 +348,8 @@ def inverse_tile_sharded(
     ks = sum(plan_levels(schedule, len(shards), wavelet, wrap))
     if ks == 0:
         return lifting.inverse_tile(coeffs, schedule, wavelet, wrap, C)
+    _check_mesh(shards)
+    home_key = _device_key(shards[0])
     stream = coeffs.view(1, -1)
     start = lk.pyramid_start(schedule, C)
     inv = (wavelet, wrap, C, Color.NONE)
@@ -255,30 +363,36 @@ def inverse_tile_sharded(
     else:
         cur = lk.inverse_pyramid(stream, schedule, ks, *inv)
     ready = home.record()
-    parts = [_Rows(0, cur.shape[-2], cur[0], home, ready)]
+    parts = [_Rows(0, cur.shape[-2], cur[0], home, ready, home_key)]
     offs = lk.level_offsets(schedule, C)
+    out = _empty(home, (C, schedule.tile_h, schedule.tile_w))
     for k in reversed(range(ks)):
         lvl = schedule.levels[k]
-        T, tw = lvl.target_h, lvl.target_w
+        T, tw, h, w = lvl.target_h, lvl.target_w, lvl.current_h, lvl.current_w
         weff = effective_wavelet(wavelet, tw, T)
-        chunk = coeffs[offs[k] : offs[k] + C * (1 + 3 * T * tw)].view(C, 1 + 3 * T * tw)
-        quads = [_Rows(0, T, chunk[:, 1:].view(C, 3, T, tw), home, ready)]
+        cv = coeffs[offs[k] : offs[k] + C * (1 + 3 * T * tw)].view(C, 1 + 3 * T * tw)
+        quads = [_Rows(0, T, cv[:, 1:].view(C, 3, T, tw), home, ready, home_key)]
         level_parts = []
-        for shard, (p0, p1) in zip(shards, shard_pairs(T, len(shards))):
-            if p0 == p1:
-                continue
-            win_lo, win_n = lk.row_window(T, (p0, p1), weff, wrap)
-            pairs = window_pairs(win_lo, win_n, T, wrap)
-            ll = _empty(shard, (C, win_n, tw))
-            win = _empty(shard, (C * (1 + 3 * win_n * tw),))
-            wv = win.view(C, 1 + 3 * win_n * tw)
-            _fill_rows(ll, shard, parts, pairs)
-            _fill_rows(wv[:, 1:].view(C, 3, win_n, tw), shard, quads, pairs)
-            _copy(wv[:, :1], shard, chunk[:, :1], home, ready, "window")
-            with shard.use():
-                rows = lk.unlift_level_rows(ll, win, schedule, k, (p0, p1), win_lo, wavelet, wrap)
-            level_parts.append(_Rows(2 * p0, 2 * p0 + rows.shape[1], rows, shard, shard.record()))
+        for g in _groups(shards, T):
+            need = partial(_window_runs, g, lvl, weff, wrap, False)
+            ll_segs = _source(g, parts, need, (C, T, tw))
+            cbd_segs = _source(g, quads, need, (C, 3, T, tw))
+            on_home = g.key == home_key
+            if on_home:
+                hd = cv[:, 0]
+            else:
+                hd = _empty(g.launch, (C, 1))
+                _copy(hd, g.launch, cv[:, :1], home, ready, "window")
+                hd = hd[:, 0]
+            dst = out if on_home and k == 0 else _empty(g.launch, (C, h, w))
+            with g.launch.use():
+                lk.unlift_level_shards(ll_segs, cbd_segs, hd, schedule, k, g.pairs, dst, 0, wavelet,
+                                       wrap)
+            _used_on(dst, g.launch)
+            ev = g.launch.record()
+            if on_home:
+                home.wait(ev)
+            level_parts += _own_parts(g, dst, [(2 * a, min(2 * b, h)) for a, b in g.pairs], ev)
         parts = level_parts
-    out = _empty(home, (C, schedule.tile_h, schedule.tile_w))
-    _fill_rows(out, home, parts, range(schedule.tile_h), "gather")
+    _gather(out, home, home_key, parts)
     return out

@@ -2,8 +2,9 @@
 kernels of the per-level API (csrc/lift2d.cu), the split wiring's V-only
 lifts along either axis (csrc/vlift.cu), the whole-pyramid lift kernels
 (csrc/lift_pyramid.cu), the one-launch level
-kernels for planes too large for a pyramid block and their row-window
-instances for one shard's rows (K7; csrc/lift_level.cu), the
+kernels for planes too large for a pyramid block and their shard-table
+instances for a device's shards of a row-sharded level (K7;
+csrc/lift_level.cu), the
 Kagari tokenize + pack (csrc/kagari_encode.cu, one launch a call), the
 Kagari block decoder (csrc/kagari_decode.cu), the Manbavaran rANS
 encoder and block decoder (csrc/manba_encode.cu, csrc/manba_decode.cu),
@@ -16,8 +17,9 @@ link build a shared library with a plain C interface in this package's
 `_build/` directory, cached by the mtime of the sources and the header
 they share; ctypes binds it. Device pointers and the CUDA stream are
 passed as integers (c_void_p), the pyramid, level and rate kernels'
-tables as a pointer to a PyramidArgs, LevelArgs, VliftArgs (with a
-VliftPtrs) or RateArgs that the C side passes to the kernel by value. Nothing
+tables as a pointer to a PyramidArgs, LevelArgs (with K7's ShardArgs),
+VliftArgs (with a VliftPtrs) or RateArgs that the C side passes to the
+kernel by value. Nothing
 here runs at import: the CPU tests import this module on machines with
 no nvcc and no card.
 """
@@ -52,8 +54,11 @@ NVCC_FLAGS = [
 MAX_LEVELS = 16
 MAX_CHANNELS = 16
 MAX_CLUSTER = 8
-#: channels of csrc/lift_level.cu's table
+#: channels of csrc/lift_level.cu's table, and K7's shards and segments
+#: a launch
 MAX_LEVEL_CHANNELS = 16
+MAX_SHARDS = 32
+MAX_SEGS = 64
 #: (level, channel) segments of csrc/rate_common.cuh's table
 MAX_RATE_SEGS = 496
 
@@ -83,8 +88,32 @@ class LevelArgs(ctypes.Structure):
         )),
         ("q", ctypes.c_int * MAX_LEVEL_CHANNELS),
         ("g", ctypes.c_int * MAX_LEVEL_CHANNELS),
-        *((name, ctypes.c_int) for name in ("pitch", "plane", "stage", "smem", "p0", "p1",
-                                            "win_lo", "win_n")),
+        *((name, ctypes.c_int) for name in ("pitch", "plane", "stage", "smem")),
+    ]
+
+
+class Seg(ctypes.Structure):
+    """csrc/lift_level.cu Seg: a run of rows [r0, r1) of a K7 launch's
+    source, row r of channel ch (quadrant q) at base + ch chan + q quad +
+    (r - r0) pitch int16 elements."""
+
+    _fields_ = [("base", ctypes.c_void_p), ("chan", ctypes.c_longlong), ("quad", ctypes.c_longlong),
+                ("r0", ctypes.c_int), ("r1", ctypes.c_int), ("pitch", ctypes.c_int)]
+
+
+class ShardArgs(ctypes.Structure):
+    """csrc/lift_level.cu ShardArgs, field for field (cta0 is the
+    launcher's to fill)."""
+
+    _fields_ = [
+        ("shards", ctypes.c_int),
+        ("p0", ctypes.c_int * MAX_SHARDS),
+        ("p1", ctypes.c_int * MAX_SHARDS),
+        ("cta0", ctypes.c_int * (MAX_SHARDS + 1)),
+        *((name, ctypes.c_int) for name in ("segs", "lls", "out_p0", "out_len")),
+        ("heads", ctypes.c_void_p),
+        ("head_stride", ctypes.c_longlong),
+        ("seg", Seg * MAX_SEGS),
     ]
 
 
@@ -143,8 +172,8 @@ _SIGNATURES = {
     "ako_unlift_pyramid": [ctypes.POINTER(PyramidArgs), _P, _P, _I, _P],
     "ako_lift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
     "ako_unlift_level": [ctypes.POINTER(LevelArgs), _P, _P, _P, _I, _P],
-    "ako_lift_level_rows": [ctypes.POINTER(LevelArgs), _P, _P, _P, _P],
-    "ako_unlift_level_rows": [ctypes.POINTER(LevelArgs), _P, _P, _P, _P],
+    "ako_lift_level_shards": [ctypes.POINTER(LevelArgs), ctypes.POINTER(ShardArgs), _P, _P, _P],
+    "ako_unlift_level_shards": [ctypes.POINTER(LevelArgs), ctypes.POINTER(ShardArgs), _P, _P],
     "ako_manba_encode": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ako_manba_decode": [_P, _LL] + [_P] * 8 + [_I, _I, _I, _P],
     "ako_rate_serialize": [_P, _P, _I, ctypes.POINTER(RateArgs), _P],
@@ -306,19 +335,19 @@ def unlift_level(args, ll, coeffs, dst, tiles, stream) -> None:
            "ako_unlift_level")
 
 
-def lift_level_rows(args, win, out, ll, stream) -> None:
-    """Launch K7's forward, one shard's rows of a level (one CTA per
-    region of them), on `stream`; `args` is a LevelArgs with the shard's
-    pairs and window, the rest device pointers, already checked by the
-    caller."""
-    _check(load().ako_lift_level_rows(ctypes.byref(args), win, out, ll, stream),
-           "ako_lift_level_rows")
+def lift_level_shards(args, shards, out, ll, stream) -> None:
+    """Launch K7's forward, a device's shards of a level (one CTA per
+    region of each shard's pairs), on `stream`; `args` is a LevelArgs,
+    `shards` a ShardArgs with the shards and the segments, the rest device
+    pointers, already checked by the caller."""
+    _check(load().ako_lift_level_shards(ctypes.byref(args), ctypes.byref(shards), out, ll, stream),
+           "ako_lift_level_shards")
 
 
-def unlift_level_rows(args, ll, coeffs, dst, stream) -> None:
-    """Launch K7's inverse on `stream` (see lift_level_rows)."""
-    _check(load().ako_unlift_level_rows(ctypes.byref(args), ll, coeffs, dst, stream),
-           "ako_unlift_level_rows")
+def unlift_level_shards(args, shards, dst, stream) -> None:
+    """Launch K7's inverse on `stream` (see lift_level_shards)."""
+    _check(load().ako_unlift_level_shards(ctypes.byref(args), ctypes.byref(shards), dst, stream),
+           "ako_unlift_level_shards")
 
 
 def manba_encode(values, record, scratch, rans, extras, rows, n, budget, row_words, stream) -> None:

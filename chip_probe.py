@@ -52,7 +52,8 @@ version.
 
 levels: variants of csrc/lift_level.cu with 512, 256 and 128 threads a
 CTA (kThreads edited in the source), and OTHER's lift_level.cu as it is
-when OTHER is given (its LevelArgs a leading part of this one's), built
+when OTHER is given (an OTHER whose LevelArgs ends in fields the
+whole-plane kernels do not read gets this one's padded with zeros), built
 with nvcc side by side, on the default whole tile's levels before its
 pyramid start (the north star, 1024x1280 RGBA, q=16): for each variant,
 level and region of ops/lift_kernels.py LEVEL_REGIONS whose CTA the
@@ -506,6 +507,17 @@ def k3(other, card: str) -> None:
 LEVEL_THREADS = (512, 256, 128)
 
 
+def _padded(args):
+    """A LevelArgs followed by 64 zero bytes, as a LevelArgs pointer: a
+    checkout whose table is longer reads zeros past this one's."""
+    from ako_tpu_torch.runtime import kernels
+
+    buf = ctypes.create_string_buffer(bytes(args) + bytes(64))
+    ptr = ctypes.cast(buf, ctypes.POINTER(kernels.LevelArgs))
+    ptr._buf = buf  # kept alive with the pointer
+    return ptr
+
+
 def _level_sources(other):
     """{variant: ctypes library}: csrc/lift_level.cu with kThreads edited
     ("t512", "t256", "t128"), and OTHER's as it is ("other")."""
@@ -592,19 +604,19 @@ def levels(other, card: str) -> None:
                 stream = torch.zeros_like(ref_stream)
                 ll = torch.empty_like(xs[k + 1])
                 out = torch.empty_like(ref_out)
-                fa = lk._level_args(schedule, k, ch, s.wavelet, s.wrap, qg, s.color, fwd[4],
-                                    ll.stride(0), region)
-                ia = lk._level_args(schedule, k, ch, s.wavelet, s.wrap, None, s.color, False,
-                                    ll.stride(0), region)
+                fa = _padded(lk._level_args(schedule, k, ch, s.wavelet, s.wrap, qg, s.color,
+                                            fwd[4], ll.stride(0), region))
+                ia = _padded(lk._level_args(schedule, k, ch, s.wavelet, s.wrap, None, s.color,
+                                            False, ll.stride(0), region))
 
                 def lift():
-                    rc = lib.ako_lift_level(ctypes.byref(fa), xs[k].data_ptr(), stream.data_ptr(),
+                    rc = lib.ako_lift_level(fa, xs[k].data_ptr(), stream.data_ptr(),
                                             ll.data_ptr(), 1, cur)
                     if rc:
                         raise RuntimeError(f"lift_level: cudaError {rc}")
 
                 def unlift():
-                    rc = lib.ako_unlift_level(ctypes.byref(ia), xs[k + 1].data_ptr(),
+                    rc = lib.ako_unlift_level(ia, xs[k + 1].data_ptr(),
                                               ref_stream.data_ptr(), out.data_ptr(), 1, cur)
                     if rc:
                         raise RuntimeError(f"unlift_level: cudaError {rc}")

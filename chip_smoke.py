@@ -72,13 +72,18 @@ no result line):
                 channels, at q 0, 1, 4, 16, 64, 16384 and 65536, gate 0 and
                 16, chroma_loss 0, 1 and 3; and random full-range streams
      parallel_kernels
-              - K7 (lift_level_rows / unlift_level_rows, csrc/lift_level.cu's
-                row-window instances) bit for bit against their plain
-                versions: every wavelet x wrap, every sharded level and
-                shard (first, middle, last, one-pair) of the whole tile
-                over 8 and 3 shards, the tractor size (1632x2464) over 8,
-                127x127, 96x100 and T = 25 pairs over 8, each window
-                poisoned outside it; an empty shard refused with no launch
+              - K7 (lift_level_shards / unlift_level_shards,
+                csrc/lift_level.cu's shard-table instances) bit for bit
+                against their plain versions: every wavelet x wrap, every
+                sharded level of the whole tile over 8 and 3 shards, the
+                tractor size (1632x2464) over 8, 127x127, 96x100 and T = 25
+                pairs over 8; launches of every shard at once and of
+                alternate shards, their sources cut into segments in
+                buffers of their own (poisoned outside them, some rows not
+                16-byte aligned), the outputs poisoned before and compared
+                whole; and each shard alone on its window buffer
+                (lift_level_rows / unlift_level_rows, poisoned outside it);
+                an empty shard refused with no launch
   4. goldens  - tests/golden blobs and pixels are reproduced exactly,
                 on both entropy paths
   5. north    - the north-star image (fbm corpus, seed 42, 1024x1280
@@ -162,7 +167,8 @@ no result line):
                 (a mesh of repeated cuda:0; of distinct cards too when the
                 machine has several): forward/inverse_tile_sharded on the
                 whole tile over 8 and 3 shards under all four wraps and the
-                tractor size over 8, with K7's launches the plan's, each
+                tractor size over 8, with K7's launches the plan's (one a
+                sharded level and device) and no halo copy on one card, each
                 stream equal to forward_tile's and the native codec's and
                 each reconstruction to inverse_tile's and the native one;
                 encode/decode_image_sharded at 128-px tiles over 8 and 3
@@ -171,7 +177,8 @@ no result line):
                 HostShardedPipeline in two processes sharing the card over
                 gloo (this script with --multihost-worker); then K7 alone
                 on one whole-tile call's launches (profiler, CUDA events,
-                plain, per level, bound), the sharded whole tile's wall and
+                plain, per level, bound, and the launches back to back
+                against their profiled sum), the sharded whole tile's wall and
                 device busy against the one-device routes, the copies, and
                 the tile-sharded encode / decode against the one-shot ones
 
@@ -185,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -282,7 +290,7 @@ DEVICE_KERNELS = {
     "manba_stats": "manba_encode", "manba_model": "manba_encode",
     "manba_chain_pack": "manba_encode", "manba_decode": "manba_decode",
     "rate_serialize": "rate_serialize", "rate_sizes": "rate_sizes",
-    "lift_level_rows": "lift_level_rows", "unlift_level_rows": "unlift_level_rows",
+    "lift_level_shards": "lift_level_shards", "unlift_level_shards": "unlift_level_shards",
 }
 #: a kernel's name in a profiler event, demangled ("ns::lift_h<0>(...)")
 #: or mangled ("...6lift_hILi0E...")
@@ -1162,7 +1170,7 @@ def expected_launches(img, settings, device_entropy: bool, mode: str) -> dict:
     out = dict.fromkeys(("lift2d", "unlift2d", "vlift", "vunlift", "kagari_encode",
                          "kagari_decode", "lift_pyramid", "unlift_pyramid", "lift_level",
                          "unlift_level", "manba_encode", "manba_decode", "rate_serialize",
-                         "rate_sizes", "lift_level_rows", "unlift_level_rows"), 0)
+                         "rate_sizes", "lift_level_shards", "unlift_level_shards"), 0)
     for name, s in settings.items():
         coder = "manba" if is_manba(name) else "kagari"
         for tw, th in geometry.group_by_shape(geometry.tile_grid(w, h, s.tiles_dimension)):
@@ -2901,10 +2909,10 @@ def rate_bounds_ms(raw_shape) -> dict:
 
 # ---------------------------------------------------------------- parallel
 
-#: K7: the row-window instances of csrc/lift_level.cu (parallel/halo.py)
+#: K7: the shard-table instances of csrc/lift_level.cu (parallel/halo.py)
 K7 = {
-    "lift_level_rows": "ako_tpu/parallel/halo.py:349",
-    "unlift_level_rows": "ako_tpu/parallel/halo.py:436",
+    "lift_level_shards": "ako_tpu/parallel/halo.py:349",
+    "unlift_level_shards": "ako_tpu/parallel/halo.py:436",
 }
 K7_SOURCE = "ako_tpu_torch/csrc/lift_level.cu"
 #: (w, h, channels, shards) of the parallel_kernels phase: the whole
@@ -2914,7 +2922,7 @@ K7_SOURCE = "ako_tpu_torch/csrc/lift_level.cu"
 K7_SHAPES = [(1024, 1280, 4, 8), (1024, 1280, 4, 3), (1632, 2464, 4, 8), (127, 127, 3, 8),
              (96, 100, 3, 8), (40, 50, 2, 8)]
 TRACTOR = dict(seed=43, h=2464, w=1632, ch=4)  # tests/test_parallel.py:145's size
-K7_POISON = 2  # poisoned pairs on each side of a K7 window buffer
+K7_POISON = 2  # poisoned pairs on each side of a K7 window buffer or segment
 MULTIHOST_IMAGES = 4  # images of the two-process HostShardedPipeline check
 
 
@@ -2951,15 +2959,43 @@ def k7_windows(plane, ll_plane, chunk, schedule, k, pairs, wavelet, wrap, gen):
     return win, llw, cw, win_lo - K7_POISON
 
 
+def k7_segments(x, gen, parts: int = 3):
+    """x's rows (along -2) cut at random into at most `parts` runs, each a
+    Segment in a buffer of its own: K7_POISON random rows before and after
+    it, and every other buffer one element off 16-byte alignment (its rows
+    loaded one sample at a time)."""
+    from ako_tpu_torch.ops import lift_kernels as lk
+
+    n = x.shape[-2]
+    cuts = torch.randint(1, max(n, 2), (parts - 1,), generator=gen, device=x.device).tolist()
+    bounds = sorted({0, n, *cuts})
+    segs = []
+    for i, (a, b) in enumerate(zip(bounds, bounds[1:])):
+        shape = (*x.shape[:-2], b - a + 2 * K7_POISON, x.shape[-1])
+        flat = torch.randint(-32768, 32768, (math.prod(shape) + 1,), dtype=torch.int16,
+                             device=x.device, generator=gen)
+        buf = flat[i % 2 : i % 2 + math.prod(shape)].view(shape)
+        seg = buf.narrow(-2, K7_POISON, b - a)
+        seg.copy_(x[..., a:b, :])
+        segs.append(lk.Segment(a, seg))
+    return segs
+
+
 def phase_parallel_kernels(dev) -> dict:
-    """K7 (lift_level_rows / unlift_level_rows) against its plain versions
-    on the card, bit for bit: every wavelet x wrap on each of K7_SHAPES,
-    every sharded level (plan_levels) of random int16 planes and random
-    streams whose q heads wrap, every shard (first, middle, last,
-    one-pair), each window poisoned outside it (K7 must read none of
-    those rows; the plain version cuts them off), and an empty shard
-    refused with no launch. Returns the largest absolute difference per
-    kernel (must be 0)."""
+    """K7 (lift_level_shards / unlift_level_shards) against its plain
+    versions on the card, bit for bit: every wavelet x wrap on each of
+    K7_SHAPES, every sharded level (plan_levels) of random int16 planes and
+    random streams whose q heads wrap. Launches of every non-empty shard
+    at once (one card's) and of alternate shards (two cards'), the sources
+    cut into segments in buffers of their own, poisoned outside them (K7
+    must read none of those rows; the plain version assembles each
+    window by indexing), some of them not 16-byte aligned, REPEAT's first
+    and last shards reading the far end's segment, the outputs poisoned
+    before and compared whole (no store outside the launch's pairs); and
+    every shard alone on its window buffer (lift_level_rows /
+    unlift_level_rows, poisoned outside it), an empty shard refused with
+    no launch. Returns the largest absolute difference per kernel (must be
+    0)."""
     from ako_tpu_torch.core import geometry
     from ako_tpu_torch.core.settings import Wavelet, Wrap
     from ako_tpu_torch.ops import lift_kernels as lk
@@ -2969,9 +3005,18 @@ def phase_parallel_kernels(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     err = dict.fromkeys(K7, 0)
-    cases = refused = 0
+    alone = tables = refused = 0
     combos = list(itertools.product([Wavelet.DD137, Wavelet.CDF53, Wavelet.HAAR], list(Wrap)))
     heads = torch.tensor([0, 1, 7, 300, -5], dtype=torch.int16, device=dev)
+    rand = lambda *shape: torch.randint(-32768, 32768, shape, dtype=torch.int16, device=dev,
+                                        generator=gen)
+
+    def check(name, got, ref, what):
+        e = max(_max_err(a, b) for a, b in zip(got, ref))
+        err[name] = max(err[name], e)
+        if e:
+            raise AssertionError(f"{name} != plain for {what}: {e}")
+
     for w, h, ch, n in K7_SHAPES:
         schedule = geometry.lift_schedule(w, h)
         for i, (wavelet, wrap) in enumerate(combos):
@@ -2979,41 +3024,54 @@ def phase_parallel_kernels(dev) -> dict:
             for k in range(sum(halo.plan_levels(schedule, n, wavelet, wrap))):
                 lvl = schedule.levels[k]
                 T, tw = lvl.target_h, lvl.target_w
-                rand = lambda *shape: torch.randint(-32768, 32768, shape, dtype=torch.int16,
-                                                    device=dev, generator=gen)
                 plane, ll_plane = rand(ch, lvl.current_h, lvl.current_w), rand(ch, T, tw)
                 chunk = rand(ch, 1 + 3 * T * tw)
                 chunk[:, 0] = heads[torch.randint(0, 5, (ch,), device=dev, generator=gen)]
+                what = f"{w}x{h}x{ch} over {n}, level {k}, {wavelet.name} {wrap.name}"
+                # launches of several shards, the sources cut into segments
+                segs, ll_segs = k7_segments(plane, gen), k7_segments(ll_plane, gen)
+                cbd_segs = k7_segments(chunk[:, 1:].view(ch, 3, T, tw), gen)
+                pairs = [p for p in halo.shard_pairs(T, n) if p[0] < p[1]]
+                for shards in (pairs, pairs[0::2], pairs[1::2]):
+                    outs = [rand(ch, T, tw), rand(ch * (1 + 3 * T * tw))]
+                    ref = [t.clone() for t in outs]
+                    lk.lift_level_shards(segs, schedule, k, shards, *outs, 0, wavelet, wrap, qg)
+                    lk.lift_level_shards_plain(segs, schedule, k, shards, *ref, 0, wavelet, wrap,
+                                               qg)
+                    check("lift_level_shards", outs, ref, f"{what}, shards {shards}")
+                    out = rand(ch, lvl.current_h, lvl.current_w)
+                    ref = out.clone()
+                    args = (ll_segs, cbd_segs, chunk[:, 0], schedule, k, shards)
+                    lk.unlift_level_shards(*args, out, 0, wavelet, wrap)
+                    lk.unlift_level_shards_plain(*args, ref, 0, wavelet, wrap)
+                    check("unlift_level_shards", [out], [ref], f"{what}, shards {shards}")
+                    tables += 1
+                # each shard alone on its window buffer
                 for pairs in halo.shard_pairs(T, n):
                     if pairs[0] == pairs[1]:
-                        before = lk.LAUNCHES["lift_level_rows"]
+                        before = lk.LAUNCHES["lift_level_shards"]
                         try:
                             lk.lift_level_rows(plane, schedule, k, pairs, 0, wavelet, wrap, qg)
                         except ValueError:
-                            refused += lk.LAUNCHES["lift_level_rows"] == before
+                            refused += lk.LAUNCHES["lift_level_shards"] == before
                             continue
                         raise AssertionError(f"K7 took an empty shard {pairs} of {T} pairs")
                     win, llw, cw, lo = k7_windows(plane, ll_plane, chunk, schedule, k, pairs,
                                                   wavelet, wrap, gen)
                     fwd = (schedule, k, pairs, lo, wavelet, wrap)
-                    got, ref = (f(win, *fwd, qg) for f in (lk.lift_level_rows,
-                                                          lk.lift_level_rows_plain))
-                    e_fwd = max(_max_err(got[0], ref[0]), _max_err(got[1], ref[1]))
-                    e_inv = _max_err(lk.unlift_level_rows(llw, cw, *fwd),
-                                     lk.unlift_level_rows_plain(llw, cw, *fwd))
-                    err["lift_level_rows"] = max(err["lift_level_rows"], e_fwd)
-                    err["unlift_level_rows"] = max(err["unlift_level_rows"], e_inv)
-                    cases += 1
-                    if e_fwd or e_inv:
-                        raise AssertionError(
-                            f"K7 != plain for {w}x{h}x{ch} over {n}, level {k}, pairs {pairs}, "
-                            f"{wavelet.name} {wrap.name}: forward {e_fwd}, inverse {e_inv}")
+                    check("lift_level_shards", lk.lift_level_rows(win, *fwd, qg),
+                          lk.lift_level_rows_plain(win, *fwd, qg), f"{what}, alone {pairs}")
+                    check("unlift_level_shards", [lk.unlift_level_rows(llw, cw, *fwd)],
+                          [lk.unlift_level_rows_plain(llw, cw, *fwd)], f"{what}, alone {pairs}")
+                    alone += 1
     torch.cuda.synchronize()
     if not refused:
         raise AssertionError("parallel_kernels: no empty shard was tried")
-    log(f"parallel_kernels: lift_level_rows/unlift_level_rows equal to plain on {cases} shard "
-        f"launches each way ({len(K7_SHAPES)} shapes x 3 wavelets x 4 wraps, every sharded level "
-        f"and shard, windows poisoned outside); {refused} empty shards refused with no launch")
+    log(f"parallel_kernels: lift_level_shards/unlift_level_shards equal to plain on {tables} "
+        f"launches of several shards each way (every shard at once and alternate shards, sources "
+        f"in segments poisoned outside them) and {alone} one-shard launches on window buffers "
+        f"({len(K7_SHAPES)} shapes x 3 wavelets x 4 wraps, every sharded level); {refused} empty "
+        f"shards refused with no launch")
     return err
 
 
@@ -3027,14 +3085,58 @@ def _planes(img, s):
     return to_planar_yuv(x, s.color, bool(s.discard_non_visible)).contiguous()
 
 
-def k7_launches(schedule, n, wavelet, wrap) -> int:
-    """K7 launches of one sharded forward (or inverse): the non-empty
-    shards of every sharded level."""
+def k7_launches(schedule, n, wavelet, wrap, devices: int) -> int:
+    """K7 launches of one sharded forward (or inverse) over n shards whose
+    devices alternate among `devices`: one a sharded level and device with
+    a non-empty shard."""
     from ako_tpu_torch.parallel import halo
 
     plan = halo.plan_levels(schedule, n, wavelet, wrap)
-    return sum(p0 < p1 for k in range(sum(plan))
-               for p0, p1 in halo.shard_pairs(schedule.levels[k].target_h, n))
+    return sum(len({i % devices for i, (p0, p1) in
+                    enumerate(halo.shard_pairs(schedule.levels[k].target_h, n)) if p0 < p1})
+               for k in range(sum(plan)))
+
+
+def k7_halo_copies(schedule, n, wavelet, wrap) -> tuple:
+    """halo.COPIES of one sharded forward and of one inverse over n shards
+    whose devices alternate between two (home the even shards'), from the
+    plan: window copies, one per run of rows that a device's windows need
+    and the other device holds within one shard's rows (the input planes
+    and the stream are home's), and one a level for the other device's q
+    heads; gathers, one per shard of the other device a level and its last
+    level's LL (forward), its level-0 rows (inverse)."""
+    from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops.wavelets import effective_wavelet
+    from ako_tpu_torch.parallel import halo
+
+    def runs(rows, part):
+        rows = sorted(rows)
+        return sum(1 for i, r in enumerate(rows)
+                   if i == 0 or rows[i - 1] != r - 1 or part(rows[i - 1]) != part(r))
+
+    ks = sum(halo.plan_levels(schedule, n, wavelet, wrap))
+    m = [-(-lvl.target_h // n) for lvl in schedule.levels]
+    shards = lambda k, d: [p for i, p in enumerate(halo.shard_pairs(schedule.levels[k].target_h, n))
+                           if i % 2 == d and p[0] < p[1]]
+    fwd = {"window": 0, "gather": len(shards(ks - 1, 1))}
+    inv = {"window": 0, "gather": len(shards(0, 1))}
+    for k in range(ks):
+        lvl = schedule.levels[k]
+        weff = effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+        fwd["gather"] += len(shards(k, 1))
+        for d in (0, 1):
+            wins = [lk.row_window(lvl.target_h, pr, weff, wrap) for pr in shards(k, d)]
+            # forward: the plane's rows, held as the level before's LL pairs
+            part = (lambda r: 0) if k == 0 else (lambda r: r // m[k - 1])
+            rows = {r for lo, wn in wins for r in halo.window_rows(lo, wn, lvl, wrap)}
+            fwd["window"] += runs([r for r in rows if part(r) % 2 != d], part)
+            # inverse: the LL pairs, held as the rows of the plane above
+            part = (lambda p: 0) if k + 1 == ks else (lambda p: (p // 2) // m[k + 1])
+            pairs = {p for lo, wn in wins for p in halo.window_pairs(lo, wn, lvl.target_h, wrap)}
+            inv["window"] += runs([p for p in pairs if part(p) % 2 != d], part)
+            if d == 1 and wins:
+                inv["window"] += runs(pairs, lambda p: 0) + 1  # the C, B, D rows, the q heads
+    return fwd, inv
 
 
 def multihost_worker(coord: str, nproc: str, pid: str, outfile: str) -> int:
@@ -3127,9 +3229,14 @@ def phase_parallel(P, dev, img, oracle, card) -> dict:
     read just after: forward_tile_sharded / inverse_tile_sharded on the
     north star's whole tile (1024x1280 RGBA planes after colour) over 8
     shards of cuda:0 and over 3, under all four wraps, and on the tractor
-    size over 8; K7's launches must be the plan's. Then every stream
-    equal to the one-device forward_tile's and the native codec's, every
-    reconstruction to the one-device inverse_tile's and the native one;
+    size over 8; K7's launches must be the plan's, one a sharded level
+    and device, and no halo copy may be made (one card). The same calls
+    with alternate shards counted as two devices (halo._device_key
+    patched): K7's launches and halo.COPIES each call's plan's
+    (k7_launches, k7_halo_copies). Then every stream, of one device and
+    of two, equal to the one-device forward_tile's and the native
+    codec's, every reconstruction to the one-device inverse_tile's and
+    the native one;
     encode_image_sharded / decode_image_sharded (both entropy routes) on
     the north star at 128-px tiles over 8 and 3 shards against the port's
     encode and the native oracle; a step on a 2 x 4 ("tiles", "rows") mesh;
@@ -3167,36 +3274,91 @@ def phase_parallel(P, dev, img, oracle, card) -> dict:
 
     # the main path
     reset_launches()
+    copies = dict(halo.COPIES)
     out = []
+    per_call = []
     for name, mesh, wrap in runs:
         schedule, qg, ch = args(name, wrap)
+        before = dict(lk.LAUNCHES)
         stream = halo.forward_tile_sharded(tiles[name][1], schedule, s.wavelet, wrap, qg, mesh)
         out.append((stream, halo.inverse_tile_sharded(stream, schedule, s.wavelet, wrap, ch, mesh)))
+        per_call.append(tuple(lk.LAUNCHES[k] - before[k] for k in K7))
     torch.cuda.synchronize()
     launches = {k: all_launches()[k] for k in K7}
-    want = sum(k7_launches(args(name, wrap)[0], mesh.size, s.wavelet, wrap)
-               for name, mesh, wrap in runs)
-    if launches != dict.fromkeys(K7, want):
-        raise AssertionError(f"parallel: K7 launches {launches}, the plan gives {want} each way")
+    copies = {k: halo.COPIES[k] - copies[k] for k in copies}
+    plan = [k7_launches(args(name, wrap)[0], mesh.size, s.wavelet, wrap, 1)
+            for name, mesh, wrap in runs]
+    if per_call != [(p, p) for p in plan]:
+        raise AssertionError(f"parallel: K7 launches a call {per_call}, the plan gives {plan} "
+                             "(one a sharded level and device) each way")
+    if plan[0] != 5:
+        raise AssertionError(f"parallel: the whole tile over 8 shards of one card plans {plan[0]} "
+                             "K7 launches a call, not 5")
+    if copies != {"window": 0, "gather": 0}:
+        raise AssertionError(f"parallel: halo copies {copies} on one card, expected none")
 
-    for (name, mesh, wrap), (stream, rec) in zip(runs, out):
+    # the exchange between devices on this card: the same calls with the
+    # shards' grouping key monkeypatched so that alternate shards count as
+    # two devices (launches on the streams of shards 0 and 1, rows of the
+    # other "device" copied after its events, gathers home)
+    real_key = halo._device_key
+    out2, plan2 = [], []
+    halo_copies = {"window": 0, "gather": 0}
+    for name, mesh, wrap in runs:
+        schedule, qg, ch = args(name, wrap)
+        side = {id(sh): i % 2 for i, sh in enumerate(mesh.shards("rows"))}
+        want = k7_halo_copies(schedule, mesh.size, s.wavelet, wrap)
+        before = dict(lk.LAUNCHES)
+        halo._device_key = lambda sh: side[id(sh)]
+        try:
+            c0 = dict(halo.COPIES)
+            stream = halo.forward_tile_sharded(tiles[name][1], schedule, s.wavelet, wrap, qg, mesh)
+            c1 = dict(halo.COPIES)
+            rec = halo.inverse_tile_sharded(stream, schedule, s.wavelet, wrap, ch, mesh)
+            got = ({k: c1[k] - c0[k] for k in c0}, {k: halo.COPIES[k] - c1[k] for k in c0})
+        finally:
+            halo._device_key = real_key
+        out2.append((stream, rec))
+        two = k7_launches(schedule, mesh.size, s.wavelet, wrap, 2)
+        plan2.append(two)
+        per = tuple(lk.LAUNCHES[k] - before[k] for k in K7)
+        if per != (two, two) or got != want:
+            raise AssertionError(f"parallel: {name} over {mesh.size} {wrap.name} as two devices: K7 "
+                                 f"launches {per}, the plan's {two} each way; halo copies {got}, "
+                                 f"the plan's {want}")
+        for c in got:
+            for k in c:
+                halo_copies[k] += c[k]
+    torch.cuda.synchronize()
+    if not all(halo_copies.values()):
+        raise AssertionError(f"parallel: the two-device runs made halo copies {halo_copies}")
+
+    for (name, mesh, wrap), (stream, rec), (stream2, rec2) in zip(runs, out, out2):
         schedule, qg, ch = args(name, wrap)
         planes = tiles[name][1]
         one = lifting.forward_tile(planes, schedule, s.wavelet, wrap, qg)
         native = hostcodec.tile_lift(planes.cpu().numpy(), s.wavelet, wrap, qg)
-        if not (torch.equal(stream, one) and np.array_equal(stream.cpu().numpy(), native)):
+        if not (torch.equal(stream, one) and torch.equal(stream2, one)
+                and np.array_equal(stream.cpu().numpy(), native)):
             raise AssertionError(f"parallel: {name} over {mesh.size} {wrap.name}: the sharded "
-                                 "stream differs from forward_tile's or the native codec's")
+                                 "stream (one or two devices) differs from forward_tile's or the "
+                                 "native codec's")
         back = lifting.inverse_tile(stream, schedule, s.wavelet, wrap, ch)
         h, w = planes.shape[1:]
-        if not (torch.equal(rec, back) and np.array_equal(rec.cpu().numpy(), hostcodec.tile_unlift(
-                stream.cpu().numpy(), w, h, ch, s.wavelet, wrap))):
+        if not (torch.equal(rec, back) and torch.equal(rec2, back)
+                and np.array_equal(rec.cpu().numpy(), hostcodec.tile_unlift(
+                    stream.cpu().numpy(), w, h, ch, s.wavelet, wrap))):
             raise AssertionError(f"parallel: {name} over {mesh.size} {wrap.name}: the sharded "
-                                 "reconstruction differs from inverse_tile's or the native one")
+                                 "reconstruction (one or two devices) differs from inverse_tile's "
+                                 "or the native one")
     log(f"parallel: forward/inverse_tile_sharded on the whole tile over 8 and 3 shards of "
         f"cuda:0 (4 wraps each) and the tractor size over 8: streams equal to forward_tile's and "
         f"the native codec's, reconstructions to inverse_tile's and the native one; K7 "
-        f"{launches} (the plan's)")
+        f"{launches} (the plan's: {plan[0]} a call each way on the whole tile over 8, one a "
+        f"sharded level); halo copies {copies} (none on one card). The same {len(runs)} calls "
+        f"with alternate shards counted as two devices: equal results, K7 launches the plan's "
+        f"({plan2[0]} a call each way on the whole tile over 8), halo copies {halo_copies} in all, "
+        f"each call's the plan's (one per run of rows held by the other device)")
 
     # the tile path
     st = north_star_settings(P)["north_t128"]
@@ -3266,6 +3428,7 @@ def k7_times(P, dev, img, s, planes, st, card) -> dict:
     from ako_tpu_torch.encode import tile_qg
     from ako_tpu_torch.ops import lifting
     from ako_tpu_torch.ops import lift_kernels as lk
+    from ako_tpu_torch.ops.wavelets import effective_wavelet
     from ako_tpu_torch.parallel import halo, make_mesh
     from ako_tpu_torch.parallel import tiles as ptiles
 
@@ -3296,39 +3459,45 @@ def k7_times(P, dev, img, s, planes, st, card) -> dict:
         for k in K7:
             setattr(lk, k, real[k])
     torch.cuda.synchronize()
-    plain = {"lift_level_rows": lk.lift_level_rows_plain,
-             "unlift_level_rows": lk.unlift_level_rows_plain}
+    plain = {"lift_level_shards": lk.lift_level_shards_plain,
+             "unlift_level_shards": lk.unlift_level_shards_plain}
     row = {}
     for k in K7:
+        fwd_k = k == "lift_level_shards"
         alone = lambda: [real[k](*a) for a in calls[k]]
         prof = _profile_until(alone)
         dev_ms = prof["per"].get(k, float("nan"))
         ev_ms = _event_ms(alone, iters=10)
         plain_ms = _event_ms(lambda: [plain[k](*a) for a in calls[k]], iters=3)
         nbytes = ops = 0
-        for a in calls[k]:
-            if k == "lift_level_rows":
-                win, pairs = a[0], a[3]
-                lvl = schedule.levels[a[2]]
-                rows = pairs[1] - pairs[0]
-                nbytes += 2 * (win.numel() + ch * rows * lvl.target_w * 4 + ch)
-            else:
-                ll, chunk, pairs = a[0], a[1], a[4]
-                lvl = schedule.levels[a[3]]
-                rows = min(2 * pairs[1], lvl.current_h) - 2 * pairs[0]
-                nbytes += 2 * (ll.numel() + chunk.numel() + ch * rows * lvl.current_w)
-            ops += ch * rows * (2 if k == "lift_level_rows" else 1) * lvl.current_w * 2 * LIFT_OPS
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
-        bound = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
         per_level = {}
         for a in calls[k]:
-            lvl_k = a[2] if k == "lift_level_rows" else a[3]
+            lvl_k, shards = (a[2], a[3]) if fwd_k else (a[4], a[5])
             per_level.setdefault(lvl_k, []).append(a)
+            lvl = schedule.levels[lvl_k]
+            T, tw, lh, lw = lvl.target_h, lvl.target_w, lvl.current_h, lvl.current_w
+            weff = effective_wavelet(s.wavelet, tw, T)
+            # the pairs of the launch's windows, each read once; its
+            # shards' pairs and plane rows, each written (read) once
+            runs = []
+            for pr in shards:
+                lo, wn = lk.row_window(T, pr, weff, s.wrap)
+                runs += lk.pair_runs(lo, lo + wn, T, s.wrap)
+            need = sum(b - a for a, b in halo._merged(runs))
+            pairs = sum(p1 - p0 for p0, p1 in shards)
+            rows = sum(min(2 * p1, lh) - 2 * p0 for p0, p1 in shards)
+            if fwd_k:
+                nbytes += 2 * (ch * min(2 * need, lh) * lw + 4 * ch * pairs * tw + ch)
+            else:
+                nbytes += 2 * (4 * ch * need * tw + ch + ch * rows * lw)
+            ops += ch * rows * lw * 2 * LIFT_OPS
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+        bound = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
         levels = {}
         for lvl_k, group in sorted(per_level.items()):
             levels[lvl_k] = (_launch_ms(lambda: [real[k](*a) for a in group], k, iters=10),
                              len(group))
-        log(f"  {k}: {len(calls[k])} launches a whole-tile call over 8 shards: device "
+        log(f"  {k}: {len(calls[k])} launches a whole-tile call over 8 shards of one card: device "
             f"{dev_ms:.4f} ms (profiler), {ev_ms:.4f} ms back to back (CUDA events), plain "
             f"{plain_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]}: {nbytes} B, {ops} ops); "
             f"per level (device ms per launch, median; launches): "

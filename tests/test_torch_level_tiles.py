@@ -33,6 +33,7 @@ from ako_tpu_torch.core.geometry import LiftLevel
 from ako_tpu_torch.core.settings import Color, Wavelet, Wrap
 from ako_tpu_torch.ops import lift_kernels as lk
 from ako_tpu_torch.ops import lifting, quantization, wavelets
+from ako_tpu_torch.parallel import halo
 
 PREDICT, UPDATE, UNDO_UPDATE, UNDO_PREDICT = range(4)
 DD, CDF, HAAR = Wavelet.DD137, Wavelet.CDF53, Wavelet.HAAR
@@ -659,57 +660,109 @@ def test_kernel_constants_match_source():
 
 
 # ---------------------------------------------------------------------
-# K7: the row-window instances (lift_level_rows / unlift_level_rows) on
-# one shard's pairs, and the sharded lift of parallel/halo.py through them
+# K7: the shard-table instances (lift_level_shards / unlift_level_shards)
+# on a device's shards of a level, rows read in place from segments; the
+# one-shard case on a window buffer (lift_level_rows / unlift_level_rows);
+# and the sharded lift of parallel/halo.py through them
 
-POISON_ROWS = 5  # poisoned rows on each side of a window buffer
-
-
-class _Rows:
-    """A CTA's rows of the window buffer, in place of _Axis.samples() for
-    _load_planes: the row axis of a ROWS launch loads window slot j from
-    the buffer's row 2 (lo - win_lo) + j (csrc/lift_level.cu lift_body),
-    shifted past the poisoned rows before the window."""
-
-    def __init__(self, y, win_lo, win_n):
-        j = 2 * (y.lo - win_lo) + np.arange(2 * (y.hi - y.lo))
-        assert (j >= 0).all() and (j < 2 * win_n).all(), "a row outside the shard's window"
-        self.rows = POISON_ROWS + j
-
-    def samples(self):
-        return self.rows
+POISON = 11  # poisoned elements before, between and after a segment's rows
 
 
-def _poisoned(buf, rng, axis):
-    """buf with POISON_ROWS random rows before and after it along `axis`."""
-    shape = list(buf.shape)
-    shape[axis] = POISON_ROWS
-    pad = [rng.integers(-32768, 32768, size=shape) for _ in range(2)]
-    return np.concatenate([pad[0], buf, pad[1]], axis=axis)
+def _flat(t):
+    """The whole storage under a CPU tensor view, as a flat int16 array."""
+    return torch.empty(0, dtype=t.dtype).set_(t.untyped_storage()).numpy()
 
 
-def emulate_lift_rows(win, win_lo, pairs, h, w, wav, wrap, region, seed=0):
-    """lift_level_rows's lift, CTA by CTA: win is the shard's (C, 2 win_n,
-    w) window of pairs [win_lo, win_lo + win_n) of a level of h rows ->
-    (ll, b, c, d) of the shard's pairs, each (C, p1 - p0, tw) int64. The
-    regions cover [p0, p1) from p0, the axes keep the level's global pair
-    indices (edge steps at the line's ends alone), the buffer's rows
-    outside the window are poisoned and every tap must hit a loaded slot."""
+def _seg_row(segs, ch, r, q=0):
+    """csrc/lift_level.cu seg_of + seg_row: channel ch's row (pair) r, and
+    for a C, B, D segment its quadrant q, in the first segment that holds
+    it, as (flat storage, element offset); a row no segment holds would
+    be read from the last segment's poison."""
+    for s in segs:
+        t = s.t
+        if s.lo <= r < s.lo + t.shape[-2]:
+            off = (t.storage_offset() + ch * t.stride(0) + (q * t.stride(1) if t.dim() == 4 else 0)
+                   + (r - s.lo) * t.stride(-2))
+            return _flat(t), off
+    raise AssertionError(f"row {r}: no segment holds it")
+
+
+def _shard_ctas(shards, rh, nx):
+    """csrc/lift_level.cu shard_grid's prefix counts and region()'s scan:
+    each CTA's shard and its index among the shard's CTAs."""
+    cta0 = [0]
+    for p0, p1 in shards:
+        cta0.append(cta0[-1] + -(-(p1 - p0) // rh) * nx)
+    for b in range(cta0[-1]):
+        i = 0
+        while i + 1 < len(shards) and cta0[i + 1] <= b:
+            i += 1
+        yield shards[i], b - cta0[i]
+
+
+def _load_rows(raw, rows, aligned, xa, w):
+    """lift_body's SHARDS load: _load_planes on rows read from segments,
+    (C, wr, w), a row's 16-byte chunks only where its segment's row is
+    16-byte aligned (`aligned`, (C, wr)) and w a multiple of 8, else every
+    column one sample at a time. Every copy inside its row and the line, no
+    slot written twice. Returns sh."""
+    pitch = raw.shape[-1]
+    C, wr, _ = rows.shape
+    xs = xa.samples()
+    wc, vec = len(xs), w % 8 == 0
+    sh = (2 * xa.lo) & 7 if vec else 0
+    s0, s1 = 2 * max(xa.lo, 0), min(w, 2 * min(xa.hi, xa.n))
+    a0 = s0 & ~7
+    writes = np.zeros((C, wr, pitch), np.int64)
+    for ch, j in itertools.product(range(C), range(wr)):
+        rv = vec and aligned[ch, j]
+        nv = (s1 - a0 + 7) >> 3 if rv else 0
+        i0, i1 = (s0 - 2 * xa.lo, s1 - 2 * xa.lo) if rv else (wc, wc)
+        for v in range(nv):
+            col, g = sh + a0 - 2 * xa.lo + 8 * v, a0 + 8 * v
+            assert col % 8 == 0 and 0 <= col and col + 8 <= pitch, "a chunk outside its row"
+            assert g % 8 == 0 and g + 8 <= w, "a chunk outside the line"
+            raw[ch, j, col : col + 8] = rows[ch, j, g : g + 8]
+            writes[ch, j, col : col + 8] += 1
+        for i in [*range(i0), *range(i1, wc)]:
+            raw[ch, j, sh + i] = rows[ch, j, xs[i]]
+            writes[ch, j, sh + i] += 1
+    assert writes.max() <= 1 and sh + wc <= pitch
+    np.testing.assert_array_equal(raw[:, :wr, sh : sh + wc], rows[:, :, xs])
+    return sh
+
+
+def emulate_lift_shards(segs, shards, ll, chunk, out_p0, h, w, wav, wrap, region, q, g, seed=0):
+    """lift_level_shards's launch, CTA by CTA: each CTA's shard from the
+    prefix counts, its window's plane rows (y.sample on the global pair)
+    read from the segments (poisoned outside them), the steps with global
+    pair indices, and the stores into ll, (C, out_len, tw), and chunk, (C,
+    1 + 3 out_len tw), numpy copies of the outputs (poisoned), in place:
+    LL, the gated, quantized C, B, D, and the q heads by the region at
+    pair out_p0's first column. Every output sample is stored at most
+    once; returns the count of stores per quadrant sample and of head
+    stores."""
     rng = np.random.default_rng(seed)
-    C = win.shape[0]
-    p0, p1 = pairs
-    tw, hl, rep = (w + 1) // 2, lk.LEVEL_HALO[wav], wrap == Wrap.REPEAT
-    buf = _poisoned(win.astype(np.int64), rng, 1)
+    C, out_len, tw = ll.shape
+    hl, rep = lk.LEVEL_HALO[wav], wrap == Wrap.REPEAT
     pitch, plane, _, _ = lk.level_layout(C, region, wav, False)
-    quads = np.zeros((4, C, p1 - p0, tw), np.int64)
-    stores = np.zeros((C, p1 - p0, tw), np.int64)
-    for iy, ix in itertools.product(range(-(-(p1 - p0) // region[0])), range(-(-tw // region[1]))):
-        y = _Axis(h, region[0], iy, hl, rep, p0, p1)
-        xa = _Axis(w, region[1], ix, hl, rep)
+    nx = -(-tw // region[1])
+    n = out_len * tw
+    stores = np.zeros((C, out_len, tw), np.int64)
+    heads = 0
+    for (p0, p1), local in _shard_ctas(shards, region[0], nx):
+        y = _Axis(h, region[0], local // nx, hl, rep, p0, p1)
+        xa = _Axis(w, region[1], local % nx, hl, rep)
         raw = rng.integers(-32768, 32768, size=(C, plane // pitch, pitch))
-        wr, wc = 2 * (y.hi - y.lo), len(xa.samples())
-        sh = _load_planes(raw, buf, _Rows(y, win_lo, win.shape[1] // 2), xa, w)
+        ys = y.samples()
+        rows = np.zeros((C, len(ys), w), np.int64)
+        aligned = np.zeros((C, len(ys)), bool)
+        for ch, j in itertools.product(range(C), range(len(ys))):
+            flat, off = _seg_row(segs, ch, ys[j])
+            rows[ch, j], aligned[ch, j] = flat[off : off + w], off % 8 == 0
+        sh = _load_rows(raw, rows, aligned, xa, w)
         win_s = raw[:, :, sh:]
+        wr, wc = len(ys), len(xa.samples())
         m = np.zeros(win_s.shape, bool)
         m[:, :wr, :wc] = True
         _step(win_s[:, :wr], m[:, :wr], PREDICT, wav, max(xa.r0 - PL[wav], xa.lo),
@@ -719,44 +772,52 @@ def emulate_lift_rows(win, win_lo, pairs, h, w, wav, wrap, region, seed=0):
         cols, cm = win_s[:, :, c0:c1].swapaxes(1, 2), m[:, :, c0:c1].swapaxes(1, 2)
         _step(cols, cm, PREDICT, wav, max(y.r0 - PL[wav], y.lo), min(y.r1 + PR[wav], y.hi), y, wrap)
         _step(cols, cm, UPDATE, wav, y.r0, y.r1, y, wrap)
+        if local == 0 and y.r0 == out_p0:
+            chunk[:, 0] = np.asarray(q)
+            heads += 1
         rr, cc = 2 * (np.arange(y.r0, y.r1) - y.lo), 2 * (np.arange(xa.r0, xa.r1) - xa.lo)
-        for q, (dr, dc) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):  # ll, b, c, d
-            quads[q, :, y.r0 - p0 : y.r1 - p0, xa.r0 : xa.r1] = win_s[:, rr + dr][:, :, cc + dc]
-        stores[:, y.r0 - p0 : y.r1 - p0, xa.r0 : xa.r1] += 1
-    assert (stores == 1).all(), "the regions do not tile the shard's quadrants"
-    return quads
+        o = slice(y.r0 - out_p0, y.r1 - out_p0)
+        ll[:, o, xa.r0 : xa.r1] = win_s[:, rr][:, :, cc]
+        for j, (dr, dc) in enumerate(((1, 0), (0, 1), (1, 1))):  # C, B, D
+            v = win_s[:, rr + dr][:, :, cc + dc]
+            quad = chunk[:, 1 + j * n : 1 + (j + 1) * n].reshape(C, out_len, tw)
+            for ch in range(C):
+                quad[ch, o, xa.r0 : xa.r1] = _quantize(v[ch], q[ch], g[ch])
+        stores[:, o, xa.r0 : xa.r1] += 1
+    assert stores.max() <= 1, "an output stored twice"
+    return stores, heads
 
 
-def emulate_unlift_rows(ll, chunk, win_lo, pairs, h, w, wav, wrap, region, seed=0):
-    """unlift_level_rows, CTA by CTA: the (C, win_n, tw) LL window and the
-    (C, 1 + 3 win_n tw) chunk window (q heads, then C, B, D rows), each
-    poisoned outside the window, dequantized as they load -> the plane's
-    rows [2 p0, min(2 p1, h)), (C, rows, w) int16."""
+def emulate_unlift_shards(ll_segs, cbd_segs, heads, shards, out, out_p0, h, w, wav, wrap, region,
+                          seed=0):
+    """unlift_level_shards's launch, CTA by CTA: each window pair's LL and
+    C, B, D rows (the global pair, REPEAT's modulo) read from the segments
+    (poisoned outside them), C, B, D dequantized by the q heads as they
+    load, the steps, and the plane's rows stored into out, (C, out_len,
+    w), rows from 2 out_p0, a numpy copy of the output (poisoned), in
+    place. Returns the count of stores per output sample (at most 1)."""
     rng = np.random.default_rng(seed)
-    C, win_n, tw = ll.shape
-    p0, p1 = pairs
+    C, out_len = out.shape[:2]
+    tw = (w + 1) // 2
     hl, rep = lk.LEVEL_HALO[wav], wrap == Wrap.REPEAT
-    q = chunk[:, :1].astype(np.int64)[:, :, None]
-    cbd = chunk[:, 1:].reshape(C, 3, win_n, tw).astype(np.int64)
-    cbd = _w16(np.where(q[:, :, :, None] > 1, cbd * q[:, :, :, None], cbd))
-    # LL, B, C, D windows, poisoned outside the window
-    bufs = [_poisoned(x, rng, 1) for x in (ll.astype(np.int64), cbd[:, 1], cbd[:, 0], cbd[:, 2])]
     pitch, plane, _, _ = lk.level_layout(C, region, wav, False)
-    o0, rows = 2 * p0, min(2 * p1, h) - 2 * p0
-    out = np.zeros((C, rows, w), np.int64)
+    nx = -(-tw // region[1])
     stores = np.zeros(out.shape, np.int64)
-    for iy, ix in itertools.product(range(-(-(p1 - p0) // region[0])), range(-(-tw // region[1]))):
-        y = _Axis(h, region[0], iy, hl, rep, p0, p1)
-        xa = _Axis(w, region[1], ix, hl, rep)
-        gr = y.lo - win_lo + np.arange(y.hi - y.lo)  # csrc/lift_level.cu unlift_body's gr
-        assert (gr >= 0).all() and (gr < win_n).all(), "a pair outside the shard's window"
+    for (p0, p1), local in _shard_ctas(shards, region[0], nx):
+        y = _Axis(h, region[0], local // nx, hl, rep, p0, p1)
+        xa = _Axis(w, region[1], local % nx, hl, rep)
         win_s = rng.integers(-32768, 32768, size=(C, plane // pitch, pitch))
         m = np.zeros(win_s.shape, bool)
-        pc = xa.pairs()
-        i, j = np.arange(len(gr))[:, None], np.arange(len(pc))[None, :]
-        for b, (dr, dc) in zip(bufs, ((0, 0), (0, 1), (1, 0), (1, 1))):
-            win_s[:, 2 * i + dr, 2 * j + dc] = b[:, POISON_ROWS + gr][:, :, pc]
-        m[:, : 2 * len(gr), : 2 * len(pc)] = True
+        pr, pc = y.pairs(), xa.pairs()
+        for ch, i in itertools.product(range(C), range(len(pr))):
+            flat, off = _seg_row(ll_segs, ch, pr[i])
+            win_s[ch, 2 * i, 0 : 2 * len(pc) : 2] = flat[off + pc]
+            qh = int(heads[ch])
+            for q, (dr, dc) in enumerate(((1, 0), (0, 1), (1, 1))):  # C, B, D
+                flat, off = _seg_row(cbd_segs, ch, pr[i], q)
+                v = flat[off + pc].astype(np.int64)
+                win_s[ch, 2 * i + dr, dc : 2 * len(pc) : 2] = _w16(v * qh) if qh > 1 else v
+        m[:, : 2 * len(pr), : 2 * len(pc)] = True
         cols, cm = win_s[:, :, : 2 * len(pc)].swapaxes(1, 2), m[:, :, : 2 * len(pc)].swapaxes(1, 2)
         _step(cols, cm, UNDO_UPDATE, wav, max(y.r0 - UL[wav], y.lo), min(y.r1 + UR[wav], y.hi), y,
               wrap)
@@ -767,89 +828,296 @@ def emulate_unlift_rows(ll, chunk, win_lo, pairs, h, w, wav, wrap, region, seed=
         _step(rw, rm, UNDO_UPDATE, wav, max(xa.r0 - UL[wav], xa.lo), min(xa.r1 + UR[wav], xa.hi),
               xa, wrap)
         _step(rw, rm, UNDO_PREDICT, wav, xa.r0, xa.r1, xa, wrap)
-        out[:, row0 - o0 : row1 - o0, col0:col1] = rw[:, :, col0 - 2 * xa.lo : col1 - 2 * xa.lo]
-        stores[:, row0 - o0 : row1 - o0, col0:col1] += 1
-    assert (stores == 1).all(), "the regions do not tile the shard's rows"
-    return out.astype(np.int16)
+        o = slice(row0 - 2 * out_p0, row1 - 2 * out_p0)
+        out[:, o, col0:col1] = rw[:, :, col0 - 2 * xa.lo : col1 - 2 * xa.lo]
+        stores[:, o, col0:col1] += 1
+    assert stores.max() <= 1, "an output stored twice"
+    return stores
 
 
-def _emulated_rows_kernels(heads):
-    """Stand-ins for lk.lift_level_rows / unlift_level_rows that run the
-    emulations at the region the wrappers pick (level_region for one tile
-    on an H100 SXM), and check each launch against the plain version. The
-    forward's q heads are stored by the launch's first region alone, at
-    channel c's offset c (1 + 3 n) of the stream-layout rows; `heads`
-    counts the stores."""
+def _segments(rng, x, runs, pitch_pad=(0, 3, 8)):
+    """Segments of the rows `runs` ([a, b) along dim -2) of x, each in a
+    buffer of its own: POISON random elements before it, its rows at a
+    pitch of the row and 0, 3 or 8 more samples, channels (and
+    quadrants) apart by more poison, an element offset that leaves some
+    rows unaligned for 16-byte copies."""
+    segs = []
+    for a, b in runs:
+        part = x[..., a:b, :]
+        *outer, rows, width = part.shape
+        pitch = width + int(rng.choice(pitch_pad))
+        strides, size = [pitch, 1], rows * pitch + POISON
+        for d in reversed(outer):
+            strides.insert(0, size)
+            size = size * d + POISON
+        off = POISON + int(rng.integers(0, 3))
+        buf = rng.integers(-32768, 32768, size=off + size + POISON).astype(np.int16)
+        view = np.lib.stride_tricks.as_strided(buf[off:], part.shape, [2 * s for s in strides])
+        view[...] = part
+        t = torch.from_numpy(buf).as_strided(part.shape, strides, off)
+        segs.append(lk.Segment(a, t))
+    return segs
 
-    def lift(win, schedule, k, pairs, win_lo, wavelet, wrap, qg):
+
+def _cuts(rng, n, parts):
+    """[0, n) cut at random into at most `parts` runs."""
+    cuts = sorted({0, n, *rng.integers(1, max(n, 2), size=parts - 1).tolist()})
+    return [(a, b) for a, b in zip(cuts, cuts[1:]) if a < b]
+
+
+def _launches(T, n_shards):
+    """Launch tables of a level: every shard in one launch (one device),
+    alternate shards in two (two devices), and each shard alone."""
+    pairs = [p for p in halo.shard_pairs(T, n_shards) if p[0] < p[1]]
+    return [pairs, pairs[0::2], pairs[1::2]] + [[p] for p in pairs]
+
+
+# (h, w, shards, channels) of a level: T = 25 over 8 (a one-pair and an
+# empty shard), an odd height over 3 (ragged), a small level where DD
+# 13/7 falls back to CDF 5/3 over 2, an odd height over 8 with rows of a
+# multiple of 8 samples (the 16-byte copies)
+SHARD_LEVELS = [(50, 20, 8, 2), (37, 24, 3, 2), (13, 40, 2, 1), (51, 16, 8, 2)]
+
+
+@pytest.mark.parametrize("wrap", list(Wrap), ids=[w.name for w in Wrap])
+@pytest.mark.parametrize("wavelet", WAVELETS, ids=[w.name for w in WAVELETS])
+def test_shards_launch_matches_plain_and_ako_tpu(wavelet, wrap):
+    """lift_level_shards / unlift_level_shards emulated CTA by CTA on
+    launches of every shard at once, of alternate shards and of each
+    shard alone, their sources split at random into segments in buffers
+    of their own, poisoned outside them, some rows unaligned; the
+    outputs, poisoned before, equal to the plain versions' (which assemble
+    each shard's window by indexing) everywhere, and on the launch's pairs
+    to ako_tpu's lift2d / unlift2d and _quantize_gate on the whole level.
+    The one-shard launch on a window buffer (lift_level_rows's
+    window_segments) too; an empty shard and a table that misses a
+    window's row are refused."""
+    for h, w, n_sh, C in SHARD_LEVELS:
+        lvl = _level(h, w)
+        T, tw = lvl.target_h, lvl.target_w
+        schedule = geometry.LiftSchedule(w, h, (lvl,))
+        wav = wavelets.effective_wavelet(wavelet, tw, T)
+        region_of = lambda shards: lk.shards_region(schedule, 0, C, wavelet, tuple(shards), H100_SMS)
+        rng = np.random.default_rng(h * w + int(wavelet) * 4 + int(wrap))
+        planes = rng.integers(-32768, 32768, size=(C, h, w)).astype(np.int16)
+        qs = tuple(int(v) for v in rng.choice([0, 1, 7, 16], C))
+        qg = ((qs, (2,) * C),)
+        q, g = np.asarray(qs).reshape(C, 1, 1), np.full((C, 1, 1), 2)
+        ref = [np.asarray(x) for x in ref_wavelets.lift2d(wav, wrap, jnp.asarray(planes), lvl)]
+        cbd_ref = [_quantize_ref(x, q, g) for x in (ref[2], ref[1], ref[3])]  # C, B, D
+        ll_in = rng.integers(-32768, 32768, size=(C, T, tw)).astype(np.int16)
+        cbd_in = rng.integers(-32768, 32768, size=(C, 3, T, tw)).astype(np.int16)
+        heads = rng.choice([0, 1, 7, 300, -5], C).astype(np.int16)
+        deq = np.where(heads.reshape(C, 1, 1, 1) > 1,
+                       (cbd_in.astype(np.int64) * heads.reshape(C, 1, 1, 1)).astype(np.int16), cbd_in)
+        rec = np.asarray(ref_wavelets.unlift2d(wav, wrap, jnp.asarray(ll_in), jnp.asarray(deq[:, 1]),
+                                               jnp.asarray(deq[:, 0]), jnp.asarray(deq[:, 2]), lvl))
+        fwd_segs = _segments(rng, planes, _cuts(rng, h, 4))
+        ll_segs = _segments(rng, ll_in, _cuts(rng, T, 3))
+        cbd_segs = _segments(rng, cbd_in, _cuts(rng, T, 3))
+        hd = torch.from_numpy(heads)
+        for shards in _launches(T, n_sh):
+            region = region_of(shards)
+            one = len(shards) == 1
+            out_p0, out_len = (shards[0][0], shards[0][1] - shards[0][0]) if one else (0, T)
+            segs, lls, cbds = fwd_segs, ll_segs, cbd_segs
+            if one:  # lift_level_rows's case: a window buffer, two poisoned pairs around
+                win_lo, win_n = lk.row_window(T, shards[0], wav, wrap)
+                rows = lk.window_rows(win_lo, win_n, lvl, wrap)
+                pairs = lk.window_pairs(win_lo, win_n, T, wrap)
+
+                def buffer(x, per_pair):
+                    pad = [rng.integers(-32768, 32768, size=(*x.shape[:-2], 2 * per_pair,
+                                                             x.shape[-1])) for _ in range(2)]
+                    full = np.concatenate([pad[0], x, pad[1]], axis=-2).astype(np.int16)
+                    return _segments(rng, full, [(0, full.shape[-2])])[0].t
+
+                window = (buffer(planes[:, rows], 2), buffer(ll_in[:, pairs], 1),
+                          buffer(cbd_in[:, :, pairs], 1))
+                segs, lls, cbds = (lk.window_segments(b, win_lo - 2, lvl, shards[0], wav, wrap, pp)
+                                   for b, pp in zip(window, (2, 1, 1)))
+                assert len(segs) == (1 if wrap != Wrap.REPEAT else len(lk.pair_runs(
+                    win_lo, win_lo + win_n, T, wrap)))
+            # forward: outputs poisoned, the emulation against the plain version
+            ll0 = rng.integers(-32768, 32768, size=(C, out_len, tw)).astype(np.int16)
+            ch0 = rng.integers(-32768, 32768, size=C * (1 + 3 * out_len * tw)).astype(np.int16)
+            ll_e, ch_e = ll0.astype(np.int64), ch0.astype(np.int64).reshape(C, -1)
+            stores, nheads = emulate_lift_shards(segs, shards, ll_e, ch_e, out_p0, h, w, wav, wrap,
+                                                 region, qs, (2,) * C)
+            ll_p, ch_p = torch.from_numpy(ll0.copy()), torch.from_numpy(ch0.copy())
+            lk.lift_level_shards(segs, schedule, 0, shards, ll_p, ch_p, out_p0, wavelet, wrap, qg)
+            np.testing.assert_array_equal(ll_e, ll_p.numpy())
+            np.testing.assert_array_equal(ch_e.reshape(-1), ch_p.numpy())
+            mine = np.zeros(out_len, bool)
+            for p0, p1 in shards:
+                mine[p0 - out_p0 : p1 - out_p0] = True
+            assert (stores[:, mine] == 1).all() and not stores[:, ~mine].any()
+            assert nheads == (shards[0][0] == out_p0)
+            sel = np.flatnonzero(mine) + out_p0
+            np.testing.assert_array_equal(ll_e[:, mine], ref[0][:, sel])
+            quads = ch_e[:, 1:].reshape(C, 3, out_len, tw)
+            for j in range(3):
+                np.testing.assert_array_equal(quads[:, j][:, mine], cbd_ref[j][:, sel])
+            # inverse
+            o_rows = min(2 * (out_p0 + out_len), h) - 2 * out_p0
+            out0 = rng.integers(-32768, 32768, size=(C, o_rows, w)).astype(np.int16)
+            out_e = out0.astype(np.int64)
+            stores = emulate_unlift_shards(lls, cbds, heads, shards, out_e, out_p0, h, w, wav, wrap,
+                                           region)
+            out_p = torch.from_numpy(out0.copy())
+            lk.unlift_level_shards(lls, cbds, hd, schedule, 0, shards, out_p, out_p0, wavelet, wrap)
+            np.testing.assert_array_equal(out_e, out_p.numpy())
+            rmine = np.zeros(o_rows, bool)
+            for p0, p1 in shards:
+                rmine[2 * (p0 - out_p0) : min(2 * p1, h) - 2 * out_p0] = True
+            assert (stores[:, rmine] == 1).all() and not stores[:, ~rmine].any()
+            np.testing.assert_array_equal(out_e[:, rmine], rec[:, np.flatnonzero(rmine) + 2 * out_p0])
+        # an empty shard, and segments that miss a window's row, are refused
+        ll_p = torch.zeros((C, T, tw), dtype=torch.int16)
+        ch_p = torch.zeros(C * (1 + 3 * T * tw), dtype=torch.int16)
+        with pytest.raises(ValueError, match="non-empty"):
+            lk.lift_level_shards(fwd_segs, schedule, 0, [(0, 1), (1, 1)], ll_p, ch_p, 0, wavelet,
+                                 wrap, qg)
+        with pytest.raises(ValueError, match="do not hold"):
+            lk.lift_level_shards(fwd_segs[1:], schedule, 0, [(0, T)], ll_p, ch_p, 0, wavelet, wrap,
+                                 qg)
+
+
+def _quantize_ref(x, q, g):
+    return np.asarray(ref_lifting._quantize_gate(jnp.asarray(x), jnp.asarray(q), jnp.asarray(g)))
+
+
+def test_shards_table_limits():
+    """A launch takes 1 to MAX_SHARDS shards and at most MAX_SEGS
+    segments, refused with a ValueError before any launch; the constants
+    and the tables' fields are csrc/lift_level.cu's."""
+    import ctypes
+    import os
+    import re
+
+    from ako_tpu_torch.runtime import kernels
+
+    lvl = _level(600, 8)
+    schedule = geometry.LiftSchedule(8, 600, (lvl,))
+    qg = (((1,), (0,)),)
+    plane = torch.zeros((1, 600, 8), dtype=torch.int16)
+    ll = torch.zeros((1, 300, 4), dtype=torch.int16)
+    chunk = torch.zeros(1 + 3 * 300 * 4, dtype=torch.int16)
+    shards = [(8 * i, 8 * i + 8) for i in range(kernels.MAX_SHARDS + 1)]
+    with pytest.raises(ValueError, match="1 to 32"):
+        lk.lift_level_shards([lk.Segment(0, plane[0:1])], schedule, 0, shards, ll, chunk, 0,
+                             DD, Wrap.CLAMP, qg)
+    segs = [lk.Segment(r, plane[:, r : r + 1]) for r in range(kernels.MAX_SEGS + 1)]
+    with pytest.raises(ValueError, match="1 to 64"):
+        lk.lift_level_shards(segs, schedule, 0, [(0, 4)], ll, chunk, 0, DD, Wrap.CLAMP, qg)
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "..", "csrc", "lift_level.cu")).read()
+    assert int(re.search(r"kMaxShards = (\d+);", src).group(1)) == kernels.MAX_SHARDS
+    assert int(re.search(r"kMaxSegs = (\d+);", src).group(1)) == kernels.MAX_SEGS
+    for struct, cls in (("Seg", kernels.Seg), ("ShardArgs", kernels.ShardArgs)):
+        body = src[src.index(f"struct {struct} {{") : src.index("};", src.index(f"struct {struct} {{"))]
+        fields = re.findall(r"(\w+)(?:\[[^]]*\])?;", body)
+        assert fields == [name for name, _ in cls._fields_]
+    # a kernel's parameters: at most 4 KB
+    assert ctypes.sizeof(kernels.ShardArgs) + ctypes.sizeof(kernels.LevelArgs) + 16 <= 4096
+
+
+def test_shards_region_of_the_whole_tile():
+    """A launch over all 8 shards of the whole tile's levels takes the
+    whole level's region, as lift_level does: 16x64 and 320 CTAs at level
+    0; a launch over alternate shards (two devices) the region for its own
+    CTAs (32x64: 96)."""
+    schedule = geometry.lift_schedule(1024, 1280)
+    for k in range(2):
+        T = schedule.levels[k].target_h
+        pairs = tuple(halo.shard_pairs(T, 8))
+        assert (lk.shards_region(schedule, k, 4, DD, pairs, H100_SMS)
+                == lk.level_region(schedule, k, 4, DD, 1, H100_SMS) == (16, 64))
+    pairs = tuple(halo.shard_pairs(640, 8))
+    assert sum(-(-(p1 - p0) // 16) * 8 for p0, p1 in pairs) == 320
+    # alternate shards: 32x64 gives 96 CTAs, one an SM at most
+    assert lk.shards_region(schedule, 0, 4, DD, pairs[0::2], H100_SMS) == (32, 64)
+
+
+def _emulated_shard_kernels(launches):
+    """Stand-ins for lk.lift_level_shards / unlift_level_shards that run
+    the emulations on copies of the outputs, at the region the wrappers
+    pick on an H100 SXM, check each launch against the plain version
+    (every output element, poison included), and write the results back
+    as the kernel would. `launches` collects (kind, level, shards, head
+    stores)."""
+
+    def lift(segs, schedule, k, shards, ll, chunk, out_p0, wavelet, wrap, qg):
         lvl = schedule.levels[k]
-        C = win.shape[0]
+        C = ll.shape[0]
         wav = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
-        region = lk.level_region(schedule, k, C, wavelet, 1, H100_SMS)
-        ll, b, c, d = emulate_lift_rows(win.numpy(), win_lo, pairs, lvl.current_h, lvl.current_w,
-                                        wav, wrap, region, seed=k)
-        n = (pairs[1] - pairs[0]) * lvl.target_w
-        out = np.zeros(C * (1 + 3 * n), np.int16)
+        region = lk.shards_region(schedule, k, C, wavelet, tuple(shards), H100_SMS)
+        ll_e, ch_e = ll.numpy().astype(np.int64), chunk.numpy().astype(np.int64).reshape(C, -1)
         qs, gs = qg[k]
-        for ch in range(C):
-            base = ch * (1 + 3 * n)
-            out[base] = qs[ch]
-            heads[(k, pairs)] = heads.get((k, pairs), 0) + 1
-            for j, quad in enumerate((c, b, d)):
-                out[base + 1 + j * n : base + 1 + (j + 1) * n] = _quantize(
-                    quad[ch], qs[ch], gs[ch]).reshape(-1)
-        plain = lk.lift_level_rows_plain(win, schedule, k, pairs, win_lo, wavelet, wrap, qg)
-        np.testing.assert_array_equal(ll, plain[0].numpy())
-        np.testing.assert_array_equal(out, plain[1].numpy())
-        return torch.from_numpy(ll.astype(np.int16)), torch.from_numpy(out)
+        _, nheads = emulate_lift_shards(segs, shards, ll_e, ch_e, out_p0, lvl.current_h,
+                                        lvl.current_w, wav, wrap, region, qs, gs, seed=k)
+        lk.lift_level_shards_plain(segs, schedule, k, shards, ll, chunk, out_p0, wavelet, wrap, qg)
+        np.testing.assert_array_equal(ll_e, ll.numpy())
+        np.testing.assert_array_equal(ch_e.reshape(-1), chunk.numpy())
+        launches.append(("fwd", k, tuple(shards), nheads))
 
-    def unlift(ll, chunk, schedule, k, pairs, win_lo, wavelet, wrap):
+    def unlift(ll_segs, cbd_segs, heads, schedule, k, shards, out, out_p0, wavelet, wrap):
         lvl = schedule.levels[k]
-        C, win_n, tw = ll.shape
         wav = wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
-        region = lk.level_region(schedule, k, C, wavelet, 1, H100_SMS)
-        got = emulate_unlift_rows(ll.numpy(), chunk.numpy().reshape(C, -1), win_lo, pairs,
-                                  lvl.current_h, lvl.current_w, wav, wrap, region, seed=k)
-        plain = lk.unlift_level_rows_plain(ll, chunk, schedule, k, pairs, win_lo, wavelet, wrap)
-        np.testing.assert_array_equal(got, plain.numpy())
-        return torch.from_numpy(got)
+        region = lk.shards_region(schedule, k, out.shape[0], wavelet, tuple(shards), H100_SMS)
+        out_e = out.numpy().astype(np.int64)
+        emulate_unlift_shards(ll_segs, cbd_segs, heads.numpy(), shards, out_e, out_p0,
+                              lvl.current_h, lvl.current_w, wav, wrap, region, seed=k)
+        lk.unlift_level_shards_plain(ll_segs, cbd_segs, heads, schedule, k, shards, out, out_p0,
+                                     wavelet, wrap)
+        np.testing.assert_array_equal(out_e, out.numpy())
+        launches.append(("inv", k, tuple(shards), 0))
 
     return lift, unlift
 
 
-# (w, h, shards, channels, wavelet, wrap): the trouble shapes at narrow
-# widths (raggedness is in the rows): the whole north-star tile's
+# (w, h, shards, channels, wavelet, wrap, devices): the trouble shapes at
+# narrow widths (raggedness is in the rows): the whole north-star tile's
 # 1280 rows over 3 shards (every level ragged), the tractor's 2464 over 8
 # (ragged from level 2, odd sides at level 5), T = 25 over 8 (a one-pair
-# and an empty shard), odd and ragged sides, REPEAT and MIRROR at both ends
+# and an empty shard), odd and ragged sides, REPEAT and MIRROR at both
+# ends; on one device (a launch a level), and on two whose shards
+# alternate (a launch a device and level, the halo rows copied between
+# them)
 ROWS_CASES = [
-    (40, 1280, 3, 1, DD, Wrap.MIRROR),
-    (24, 2464, 8, 1, DD, Wrap.REPEAT),
-    (20, 50, 8, 2, DD, Wrap.REPEAT),
-    (20, 50, 8, 2, CDF, Wrap.MIRROR),
-    (127, 127, 8, 2, CDF, Wrap.REPEAT),
-    (96, 100, 8, 2, DD, Wrap.ZERO),
-    (77, 93, 8, 1, DD, Wrap.CLAMP),
-    (96, 100, 8, 2, HAAR, Wrap.REPEAT),
+    (40, 1280, 3, 1, DD, Wrap.MIRROR, 1),
+    (24, 2464, 8, 1, DD, Wrap.REPEAT, 1),
+    (20, 50, 8, 2, DD, Wrap.REPEAT, 1),
+    (20, 50, 8, 2, CDF, Wrap.MIRROR, 1),
+    (127, 127, 8, 2, CDF, Wrap.REPEAT, 1),
+    (96, 100, 8, 2, DD, Wrap.ZERO, 1),
+    (77, 93, 8, 1, DD, Wrap.CLAMP, 1),
+    (96, 100, 8, 2, HAAR, Wrap.REPEAT, 1),
+    (20, 50, 8, 2, DD, Wrap.REPEAT, 2),
+    (77, 93, 8, 1, CDF, Wrap.MIRROR, 2),
+    (40, 1280, 3, 1, DD, Wrap.CLAMP, 2),
 ]
 
 
-@pytest.mark.parametrize("case", ROWS_CASES,
-                         ids=[f"{w}x{h}-{n}sh-{wv.name}-{wr.name}" for w, h, n, _, wv, wr in ROWS_CASES])
+@pytest.mark.parametrize("case", ROWS_CASES, ids=[f"{w}x{h}-{n}sh-{wv.name}-{wr.name}-{d}dev"
+                                                  for w, h, n, _, wv, wr, d in ROWS_CASES])
 def test_rows_kernels_through_the_sharded_lift(case, monkeypatch):
     """parallel/halo.py's forward_tile_sharded / inverse_tile_sharded on a
     CPU mesh with K7 emulated CTA by CTA (each launch also equal to the
     plain version), against ako_tpu's forward_tile / inverse_tile under
-    JAX: windows from the port's own helper, the shard's quadrant rows
-    gathered to their wire offsets, one CTA per launch storing the q
-    heads, a launch per non-empty shard of each sharded level."""
-    from ako_tpu_torch.parallel import halo, make_mesh
+    JAX: one launch per device and sharded level over its non-empty
+    shards, the q heads stored once a level, by the launch on the device
+    of pair 0."""
+    from ako_tpu_torch.parallel import make_mesh
 
-    w, h, n, ch, wavelet, wrap = case
-    heads: dict = {}
-    lift, unlift = _emulated_rows_kernels(heads)
-    monkeypatch.setattr(lk, "lift_level_rows", lift)
-    monkeypatch.setattr(lk, "unlift_level_rows", unlift)
+    w, h, n, ch, wavelet, wrap, devices = case
+    launches: list = []
+    lift, unlift = _emulated_shard_kernels(launches)
+    monkeypatch.setattr(lk, "lift_level_shards", lift)
+    monkeypatch.setattr(lk, "unlift_level_shards", unlift)
+    mesh = make_mesh((n,), ("rows",), devices=[torch.device("cpu")] * n)
+    if devices == 2:
+        side = {id(s): i % 2 for i, s in enumerate(mesh.shards("rows"))}
+        monkeypatch.setattr(halo, "_device_key", lambda s: side[id(s)])
     rng = np.random.default_rng(w * h + n)
     planes = rng.integers(-512, 512, size=(ch, h, w)).astype(np.int16)
     schedule = geometry.lift_schedule(w, h)
@@ -857,24 +1125,34 @@ def test_rows_kernels_through_the_sharded_lift(case, monkeypatch):
     ref_sched = ref_geometry.lift_schedule(w, h)
     ref = np.asarray(jax.jit(lambda p: ref_lifting.forward_tile(p, ref_sched, wavelet, wrap, qg,
                                                                 False))(jnp.asarray(planes)))
-    mesh = make_mesh((n,), ("rows",), devices=[torch.device("cpu")] * n)
     got = halo.forward_tile_sharded(torch.from_numpy(planes), schedule, wavelet, wrap, qg, mesh)
     np.testing.assert_array_equal(got.numpy(), ref)
-    plan = halo.plan_levels(schedule, n, wavelet, wrap)
-    want = {(k, pr): ch for k in range(sum(plan))
-            for pr in halo.shard_pairs(schedule.levels[k].target_h, n) if pr[0] < pr[1]}
-    assert heads == want  # every non-empty shard launched once, its heads stored once a channel
     back = halo.inverse_tile_sharded(torch.from_numpy(ref.copy()), schedule, wavelet, wrap, ch,
                                      mesh)
     np.testing.assert_array_equal(back.numpy(), np.asarray(jax.jit(
         lambda c: ref_lifting.inverse_tile(c, ref_sched, wavelet, wrap, ch, False))(ref)))
+    plan = halo.plan_levels(schedule, n, wavelet, wrap)
+    want = []
+    for k in range(sum(plan)):
+        pairs = [p for p in halo.shard_pairs(schedule.levels[k].target_h, n) if p[0] < p[1]]
+        idx = [i for i, p in enumerate(halo.shard_pairs(schedule.levels[k].target_h, n))
+               if p[0] < p[1]]
+        groups = [tuple(p for i, p in zip(idx, pairs) if i % devices == d) for d in range(devices)]
+        want += [(k, g) for g in groups if g]
+    fwd = [(k, s) for kind, k, s, _ in launches if kind == "fwd"]
+    inv = [(k, s) for kind, k, s, _ in launches if kind == "inv"]
+    assert sorted(fwd) == sorted(want) and sorted(inv) == sorted(want)
+    for k in range(sum(plan)):  # the heads once a level, by the launch holding pair 0
+        assert [nh for kind, kk, s, nh in launches if kind == "fwd" and kk == k] == [
+            int(s[0][0] == 0) for kind, kk, s, _ in launches if kind == "fwd" and kk == k]
 
 
 def test_rows_window_maps_to_global_pairs():
-    """A ROWS launch's axes: regions from the shard's first pair, cut at
-    its last; the CTA's window slots inside the shard's window; REPEAT's
-    window unclipped (pairs taken modulo n), others clipped to the line;
-    and the source lines that the emulation repeats."""
+    """A shard launch's axes: regions from the shard's first pair, cut at
+    its last; a window buffer's segments by the line's rows (one, or for
+    REPEAT one per run between wraps); REPEAT's window unclipped (pairs
+    taken modulo n), others clipped to the line; and the source lines
+    that the emulation repeats."""
     import os
 
     y = _Axis(50, 2, 1, 3, False, 20, 24)  # T = 25 over 8 shards: shard 5, its second region
@@ -884,12 +1162,22 @@ def test_rows_window_maps_to_global_pairs():
     assert lk.row_window(25, (0, 4), DD, Wrap.REPEAT) == (-3, 10)
     assert lk.row_window(25, (0, 4), CDF, Wrap.MIRROR) == (0, 5)
     assert lk.row_window(25, (4, 8), HAAR, Wrap.REPEAT) == (4, 4)
-    rows = _Rows(_Axis(50, 4, 0, 3, True, 0, 4), -3, 10)
-    np.testing.assert_array_equal(rows.samples() - POISON_ROWS, np.arange(20))
-    with pytest.raises(AssertionError, match="outside the shard's window"):
-        _Rows(_Axis(50, 4, 0, 3, True, 0, 4), -2, 9)
+    assert lk.pair_runs(-3, 7, 25, Wrap.REPEAT) == [(22, 25), (0, 7)]
+    assert lk.pair_runs(-3, 7, 4, Wrap.REPEAT) == [(1, 4), (0, 4), (0, 3)]
+    assert lk.pair_runs(2, 7, 25, Wrap.CLAMP) == [(2, 7)]
+    # pairs [-5, 9) of 25 (h = 49) in a buffer, the window of pairs (0, 4) [-3, 7)
+    win = torch.arange(2 * 14 * 3, dtype=torch.int16).view(1, 28, 3)
+    segs = lk.window_segments(win, -5, _level(49, 3), (0, 4), DD, Wrap.REPEAT, 2)
+    assert [(s.lo, s.t.shape[1]) for s in segs] == [(44, 5), (0, 14)]  # row 49 does not exist
+    assert segs[0].t.data_ptr() == win[:, 4:].data_ptr()
+    assert segs[1].t.data_ptr() == win[:, 10:].data_ptr()
+    assert list(_shard_ctas([(0, 4), (4, 8), (8, 9)], 2, 3)) == (
+        [((0, 4), i) for i in range(6)] + [((4, 8), i) for i in range(6)] + [((8, 9), i) for i in range(3)])
     src = open(os.path.join(os.path.dirname(lk.__file__), "..", "csrc", "lift_level.cu")).read()
-    assert "const int sr = ROWS ? 2 * (y.lo - a.win_lo) + j : y.sample(j);" in src
-    assert "gr = ROWS ? y.lo + i - a.win_lo : y.pair(i);" in src
-    assert "const int o0 = first_pair<ROWS>(a), rows = end_pair<ROWS>(a) - o0;" in src
-    assert "if (g.idx == 0 && (int)threadIdx.x < C)" in src
+    assert ("if constexpr (SHARDS) row = seg_row(seg_of(s, 0, s->segs, y.sample(j)), ch, y.sample(j));"
+            in src)
+    assert "while (i + 1 < s->shards && s->cta0[i + 1] <= b) ++i;" in src
+    assert "const bool rv = !SHARDS || ((uintptr_t)row & 15) == 0;" in src
+    assert "const int o0 = SHARDS ? s->out_p0 : 0, rows = SHARDS ? s->out_len : (h + 1) / 2;" in src
+    assert "if (g.idx == 0 && y.r0 == o0 && (int)threadIdx.x < C)" in src
+    assert "const int o0 = SHARDS ? 2 * s->out_p0 : 0, rows = SHARDS ? s->out_len : h;" in src

@@ -296,39 +296,233 @@ def test_rows_window_must_hold_the_halo():
 # The exchange and the mesh
 
 
-def test_no_shard_aliases_another(monkeypatch):
-    """Every window, LL and output rows tensor of the sharded path has its
-    own storage, distinct from every other shard's and from the input,
-    though every shard is on one device."""
+def _ptr(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _spy_launches(monkeypatch):
+    """Record every K7 launch of halo.py: (kind, level, shards, source
+    storages, output storages), and run it."""
     seen = []
-    lift, unlift = lk.lift_level_rows, lk.unlift_level_rows
+    lift, unlift = lk.lift_level_shards, lk.unlift_level_shards
 
-    def ptr(t):
-        return t.untyped_storage().data_ptr()
+    def spy_lift(segs, schedule, k, shards, ll, chunk, *a):
+        seen.append(("fwd", k, tuple(shards), [_ptr(s.t) for s in segs], [_ptr(ll), _ptr(chunk)]))
+        return lift(segs, schedule, k, shards, ll, chunk, *a)
 
-    def spy_lift(win, *a, **k):
-        ll, rows = lift(win, *a, **k)
-        seen.append(("fwd", a[2], [ptr(win), ptr(ll), ptr(rows)]))
-        return ll, rows
+    def spy_unlift(ll_segs, cbd_segs, heads, schedule, k, shards, out, *a):
+        seen.append(("inv", k, tuple(shards), [_ptr(s.t) for s in ll_segs + cbd_segs] + [_ptr(heads)],
+                     [_ptr(out)]))
+        return unlift(ll_segs, cbd_segs, heads, schedule, k, shards, out, *a)
 
-    def spy_unlift(ll, chunk, *a, **k):
-        out = unlift(ll, chunk, *a, **k)
-        seen.append(("inv", a[2], [ptr(ll), ptr(chunk), ptr(out)]))
-        return out
+    monkeypatch.setattr(lk, "lift_level_shards", spy_lift)
+    monkeypatch.setattr(lk, "unlift_level_shards", spy_unlift)
+    return seen
 
-    monkeypatch.setattr(lk, "lift_level_rows", spy_lift)
-    monkeypatch.setattr(lk, "unlift_level_rows", spy_unlift)
+
+@pytest.mark.parametrize("shape", [(96, 100, 8), (3, 60, 4)], ids=["replicated-top", "all-sharded"])
+def test_one_device_reads_and_writes_in_place(shape, monkeypatch):
+    """On a one-device mesh (every shard on the CPU) a call copies nothing:
+    one launch per sharded level over its non-empty shards; level 0 reads
+    the input planes and each later level the LL buffer the level before
+    wrote, in place; the forward's chunks are the returned stream's, and
+    its last LL is the first replicated level's input or the stream's LP
+    head; the inverse reads the stream in place, each level the plane the
+    level above wrote, and level 0 writes the returned planes."""
+    w, h, n = shape
+    seen = _spy_launches(monkeypatch)
+    replicated = []
+    for name in ("forward_levels", "forward_pyramid"):
+        real = getattr(lk, name)
+        monkeypatch.setattr(lk, name, lambda x, *a, _real=real: replicated.append(_ptr(x)) or _real(x, *a))
+    copies = []
+    monkeypatch.setattr(halo, "_copy", lambda *a: copies.append(a))
+    before = dict(halo.COPIES)
     rng = np.random.default_rng(11)
-    planes = torch.from_numpy(rng.integers(-512, 512, size=(2, 100, 96)).astype(np.int16))
-    schedule = geometry.lift_schedule(96, 100)
-    qg = level_qg(ref_geometry.lift_schedule(96, 100), 2, 16, 0, 1)
-    coeffs = forward_tile_sharded(planes, schedule, Wavelet.DD137, Wrap.REPEAT, qg, _mesh(8))
-    inverse_tile_sharded(coeffs, schedule, Wavelet.DD137, Wrap.REPEAT, 2, _mesh(8))
-    assert {kind for kind, _, _ in seen} == {"fwd", "inv"}
-    for kind, k, _ in seen:
-        ptrs = [p for kd, kk, ps in seen if (kd, kk) == (kind, k) for p in ps]
-        assert len(set(ptrs)) == len(ptrs), f"{kind} level {k}: shards share storage"
-        assert ptr(planes) not in ptrs and ptr(coeffs) not in ptrs
+    planes = torch.from_numpy(rng.integers(-512, 512, size=(2, h, w)).astype(np.int16))
+    schedule = geometry.lift_schedule(w, h)
+    qg = level_qg(ref_geometry.lift_schedule(w, h), 2, 16, 0, 1)
+    coeffs = forward_tile_sharded(planes, schedule, Wavelet.DD137, Wrap.REPEAT, qg, _mesh(n))
+    back = inverse_tile_sharded(coeffs, schedule, Wavelet.DD137, Wrap.REPEAT, 2, _mesh(n))
+    np.testing.assert_array_equal(coeffs.numpy(), ako_tpu_torch.ops.lifting.forward_tile(
+        planes, schedule, Wavelet.DD137, Wrap.REPEAT, qg).numpy())
+    np.testing.assert_array_equal(back.numpy(), ako_tpu_torch.ops.lifting.inverse_tile(
+        coeffs, schedule, Wavelet.DD137, Wrap.REPEAT, 2).numpy())
+    assert not copies and halo.COPIES == before
+    ks = sum(halo.plan_levels(schedule, n, Wavelet.DD137, Wrap.REPEAT))
+    fwd = [s for s in seen if s[0] == "fwd"]
+    inv = [s for s in seen if s[0] == "inv"]
+    want = [(k, tuple(p for p in halo.shard_pairs(schedule.levels[k].target_h, n) if p[0] < p[1]))
+            for k in range(ks)]
+    assert [s[1:3] for s in fwd] == want and [s[1:3] for s in inv] == want[::-1]
+    assert fwd[0][3] == [_ptr(planes)]
+    for a, b in zip(fwd, fwd[1:]):
+        assert b[3] == [a[4][0]]  # the LL buffer the level before wrote
+    assert all(s[4][1] == _ptr(coeffs) for s in fwd)
+    if ks == len(schedule.levels):
+        assert fwd[-1][4][0] == _ptr(coeffs) and not replicated
+    else:
+        assert replicated[0] == fwd[-1][4][0]
+    for a, b in zip(inv, inv[1:]):
+        assert b[3][0] == a[4][0]  # the plane the level above wrote
+    assert all(set(s[3][1:]) == {_ptr(coeffs)} for s in inv)
+    assert inv[-1][4] == [_ptr(back)]
+
+
+def test_distinct_devices_copy_only_their_halo_rows(monkeypatch):
+    """On a mesh whose alternate shards count as two devices (the grouping
+    key monkeypatched), a launch reads only storage of its own device, one
+    segment a source, and writes only there; the rows its windows need from
+    the other device are copied into its own buffer of that source at their
+    own rows, one copy per run of rows of one source part (a shard's rows),
+    and the other device's outputs are gathered home one copy per run; the
+    stream and planes equal the one-device port's."""
+    n, w, h = 8, 96, 100
+    mesh = _mesh(n)
+    side = {id(s): i % 2 for i, s in enumerate(mesh.shards("rows"))}
+    monkeypatch.setattr(halo, "_device_key", lambda s: side[id(s)])
+    owner = {}  # storage -> the device (0 or 1) whose buffer it is; others are home's
+    kept = []  # every buffer kept alive, so that no storage is reused
+    real_empty = halo._empty
+
+    def spy_empty(shard, shape):
+        t = real_empty(shard, shape)
+        owner[_ptr(t)] = side.get(id(shard), 0)  # the caller's stream: home's
+        kept.append(t)
+        return t
+
+    monkeypatch.setattr(halo, "_empty", spy_empty)
+    copies = []
+    real_copy = halo._copy
+
+    def spy_copy(dst, dst_shard, src, src_shard, event, kind):
+        copies.append((kind, _ptr(dst), _ptr(src), dst.shape[-2] if dst.dim() < 4 else dst.shape[2]))
+        real_copy(dst, dst_shard, src, src_shard, event, kind)
+
+    monkeypatch.setattr(halo, "_copy", spy_copy)
+    seen = _spy_launches(monkeypatch)
+    rng = np.random.default_rng(12)
+    planes = torch.from_numpy(rng.integers(-512, 512, size=(2, h, w)).astype(np.int16))
+    schedule = geometry.lift_schedule(w, h)
+    wavelet, wrap = Wavelet.DD137, Wrap.MIRROR
+    qg = level_qg(ref_geometry.lift_schedule(w, h), 2, 16, 0, 1)
+    coeffs = forward_tile_sharded(planes, schedule, wavelet, wrap, qg, mesh)
+    n_fwd = len(copies)
+    back = inverse_tile_sharded(coeffs, schedule, wavelet, wrap, 2, mesh)
+    np.testing.assert_array_equal(coeffs.numpy(), ako_tpu_torch.ops.lifting.forward_tile(
+        planes, schedule, wavelet, wrap, qg).numpy())
+    np.testing.assert_array_equal(back.numpy(), ako_tpu_torch.ops.lifting.inverse_tile(
+        coeffs, schedule, wavelet, wrap, 2).numpy())
+    ks = sum(halo.plan_levels(schedule, n, wavelet, wrap))
+    assert ks == 2
+
+    def device(k, pairs):
+        m = -(-schedule.levels[k].target_h // n)
+        return (pairs[0][0] // m) % 2
+
+    for kind, k, shards, srcs, outs in seen:
+        d = device(k, shards)
+        assert {owner.get(p, 0) for p in srcs + outs} == {d}, f"{kind} level {k}: another's storage"
+        assert len(srcs) == (1 if kind == "fwd" else 3)  # a segment a source, and the q heads
+        assert all(((p0 // -(-schedule.levels[k].target_h // n)) % 2) == d for p0, _ in shards)
+    for kind, dst, src, _ in copies:
+        assert owner.get(src, 0) != owner.get(dst, 0), "a copy within one device"
+        if kind == "gather":
+            assert owner.get(dst, 0) == 0
+
+    def runs(rows, part):
+        """Maximal runs of consecutive rows of one source part."""
+        rows = sorted(set(rows))
+        return sum(1 for i, r in enumerate(rows)
+                   if i == 0 or rows[i - 1] != r - 1 or part(rows[i - 1]) != part(r))
+
+    weff = [lk.wavelets.effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
+            for lvl in schedule.levels]
+    want_fwd = want_inv = 0
+    for k in range(ks):
+        lvl = schedule.levels[k]
+        T, m = lvl.target_h, -(-lvl.target_h // n)
+        m_prev = -(-schedule.levels[k - 1].target_h // n) if k else None
+        for d in (0, 1):
+            mine = [p for i, p in enumerate(halo.shard_pairs(T, n)) if i % 2 == d and p[0] < p[1]]
+            # forward: the window rows held by the other device (level 0's
+            # planes are home's), by source shard
+            need = {r for pr in mine for r in halo.window_rows(*lk.row_window(T, pr, weff[k], wrap),
+                                                                lvl, wrap)}
+            held = (lambda r: 0) if k == 0 else (lambda r: (r // m_prev) % 2)
+            want_fwd += runs([r for r in need if held(r) != d], lambda r: 0 if k == 0 else r // m_prev)
+            # inverse: the LL pairs held by the other device (the top
+            # level's are home's), the C, B, D pairs (home's) and the heads
+            pneed = {p for pr in mine for p in halo.window_pairs(*lk.row_window(T, pr, weff[k], wrap),
+                                                                  T, wrap)}
+            m_next = -(-schedule.levels[k + 1].target_h // n) if k + 1 < ks else None
+            lheld = (lambda p: 0) if m_next is None else (lambda p: ((p // 2) // m_next) % 2)
+            want_inv += runs([p for p in pneed if lheld(p) != d],
+                             lambda p: 0 if m_next is None else (p // 2) // m_next)
+            if d == 1:
+                want_inv += runs(pneed, lambda p: 0) + 1
+    got = [c[0] for c in copies]
+    assert got[:n_fwd].count("window") == want_fwd and got[n_fwd:].count("window") == want_inv
+    # gathers: each of device 1's shards' quadrant rows a level and its last
+    # level's LL rows; its level-0 rows back
+    odd = lambda k: sum(1 for i, p in enumerate(halo.shard_pairs(schedule.levels[k].target_h, n))
+                        if i % 2 and p[0] < p[1])
+    assert got[:n_fwd].count("gather") == sum(odd(k) for k in range(ks)) + odd(ks - 1)
+    assert got[n_fwd:].count("gather") == odd(0)
+
+
+def test_more_shards_than_a_launch_takes(monkeypatch):
+    """33 shards on one device are refused before any launch; counted as
+    two devices (17 and 16 shards) they run, two launches a level, equal
+    to the one-device port."""
+    n, w, h = 33, 8, 272
+    seen = _spy_launches(monkeypatch)
+    rng = np.random.default_rng(13)
+    planes = torch.from_numpy(rng.integers(-512, 512, size=(1, h, w)).astype(np.int16))
+    schedule = geometry.lift_schedule(w, h)
+    qg = level_qg(ref_geometry.lift_schedule(w, h), 1, 16, 0, 1)
+    mesh = _mesh(n)
+    assert halo.plan_levels(schedule, n, Wavelet.CDF53, Wrap.CLAMP)[0]
+    with pytest.raises(ValueError, match="at most 32 shards a device"):
+        forward_tile_sharded(planes, schedule, Wavelet.CDF53, Wrap.CLAMP, qg, mesh)
+    assert not seen
+    side = {id(s): i % 2 for i, s in enumerate(mesh.shards("rows"))}
+    monkeypatch.setattr(halo, "_device_key", lambda s: side[id(s)])
+    coeffs = forward_tile_sharded(planes, schedule, Wavelet.CDF53, Wrap.CLAMP, qg, mesh)
+    np.testing.assert_array_equal(coeffs.numpy(), ako_tpu_torch.ops.lifting.forward_tile(
+        planes, schedule, Wavelet.CDF53, Wrap.CLAMP, qg).numpy())
+    ks = sum(halo.plan_levels(schedule, n, Wavelet.CDF53, Wrap.CLAMP))
+    assert [s[1] for s in seen] == [k for k in range(ks) for _ in range(2)]
+
+
+def test_interleaved_shards_take_one_segment_a_source(monkeypatch):
+    """64 shards alternating over two devices (the grouping key
+    monkeypatched), 32 a device: every launch of every sharded level takes
+    its device's 32 shards and one segment a source, however many runs of
+    rows the other device holds, and the stream and planes equal the
+    one-device port's."""
+    n, w, h = 64, 8, 1024
+    mesh = _mesh(n)
+    side = {id(s): i % 2 for i, s in enumerate(mesh.shards("rows"))}
+    monkeypatch.setattr(halo, "_device_key", lambda s: side[id(s)])
+    seen = _spy_launches(monkeypatch)
+    rng = np.random.default_rng(14)
+    planes = torch.from_numpy(rng.integers(-512, 512, size=(1, h, w)).astype(np.int16))
+    schedule = geometry.lift_schedule(w, h)
+    wavelet, wrap = Wavelet.DD137, Wrap.REPEAT
+    qg = level_qg(ref_geometry.lift_schedule(w, h), 1, 16, 0, 1)
+    coeffs = forward_tile_sharded(planes, schedule, wavelet, wrap, qg, mesh)
+    back = inverse_tile_sharded(coeffs, schedule, wavelet, wrap, 1, mesh)
+    np.testing.assert_array_equal(coeffs.numpy(), ako_tpu_torch.ops.lifting.forward_tile(
+        planes, schedule, wavelet, wrap, qg).numpy())
+    np.testing.assert_array_equal(back.numpy(), ako_tpu_torch.ops.lifting.inverse_tile(
+        coeffs, schedule, wavelet, wrap, 1).numpy())
+    ks = sum(halo.plan_levels(schedule, n, wavelet, wrap))
+    assert ks == 2
+    assert [(s[0], s[1], len(s[2])) for s in seen] == (
+        [("fwd", k, 32) for k in range(ks) for _ in range(2)]
+        + [("inv", k, 32) for k in reversed(range(ks)) for _ in range(2)])
+    assert all(len(s[3]) == (1 if s[0] == "fwd" else 3) for s in seen)
 
 
 def test_mesh_shapes_and_shards(monkeypatch):
