@@ -71,16 +71,10 @@
 // the pack is about a sixth of it. A one-row stream (the whole-image
 // tile, 0.035 ms) adds a tail after its last chunk: the edge merge and
 // the zero tail, most of its 5.2 MB of output.
-//
-// The file also holds kernel K8p (rate_sizes, the rate search's payload
-// sizes), which takes K3's chunks, tokenizer and first look-back and
-// stops after the code lengths; its section below sets it out.
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "rate_common.cuh"
 
 namespace {
 
@@ -532,133 +526,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) kagari_encode(Args a) {
         zero_tail(a, s_ticket - chunk_ctas);
 }
 
-// ---------------------------------------------------------------- K8p
-//
-// Kernel K8p: the rate search's exact Kagari payload sizes. Replaces
-// ako_tpu/tools/rate.py:_probe_sizes_fn (:101, an XLA program: the
-// probe's _serialize_raw, then kagari_size_device per tile) and computes
-// what ops/rate_device.py probe_sizes_plain computes: for each row of a
-// (rows, n) int16 raw stream (rate_common.cuh), ceil(bits / 8) of the
-// Kagari codes of the row at the probe's table, one int64 a row. Nothing
-// else is written: no stream, no bytes.
-//
-// Design: K3's chunks of kChunk positions, one CTA each by ticket. A CTA
-// applies the probe's quantize/gate to the raw values as it stages them,
-// takes the last mismatch before its chunk by K3's look-back over the
-// same 64-bit epoch descriptors (at a probe's larger q the highpass is
-// mostly zeros, and runs cross many chunks), tokenizes as K3 does and
-// sums its code bits. The row's total is a sum, so it needs no second
-// look-back: each CTA adds (1 << 40) + its bits to the row's 64-bit
-// counter with one atomic, and the CTA that sees the row's other chunks
-// counted writes the row's bytes and clears the counter for the next
-// call. What bounds it: bytes, the raw streams read once (10.49 MB at the
-// north star's 80 x 65560 values: 3.13 us at 3.35 TB/s). On an H100 (700
-// W) it takes about 0.0315 ms there and on the whole-image tile's one row,
-// as long as K3: each CTA is still a chain of phases (the ticket, the
-// table, the load, two CTA scans, the look-back's L2 round trips) over
-// about two waves of 1360 CTAs, and the pack K8p drops was about a sixth.
-
-constexpr int kCountShift = 40;  // a row's bits stay below 2^32 (kMaxN), its chunks below 2^24
-
-struct SizeArgs {
-    const int16_t* raw;  // (rows, n) raw streams, n = the table's
-    long long* sizes;    // (rows,) payload bytes
-    u64* mm;             // per chunk: last-mismatch descriptor (value: position + 1)
-    u64* acc;            // per row: chunks counted << kCountShift | bits; 0 between calls
-    unsigned* ticket;
-    int chunks;
-    unsigned epoch;
-};
-
-// Stage the chunk's values at the probe's table, with the one before at
-// sv[kPad - 1] and the one after at sv[kPad + len] (at the row's ends,
-// values that differ from their neighbour): eight values a thread by one
-// 16-byte load when the chunk is whole and aligned, else one a thread.
-__device__ __forceinline__ void stage_rate(const SizeArgs& a, const RateArgs& r, const RateTable& t,
-                                           int row, int start, int len, int16_t* sv) {
-    const int16_t* src = a.raw + (long long)row * r.n;
-    auto value = [&](int p) { return rate_value(t, rate_segment(t, r.lp, r.segs, p), p, src[p]); };
-    if (len == kChunk && ((uintptr_t)(src + start) & 15) == 0) {
-        for (int k = threadIdx.x; k < kChunk / 8; k += kThreads) {
-            union {
-                uint4 u;
-                int16_t v[8];
-            } x;
-            x.u = *reinterpret_cast<const uint4*>(src + start + 8 * k);
-            int p = start + 8 * k;
-            int seg = rate_segment(t, r.lp, r.segs, p);
-#pragma unroll
-            for (int j = 0; j < 8; ++j, ++p) {
-                x.v[j] = (int16_t)rate_value(t, seg, p, x.v[j]);
-                seg = rate_next_segment(t, r.segs, seg, p);
-            }
-            reinterpret_cast<uint4*>(sv + kPad)[k] = x.u;
-        }
-    } else {
-        for (int k = threadIdx.x; k < len; k += kThreads) sv[kPad + k] = (int16_t)value(start + k);
-    }
-    if (threadIdx.x == 0) sv[kPad - 1] = (int16_t)(start > 0 ? value(start - 1) : value(start) ^ 1);
-    if (threadIdx.x == 32)
-        sv[kPad + len] =
-            (int16_t)(start + len < r.n ? value(start + len) : value(start + len - 1) ^ 1);
-}
-
-__device__ void size_chunk(const SizeArgs& a, const RateArgs& r, const RateTable& t, int g) {
-    __shared__ __align__(16) int16_t sv[kChunk + 2 * kPad];
-    __shared__ int s_carry;
-    const int row = g / a.chunks, idx = g % a.chunks;
-    const int start = idx * kChunk, len = min(kChunk, r.n - start);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-    stage_rate(a, r, t, row, start, len, sv);
-    __syncthreads();
-    const Items it = items_of(sv, start, len);
-    const bool need_carry = sv[kPad] == sv[kPad - 1];
-
-    // carry 1, as K3's (the scan's barriers end the reads of sv)
-    int chunk_mm;
-    const int mm_before = cta_exclusive_scan(own_last_mismatch(it), -1, Max(), &chunk_mm);
-    if (threadIdx.x == 0)
-        publish(a.mm + g, descriptor(a.epoch, chunk_mm >= 0, (unsigned)(chunk_mm + 1)));
-    if (need_carry && warp == 0) {
-        const int carry = look_back_mismatch(a.mm + (long long)row * a.chunks, idx, a.epoch);
-        if (lane == 0) {
-            s_carry = carry;
-            if (chunk_mm < 0) publish(a.mm + g, descriptor(a.epoch, true, (unsigned)(carry + 1)));
-        }
-    }
-    __syncthreads();
-
-    // the chunk's bits into the row's counter; the row's last CTA writes
-    // its bytes
-    uint32_t codes[kItems];
-    const int own = tokenize(it, max(need_carry ? s_carry : -1, mm_before), codes);
-    int chunk_bits;
-    cta_exclusive_scan(own, 0, Add(), &chunk_bits);
-    if (threadIdx.x == 0) {
-        const u64 old = atomicAdd(a.acc + row, (1ull << kCountShift) | (u64)(unsigned)chunk_bits);
-        if ((int)(old >> kCountShift) == a.chunks - 1) {
-            const u64 bits = (old & ((1ull << kCountShift) - 1)) + (unsigned)chunk_bits;
-            a.sizes[row] = (long long)((bits + 7) >> 3);
-            a.acc[row] = 0ull;  // every chunk of the row is counted: for the next call
-        }
-    }
-}
-
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    rate_sizes(SizeArgs a, const __grid_constant__ RateArgs r) {
-    __shared__ RateTable t;
-    __shared__ int s_ticket;
-    if (threadIdx.x == 0) {
-        const unsigned tk = atomicAdd(a.ticket, 1u);
-        if (tk == gridDim.x - 1) *a.ticket = 0u;  // the last ticket: reset for the next call
-        s_ticket = (int)tk;
-    }
-    load_rate_table(r, t);
-    __syncthreads();
-    size_chunk(a, r, t, s_ticket);
-}
-
 }  // namespace
 
 // Plain C interface, bound with ctypes (ako_tpu_torch/runtime/kernels.py).
@@ -700,37 +567,5 @@ extern "C" int ako_kagari_encode(const int16_t* values, uint32_t* out, long long
                  zero_slabs,
                  epoch};
     kagari_encode<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
-}
-
-// K8p. raw: (rows, n) int16, n = args->n; sizes: (rows,) int64 payload
-// bytes. scratch: the caller's, zeroed once and reused, scratch_words
-// 64-bit words laid out for up to rows_cap rows and chunks_cap chunks in
-// all: chunks_cap descriptors, rows_cap row counters (zero between calls;
-// each call leaves them so), then the 32-bit ticket. epoch: 1 .. 2^31 - 1,
-// a new one each call on this scratch. One launch on `stream`, no
-// synchronisation. Returns the first cudaError_t.
-extern "C" int ako_rate_sizes(const int16_t* raw, long long* sizes, unsigned long long* scratch,
-                              long long scratch_words, int rows_cap, int chunks_cap, unsigned epoch,
-                              int rows, const RateArgs* args, void* stream) {
-    if (rows == 0) return 0;
-    const RateArgs& r = *args;
-    if (rows < 0 || r.n <= 0 || r.n > kMaxN || r.lp <= 0 || r.lp > r.n || r.segs < 0 ||
-        r.segs > kRateSegs || (r.segs > 0 && r.start[0] != r.lp) || epoch == 0 ||
-        epoch >= (1u << 31))
-        return (int)cudaErrorInvalidValue;
-    const int chunks = (int)((r.n + kChunk - 1) / kChunk);
-    const long long grid = (long long)rows * chunks;
-    if (grid > INT_MAX || rows > rows_cap || grid > chunks_cap ||
-        (long long)chunks_cap + rows_cap + 1 > scratch_words)
-        return (int)cudaErrorInvalidValue;
-    const SizeArgs a{raw,
-                     sizes,
-                     scratch,
-                     scratch + chunks_cap,
-                     reinterpret_cast<unsigned*>(scratch + chunks_cap + rows_cap),
-                     chunks,
-                     epoch};
-    rate_sizes<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(a, r);
     return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// The rate search's per-probe quantize/gate of a cached raw stream, shared
-// by kernels K8s (rate.cu, rate_serialize) and K8p (kagari_encode.cu,
-// rate_sizes); ako_tpu/tools/rate.py _serialize_raw (:55-78) computes it
-// from the pyramid's quadrants.
+// The rate search's per-probe quantize/gate of a cached raw stream, and
+// the cut of a launch's rows into spans, shared by kernels K8s and K8p
+// (rate.cu); ako_tpu/tools/rate.py _serialize_raw (:55-78) computes the
+// quantize/gate from the pyramid's quadrants.
 //
 // The cached stream is a tile's wire-order stream lifted at q = 1, g = 0
 // (ops/rate_device.py): the LP planes in [0, lp), then one segment per
@@ -15,8 +15,6 @@
 #pragma once
 
 #include <stdint.h>
-
-#include "lift_common.cuh"
 
 // (level, channel) segments a row at most: 30 levels (a 2^31-px side) of
 // MAX_CHANNELS (16) channels, and a table that stays under the 4 KB of
@@ -37,31 +35,32 @@ struct RateArgs {
 
 namespace {
 
-// The table in shared memory, with each segment's divider made once.
+// The table in shared memory, made once a CTA. Entry 0 is the LP region
+// (no head, every value kept: a multiplier of 2^31 and no gate), entry
+// k + 1 segment k of RateArgs; start[segs + 1] == n.
 struct RateTable {
-    int start[kRateSegs + 1];  // start[segs] == n
-    int q[kRateSegs];
-    int g[kRateSegs];
-    ako::Divider div[kRateSegs];
+    int start[kRateSegs + 2];
+    uint32_t mul[kRateSegs + 1];  // ceil(2^31 / max(q, 1))
+    int gate2[kRateSegs + 1];     // 2 g
+    int head[kRateSegs + 1];      // int16(q), the value at the head
 };
 
 // Fill t from a; every thread of the block calls it, and the caller
 // synchronises before reading t.
 __device__ __forceinline__ void load_rate_table(const RateArgs& a, RateTable& t) {
-    for (int k = threadIdx.x; k < a.segs; k += blockDim.x) {
-        t.start[k] = a.start[k];
-        t.q[k] = a.q[k];
-        t.g[k] = a.g[k];
-        t.div[k] = ako::Divider(max((int)a.q[k], 1));
+    for (int k = threadIdx.x; k <= a.segs; k += blockDim.x) {
+        const int q = k ? a.q[k - 1] : 1, qd = q > 1 ? q : 1;
+        t.start[k] = k ? a.start[k - 1] : 0;
+        t.mul[k] = (0x80000000u + (unsigned)qd - 1u) / (unsigned)qd;
+        t.gate2[k] = k ? 2 * a.g[k - 1] : -2;
+        t.head[k] = q;
     }
-    if (threadIdx.x == 0) t.start[a.segs] = a.n;
+    if (threadIdx.x == 0) t.start[a.segs + 1] = a.n;
 }
 
-// The segment of row position p: -1 in the LP region, else the last k
-// with start[k] <= p.
-__device__ __forceinline__ int rate_segment(const RateTable& t, int lp, int segs, int p) {
-    if (p < lp) return -1;
-    int lo = 0, hi = segs - 1;
+// The entry of row position p (0 <= p < n): the last k with start[k] <= p.
+__device__ __forceinline__ int rate_entry(const RateTable& t, int segs, int p) {
+    int lo = 0, hi = segs;
     while (lo < hi) {
         const int mid = (lo + hi + 1) >> 1;
         if (t.start[mid] <= p)
@@ -72,18 +71,62 @@ __device__ __forceinline__ int rate_segment(const RateTable& t, int lp, int segs
     return lo;
 }
 
-// The segment of position p + 1, from k, p's own (segments are at least
-// four values long, so one step at most; no wrap past the row's end).
-__device__ __forceinline__ int rate_next_segment(const RateTable& t, int segs, int k, int p) {
-    return k + 1 < segs && p + 1 >= t.start[k + 1] ? k + 1 : k;
+// The probe's value of raw x (an int16) at a position of entry e that is
+// not its head. 2|x| * ceil(2^31 / q) / 2^32 is |x| / q truncated for
+// every |x| <= 2^15 and q < 2^15 (the multiplier's excess below q, times
+// |x|, stays under 2^31), so no q needs its own route; the result is an
+// int16 (-32768 only from x = -32768 at q = 1).
+__device__ __forceinline__ int rate_body(int x, uint32_t mul, int gate2) {
+    const int a2 = abs(x) << 1;
+    const int f = a2 > gate2 ? (int)__umulhi((unsigned)a2, mul) : 0;
+    return x < 0 ? -f : f;
 }
 
-// The probe's value at row position p of segment k, from its raw value x.
-__device__ __forceinline__ int rate_value(const RateTable& t, int k, int p, int x) {
-    if (k < 0) return x;
-    if (p == t.start[k]) return t.q[k];
-    const int g = t.g[k];
-    return (x < -g || x > g) ? ako::wrap16(t.div[k](x)) : 0;
+// The probe's value at row position p of entry e, from its raw value x.
+__device__ __forceinline__ int rate_value(const RateTable& t, int e, int p, int x) {
+    return e && p == t.start[e] ? t.head[e] : rate_body(x, t.mul[e], t.gate2[e]);
+}
+
+// ---------------------------------------------------------------- spans
+//
+// A launch cuts each row into spr spans from the row's origin o: o = 0
+// where the row starts on 16 bytes, else al - 8, al being its first
+// position whose address is a multiple of 16 bytes. Span 0 is
+// [0, o + len), span k [o + k len, o + (k + 1) len), the last ends at n,
+// len a multiple of 16: every span but a row's first starts on 16 bytes,
+// a span is whole kItems groups from its origin but at a row's ends (so
+// that no thread's group straddles a span's edge), and every span holds
+// at least one position. spr is the largest count with spr * rows <= ctas
+// (at least 1) that leaves the last span non-empty: the grid takes every
+// span in one wave when rows <= ctas.
+struct SpanCut {
+    int spr, len;
+};
+
+__host__ __forceinline__ SpanCut span_cut(int rows, int n, int ctas) {
+    const int want = rows < ctas ? ctas / rows : 1;
+    const long long len = (((long long)n + want - 1) / want + 15) / 16 * 16;
+    const long long spr = n > 7 ? ((long long)n - 7 + len - 1) / len : 1;
+    return SpanCut{(int)spr, (int)len};
+}
+
+struct Span {
+    int row, begin, end;  // positions [begin, end) of the row
+    int origin;           // begin, or for a row's first span the row's origin
+};
+
+// Span s of a launch over rows of n values at raw + row * n; mis is raw's
+// offset in int16 from a 16-byte boundary.
+__device__ __forceinline__ Span span_of(int s, SpanCut c, int n, int mis) {
+    Span x;
+    x.row = s / c.spr;
+    const int k = s - x.row * c.spr;
+    const int al = (int)((8 - (mis + (long long)x.row * n) % 8) % 8);
+    const int o = al ? al - 8 : 0;
+    x.begin = k ? o + k * c.len : 0;
+    x.end = k == c.spr - 1 ? n : o + (k + 1) * c.len;
+    x.origin = k ? x.begin : o;
+    return x;
 }
 
 }  // namespace

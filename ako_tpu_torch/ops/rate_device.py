@@ -15,12 +15,13 @@ int16, as ako_tpu passes them), then map position p of a row to
 
 - rate_serialize: that map, as (T, n) int16 streams (ako_tpu's
   _serialize_fn, rate.py:82). On a CUDA tensor kernel K8s
-  (csrc/rate.cu), one elementwise launch.
+  (csrc/rate.cu), one launch of a grid sized to the card.
 - rate_sizes: each row's exact Kagari payload bytes at the probe, one
   int64 a row and nothing else (ako_tpu's _probe_sizes_fn, rate.py:101).
-  On a CUDA tensor kernel K8p (in csrc/kagari_encode.cu beside K3): K3's
-  chunks, tokenizer and mismatch look-back on the mapped values, the
-  row's bits summed by one atomic a chunk.
+  On a CUDA tensor kernel K8p (csrc/rate.cu): each row cut into spans
+  (span_cut), each span's bits from its first mismatch on by a CTA, and
+  the positions before each span's first mismatch added in closed form
+  (run_bits) by the CTA that counts the row's last span in.
 
 A CPU tensor takes the plain versions (serialize_plain, probe_sizes_plain:
 torch ops), which the card's checks hold the kernels to; a CUDA tensor
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ako_tpu_torch.core.geometry import LiftSchedule
-from ako_tpu_torch.ops.kagari_device import K3_CHUNK, kagari_size_device, take_scratch
+from ako_tpu_torch.ops.kagari_device import FLUSH_COUNTER, kagari_size_device, take_scratch
 from ako_tpu_torch.ops.lift_kernels import _quantize_gate, level_offsets
 from ako_tpu_torch.runtime import kernels
 
@@ -157,18 +158,65 @@ def rate_serialize(raw, schedule: LiftSchedule, channels: int, qs, gs):
     return out
 
 
-def sizes_scratch_words(rows: int, chunks: int) -> int:
-    """64-bit words of K8p's scratch for up to `rows` rows and `chunks`
-    chunks in all (csrc/kagari_encode.cu ako_rate_sizes): one descriptor
-    a chunk, one counter a row, then the 32-bit ticket."""
-    return chunks + rows + 1
+def span_cut(rows: int, n: int, ctas: int) -> tuple:
+    """(spans a row, span length) of a K8p or K8s launch over `rows` rows
+    of n values on a grid of `ctas` CTAs (csrc/rate_common.cuh span_cut):
+    span 0 is [0, o + len), span k [o + k len, o + (k + 1) len), the last
+    ending at n, where o is the row's origin (span_bounds) and len a
+    multiple of 16; the most spans with spans * rows <= ctas (at least one
+    a row) that leave the last one non-empty."""
+    want = ctas // rows if rows < ctas else 1
+    length = (-(-n // want) + 15) // 16 * 16
+    return (-(-(n - 7) // length) if n > 7 else 1), length
+
+
+def span_bounds(row: int, k: int, n: int, cut: tuple, mis: int = 0) -> tuple:
+    """(begin, end, origin) of span k of `row` (csrc/rate_common.cuh
+    span_of), for rows at an int16 offset `mis` from a 16-byte boundary:
+    the row's origin o is 0 where the row starts on 16 bytes, else 8
+    values before its first 16-byte-aligned position; a span's origin is
+    its begin, the first span's o."""
+    spr, length = cut
+    al = (8 - (mis + row * n) % 8) % 8
+    o = al - 8 if al else 0
+    begin = o + k * length if k else 0
+    end = n if k == spr - 1 else o + (k + 1) * length
+    return begin, end, (begin if k else o)
+
+
+def lit_len(v: int) -> int:
+    """Bits of the Elias-gamma literal of value v: zigzag(v) + 1 mod 2^16."""
+    return 2 * ((abs(v) & 0x7FFF).bit_length() - 1) + 3
+
+
+def run_bits(m: int, a: int, b: int, v: int, ends: bool) -> int:
+    """Bits of positions [a, b] of a run of value v that starts at mismatch
+    m < a (csrc/rate.cu run_bits): with d = p - m and the run counter
+    rc = (d - 1) % 65534 + 1, a literal where rc <= 2, a flush token
+    (gamma(65533), 31 bits) where rc == 65534, and, when the run ends at b,
+    the end token gamma(rc - 1) there if rc >= 2 and b is no flush."""
+    k = FLUSH_COUNTER
+    d0, d1 = a - 1 - m, b - m
+    lits = 2 * (d1 // k) + min(d1 % k, 2) - 2 * (d0 // k) - min(d0 % k, 2)
+    bits = lits * lit_len(v) + 31 * (d1 // k - d0 // k)
+    rc = (d1 - 1) % k + 1
+    if ends and 2 <= rc != k:
+        bits += 2 * ((rc - 1).bit_length() - 1) + 1
+    return bits
+
+
+def sizes_scratch_words(rows: int, spans: int) -> int:
+    """64-bit words of K8p's scratch for up to `rows` rows and `spans`
+    spans (csrc/rate.cu ako_rate_sizes): a 16-byte record a span, then a
+    32-bit counter a row."""
+    return 2 * spans + (rows + 1) // 2
 
 
 def rate_sizes(raw, schedule: LiftSchedule, channels: int, qs, gs):
     """(T, n) int16 raw streams -> (T,) int64 exact Kagari payload bytes
     at the probe's qs, gs. A CUDA tensor launches K8p once, over a scratch
-    kept per device and stream (kagari_device.encode_scratch); a CPU
-    tensor takes probe_sizes_plain."""
+    kept per device and stream (kagari_device.encode_scratch, K8p's own
+    layout); a CPU tensor takes probe_sizes_plain."""
     if raw.device.type == "cpu":
         return probe_sizes_plain(raw, schedule, channels, qs, gs)
     _checked_raw("rate_sizes", raw, schedule, channels)
@@ -177,11 +225,11 @@ def rate_sizes(raw, schedule: LiftSchedule, channels: int, qs, gs):
     sizes = torch.empty((rows,), dtype=torch.int64, device=raw.device)
     if rows:
         with torch.cuda.device(raw.device):
+            ctas = kernels.rate_sizes_ctas()  # asked once a device on the C side
             stream = torch.cuda.current_stream().cuda_stream
-            chunks = rows * -(-raw.shape[1] // K3_CHUNK)
-            scratch, rows_cap, chunks_cap, epoch = take_scratch(raw.device, stream, rows, chunks,
-                                                                sizes_scratch_words)
+            scratch, rows_cap, spans_cap, _ = take_scratch(raw.device, stream, rows,
+                                                           max(rows, ctas), sizes_scratch_words)
             kernels.rate_sizes(raw.data_ptr(), sizes.data_ptr(), scratch.data_ptr(),
-                               scratch.numel(), rows_cap, chunks_cap, epoch, rows, args, stream)
+                               scratch.numel(), rows_cap, spans_cap, rows, args, stream)
         kernels.count_launch(LAUNCHES, "rate_sizes")
     return sizes

@@ -8,9 +8,8 @@ csrc/lift_level.cu), the
 Kagari tokenize + pack (csrc/kagari_encode.cu, one launch a call), the
 Kagari block decoder (csrc/kagari_decode.cu), the Manbavaran rANS
 encoder and block decoder (csrc/manba_encode.cu, csrc/manba_decode.cu),
-and the rate search's kernels: its serialization (csrc/rate.cu) and its
-payload sizes (in csrc/kagari_encode.cu beside K3, whose tokenizer and
-look-back it shares).
+and the rate search's kernels: its serialization and its payload sizes
+(csrc/rate.cu).
 
 At first use one `nvcc -c` per source, all started together, then one
 link build a shared library with a plain C interface in this package's
@@ -177,7 +176,8 @@ _SIGNATURES = {
     "ako_manba_encode": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ako_manba_decode": [_P, _LL] + [_P] * 8 + [_I, _I, _I, _P],
     "ako_rate_serialize": [_P, _P, _I, ctypes.POINTER(RateArgs), _P],
-    "ako_rate_sizes": [_P, _P, _P, _LL, _I, _I, ctypes.c_uint, _I, ctypes.POINTER(RateArgs), _P],
+    "ako_rate_sizes": [_P, _P, _P, _LL, _I, _I, _I, ctypes.POINTER(RateArgs), _P],
+    "ako_rate_sizes_ctas": [ctypes.POINTER(_I)],
     # measurements of K6e's chain, called through the library by
     # chip_smoke.py and chip_probe.py; the codec never calls them
     "ako_manba_encode_chains": [_P] * 5 + [_I, _I, _I, _I, _P],
@@ -374,10 +374,18 @@ def rate_serialize(raw, out, rows, args, stream) -> None:
            "ako_rate_serialize")
 
 
-def rate_sizes(raw, sizes, scratch, scratch_words, rows_cap, chunks_cap, epoch, rows, args,
+def rate_sizes(raw, sizes, scratch, scratch_words, rows_cap, spans_cap, rows, args,
                stream) -> None:
-    """Launch the rate search's payload sizes (K8p, one grid launch with
-    K3's look-back over the reused `scratch`, a new `epoch` each call) on
+    """Launch the rate search's payload sizes (K8p, one launch over the
+    reused `scratch`: span records and self-resetting row counters) on
     `stream`."""
-    _check(load().ako_rate_sizes(raw, sizes, scratch, scratch_words, rows_cap, chunks_cap, epoch,
-                                 rows, ctypes.byref(args), stream), "ako_rate_sizes")
+    _check(load().ako_rate_sizes(raw, sizes, scratch, scratch_words, rows_cap, spans_cap, rows,
+                                 ctypes.byref(args), stream), "ako_rate_sizes")
+
+
+def rate_sizes_ctas() -> int:
+    """K8p's grid on the current CUDA device: resident CTAs a SM times the
+    SMs (the C side asks once a device)."""
+    ctas = ctypes.c_int(0)
+    _check(load().ako_rate_sizes_ctas(ctypes.byref(ctas)), "ako_rate_sizes_ctas")
+    return ctas.value

@@ -9,6 +9,7 @@ K6d's, the level kernels' and the split wiring's K1v/K2v time goes.
     python3 chip_probe.py levels [OTHER]
     python3 chip_probe.py k6 [OTHER]
     python3 chip_probe.py k6d [OTHER]
+    python3 chip_probe.py k8 [OTHER]
     python3 chip_probe.py split [OTHER]
     python3 chip_probe.py profiler
     python3 chip_probe.py executor
@@ -160,6 +161,25 @@ this one, each in its own process, in turns (other, this, this,
 other): device busy, wall, device kernels and device ms per kernel of
 one profiled call, host enqueue and device span medians, and the
 streams' and pixels' digests, which must agree.
+
+k8: K8p and K8s (csrc/rate.cu) of this checkout and of OTHER's (its
+rate.cu, and kagari_encode.cu while K8p lived there), built side by side
+into separate libraries, with K8_ROUTES appended to this checkout's: the
+kernels' common routes in loops, whose SASS gives the instructions a
+value of K8s's 16-byte route, of K8p's stage without the tokenizer
+("skip": no warp tokenizes) and what the tokenizer adds ("tok": every
+warp does), both without the route of heads, segments' ends and
+spans' edges (which the fast route's loop would hold untaken), written with each
+library's SASS to
+build/probe/k8_sass_<variant>.txt. Then both checkouts' kernels, each
+checked against its plain version, timed in turns (other, new, new,
+other) on the north star's raw pyramid at 128-px tiles and on the whole
+tile's, at q 0, 16, 64 and 256: device ms a launch (the profiler's median
+of 20) and CUDA events around 50, beside the bounds and each kernel's
+SASS instructions a value; then K8p's variants, and K8p against its
+whole-CTA row finisher in 3 rounds of turns at q 0-256 on the north
+star. CUPTI is torn down after each profiled window, as chip_smoke.py
+does.
 
 profiler: how often torch.profiler records a short window's device work
 as the process ages, in two child processes, one with CUPTI kept up
@@ -2039,12 +2059,447 @@ def executor(card: str, dev=None) -> None:
         print(f"executor probe: {k}: {what} (medians of 5 turns) [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------- k8
+
+#: the K8 kernels' common routes in loops, appended to csrc/rate.cu for
+#: their SASS (chip_probe.py k8 never launches them): K8p's stage of one
+#: thread on the fast route (stage_thread, finish_stage), K8s's 16-byte
+#: route; the index that picks the thread's values moves each pass, so
+#: nothing leaves the loop
+K8_ROUTES = r"""
+__global__ void __launch_bounds__(kThreads, 4)
+    k8p_route(const int16_t* src, unsigned* out, int iters, const __grid_constant__ RateArgs r) {
+    __shared__ RateTable t;
+    __shared__ __align__(16) int16_t sv[kSlot];
+    __shared__ int wl[2][kWarps];
+    __shared__ int span_fm;
+    load_rate_table(r, t);
+    for (int i = threadIdx.x; i < kSlot; i += kThreads) sv[i] = src[i];
+    if (threadIdx.x < 2 * kWarps) wl[threadIdx.x / kWarps][threadIdx.x % kWarps] = -1;
+    __syncthreads();
+    unsigned own = 0;
+    int carry = -1, e = 1;
+    for (int i = 0; i < iters; ++i) {
+        const int at = (threadIdx.x + i) & (kThreads - 1);
+        const Pending pd = stage_thread(t, r.segs, r.n, 4096 + kItems * at, 0, kItems,
+                                        sv + 8 + kItems * at, e, own);
+        own += finish_stage(pd, wl[i & 1], carry, &span_fm);
+    }
+    out[blockIdx.x * kThreads + threadIdx.x] = own + (unsigned)carry + (unsigned)e;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    k8s_route(const int16_t* src, int16_t* dst, int iters, const __grid_constant__ RateArgs r) {
+    __shared__ RateTable t;
+    load_rate_table(r, t);
+    __syncthreads();
+    int e = 1;
+    for (int i = 0; i < iters; ++i) {
+        const int p = kVec * ((int)threadIdx.x + i * kThreads);
+        const uint4 x = *reinterpret_cast<const uint4*>(src + p);
+        while (p >= t.start[e + 1]) ++e;
+        if ((p > t.start[e] || !e) && p + kVec <= t.start[e + 1]) {
+            union {
+                uint4 u;
+                int16_t v[kVec];
+            } y;
+            y.u = x;
+            const uint32_t mul = t.mul[e];
+            const int gate2 = t.gate2[e];
+#pragma unroll
+            for (int j = 0; j < kVec; ++j) y.v[j] = (int16_t)rate_body(y.v[j], mul, gate2);
+            *reinterpret_cast<uint4*>(dst + p) = y.u;
+        }
+    }
+}
+"""
+#: the vote before K8p's tokenizer, and its values' route for heads,
+#: segments' ends and rows' ends; the variants of csrc/rate.cu that
+#: k8_sass reads: "tok" tokenizes in every warp, "skip" in none, both
+#: without that route (so that the loop holds the fast route alone)
+K8_VOTE = "if (__any_sync(0xFFFFFFFFu, mm != 0))"
+K8_SLOW = [("route = __reduce_max_sync(0xFFFFFFFFu, route);", "route = 0;"),
+           ("const bool edge = lo != 0 || hi != kItems;", "const bool edge = false;")]
+K8_VARIANTS = {"new": [], "tok": [(K8_VOTE, "if (true)"), *K8_SLOW],
+               "skip": [(K8_VOTE, "if (false)"), *K8_SLOW]}
+#: K8p's variants that k8 times beside it (source edits of csrc/rate.cu,
+#: none of them but "clocked" computing the function): "skip" without the
+#: tokenizer; "no_map", the values taken raw on the fast route; "no_items",
+#: no thread's stage work (the copies, barriers, the leading positions'
+#: step and the records); "small", without the route of heads, segments'
+#: ends and spans' edges, "no_slow" without its route of values, and
+#: "slow_untaken" with that route in the code but never taken;
+#: "cta_finisher", every row finished by the whole CTA (finish_row), not
+#: by warp 0 alone up to 32 spans; "as_is", no edit (built like the
+#: variants, without K8_ROUTES); "clocked", as it is with thread 0's
+#: clock64 at each CTA's start, each stage's data and work, and its span's
+#: end
+K8P_PARTS = {
+    "skip": [(K8_VOTE, "if (false)")],
+    "no_map": [("for (int j = 0; j < kItems; ++j) v[j + 1] = rate_body(x.h[j], mul, gate2);",
+                "for (int j = 0; j < kItems; ++j) v[j + 1] = x.h[j];")],
+    "no_items": [("pd = stage_thread(t, r.segs, n, first, lo, hi, sv, e, own);",
+                  "pd = Pending{first, first - 1, 0, -1, -1, -1, false}; own += sv[0];")],
+    "small": K8_SLOW,
+    "no_slow": K8_SLOW[:1],
+    "slow_untaken": [("route = __reduce_max_sync(0xFFFFFFFFu, route);",
+                      "route = __reduce_max_sync(0xFFFFFFFFu, route) * (n < 0);")],
+    "cta_finisher": [("if (a.cut.spr > 32)", "if (true)")],
+    "as_is": [],
+
+    "clocked": [("const int n = r.n, warp = threadIdx.x >> 5;",
+                 "const int n = r.n, warp = threadIdx.x >> 5;\n"
+                 "    long long* clk = k8_clock + 10 * blockIdx.x;\n"
+                 "    if (threadIdx.x == 0) clk[0] = clock64();"),
+                ("if (m) own += finish_stage(pd, warp_lm[(m - 1) & 1], carry, &span_fm);",
+                 "if (threadIdx.x == 0 && m < 4) clk[1 + 2 * m] = clock64();\n"
+                 "            if (m) own += finish_stage(pd, warp_lm[(m - 1) & 1], carry, &span_fm);"),
+                ("if ((threadIdx.x & 31) == 31) warp_lm[m & 1][warp] = pd.incl;",
+                 "if ((threadIdx.x & 31) == 31) warp_lm[m & 1][warp] = pd.incl;\n"
+                 "            if (threadIdx.x == 0 && m < 4) clk[2 + 2 * m] = clock64();"),
+                ("finish_row_warp(a, n, sp.row);\n        }",
+                 "finish_row_warp(a, n, sp.row);\n        }\n"
+                 "        if (threadIdx.x == 0) clk[9] = clock64();"),
+                ("namespace {\n\nconstexpr int kThreads = 256;",
+                 "__device__ long long k8_clock[10 * 4096];\n"
+                 "extern \"C\" int ako_k8_clock(long long* out, int n) {\n"
+                 "    return (int)cudaMemcpyFromSymbol(out, k8_clock, n * sizeof(long long));\n}\n"
+                 "namespace {\n\nconstexpr int kThreads = 256;")],
+}
+
+
+def _k8_sources(other):
+    """{name: ctypes library}: csrc/rate.cu with K8_ROUTES, as it is and
+    in the K8_VARIANTS, and OTHER's rate.cu and kagari_encode.cu (K8s and
+    K8p of a checkout before K8p left kagari_encode.cu), built side by
+    side; each library's SASS beside it."""
+    import chip_smoke as cs
+    from ako_tpu_torch.runtime import kernels
+
+    csrc = os.path.join(ROOT, "ako_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "rate.cu")).read()
+    os.makedirs(OUT, exist_ok=True)
+    texts = {}
+    for name, edits in [*K8_VARIANTS.items(), *((f"p_{k}", v) for k, v in K8P_PARTS.items())]:
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"k8 variant {name}: csrc/rate.cu has no {old!r}")
+            text = text.replace(old, new)
+        texts[name] = text + (K8_ROUTES if name in K8_VARIANTS else "")
+    jobs = {}
+    for name, text in texts.items():
+        cu = os.path.join(csrc, f".k8_{name}.cu")  # beside its headers
+        with open(cu, "w") as f:
+            f.write(text)
+        jobs[name] = [cu]
+    if other:
+        ocsrc = os.path.join(other, "ako_tpu_torch", "csrc")
+        jobs["other"] = [os.path.join(ocsrc, "rate.cu")]
+        if "rate_sizes" in open(os.path.join(ocsrc, "kagari_encode.cu")).read():
+            jobs["other"].append(os.path.join(ocsrc, "kagari_encode.cu"))
+    procs = {}
+    for name, cus in jobs.items():
+        so = os.path.join(OUT, f"k8_{name}.so")
+        procs[name] = (subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", so,
+                                         *cus], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        for cu in jobs[name]:
+            if os.path.basename(cu).startswith(".k8_"):
+                os.remove(cu)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on k8 {name}:\n{log}")
+        regs = [x.split("info    :")[-1].strip() for x in log.splitlines()
+                if "registers" in x or "Compiling entry" in x]
+        print(f"k8 {name}: ptxas {regs}", flush=True)
+        lib = ctypes.CDLL(so)
+        new_abi = hasattr(lib, "ako_rate_sizes_ctas")
+        lib.ako_rate_sizes.restype = lib.ako_rate_serialize.restype = ctypes.c_int
+        lib.ako_rate_serialize.argtypes = kernels._SIGNATURES["ako_rate_serialize"]
+        lib.ako_rate_sizes.argtypes = (kernels._SIGNATURES["ako_rate_sizes"] if new_abi else
+                                       [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                                        ctypes.POINTER(kernels.RateArgs), ctypes.c_void_p])
+        if new_abi:
+            lib.ako_rate_sizes_ctas.restype = ctypes.c_int
+            lib.ako_rate_sizes_ctas.argtypes = kernels._SIGNATURES["ako_rate_sizes_ctas"]
+        libs[name] = (lib, new_abi, cs.cuobjdump_sass(so) if name in K8_VARIANTS else "")
+    return libs
+
+
+def k8_sass(libs, card) -> dict:
+    """Each route's loop in SASS (the largest loop of k8p_route and
+    k8s_route: instructions a pass, and a value), written to
+    build/probe/k8_sass_<variant>.txt with the kernels' own; returns
+    {"k8s": K8s's instructions a value, "k8p": K8p's without the
+    tokenizer, "k8p_tokenize": what the tokenizer adds}."""
+    import chip_smoke as cs
+
+    per = {}
+    for name in K8_VARIANTS:
+        funcs = cs.sass_functions(libs[name][2])
+        with open(os.path.join(OUT, f"k8_sass_{name}.txt"), "w") as f:
+            for k, insns in funcs.items():
+                f.write(f"Function : {k}\n")
+                f.writelines(f"  {ad:#06x}  {t:<56} {c}\n" if ad is not None else f"{t}:\n"
+                             for ad, t, c in insns)
+        for route, values in (("k8p_route", 16), ("k8s_route", 8)):
+            insns = [v for k, v in funcs.items() if route in k][0]
+            loop = max(cs.sass_loops(insns, innermost=False), key=lambda lp: len(lp[2]))
+            per[name, route] = len(loop[2]) / values
+            print(f"k8 sass {name} {route}: loop {loop[0]:#x}-{loop[1]:#x}, {len(loop[2])} "
+                  f"instructions a pass of {values} values: {per[name, route]:.2f} a value "
+                  f"[{card}]", flush=True)
+    out = {"k8s": per["new", "k8s_route"], "k8p": per["skip", "k8p_route"],
+           "k8p_tokenize": per["tok", "k8p_route"] - per["skip", "k8p_route"]}
+    print(f"k8 instructions a value: {json.dumps({k: round(v, 2) for k, v in out.items()})} "
+          f"[{card}]", flush=True)
+    return out
+
+
+def k8p_parts(libs, ctas: int, dev, img, card: str) -> None:
+    """K8p and its K8P_PARTS variants in turns (each, then again in
+    reverse) on the north star's and the whole tile's raw pyramids at
+    q 16: device ms (the profiler's median of 20) and CUDA events; then
+    the clocked variant's cycles a CTA: from its start to its first
+    stage's data, each stage's wait and work, and its span's end
+    (medians and maxima over CTAs), beside the SM clock a cycle."""
+    import statistics
+
+    import torch
+
+    import ako_tpu_torch as P
+    import chip_smoke as cs
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import tile_qg
+    from ako_tpu_torch.ops import rate_device as rd
+    from ako_tpu_torch.tools.rate import _CachedEncoder
+
+    cur = torch.cuda.current_stream().cuda_stream
+    names = ["new"] + [f"p_{k}" for k in K8P_PARTS]
+    for setting, tiles in (("north_t128", 128), ("whole", 0)):
+        enc = _CachedEncoder(img, P.Settings(tiles_dimension=tiles), dev)
+        ((tl, raw),) = enc._tile_pyramids(enc._settings_at(16))
+        tw, th, ch = tl[0].w, tl[0].h, img.shape[2]
+        schedule = geometry.lift_schedule(tw, th)
+        args = rd.rate_args(schedule, ch, *rd.probe_qg(tile_qg(tw, th, ch, 16, 0, 1), ch))
+        rows = raw.shape[0]
+        spans = max(rows, 64 * ctas)  # the variants' grids differ from "new"'s
+        scratch = torch.zeros((rd.sizes_scratch_words(rows, spans),), dtype=torch.int64,
+                              device=dev)
+        sizes = torch.empty((rows,), dtype=torch.int64, device=dev)
+        want = rd.probe_sizes_plain(raw, schedule, ch, *rd.probe_qg(tile_qg(tw, th, ch, 16, 0, 1),
+                                                                   ch))
+        times = {}
+        for name in names + names[::-1]:
+            lib = libs[name][0]
+
+            def call(lib=lib):
+                rc = lib.ako_rate_sizes(raw.data_ptr(), sizes.data_ptr(), scratch.data_ptr(),
+                                        scratch.numel(), rows, spans, rows, ctypes.byref(args), cur)
+                if rc:
+                    raise RuntimeError(f"k8 {name}: cudaError {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            computes = ("new", "p_clocked", "p_cta_finisher", "p_as_is")
+            if name in computes and not torch.equal(sizes, want):
+                raise AssertionError(f"k8 {name} != plain on {setting}")
+            times.setdefault(name, []).append((round(cs._launch_ms(call, "rate_sizes"), 4),
+                                               round(cs._event_ms(call), 4)))
+        print(f"k8 parts {setting} {tuple(raw.shape)} q 16: (profiler ms, event ms) {times} "
+              f"[{card}]", flush=True)
+        lib = libs["p_clocked"][0]
+        lib.ako_k8_clock.restype = ctypes.c_int
+        lib.ako_k8_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        grid = ctypes.c_int(0)
+        lib.ako_rate_sizes_ctas(ctypes.byref(grid))
+        buf = (ctypes.c_longlong * (10 * min(grid.value, rows * rd.span_cut(
+            rows, raw.shape[1], grid.value)[0])))()
+        if lib.ako_k8_clock(buf, len(buf)):
+            raise RuntimeError("k8: ako_k8_clock failed")
+        c = [list(buf[10 * i : 10 * i + 10]) for i in range(len(buf) // 10)]
+        parts = {"start_to_stage0_data": [x[1] - x[0] for x in c],
+                 "stage0_work": [x[2] - x[1] for x in c],
+                 "stage1_wait": [x[3] - x[2] for x in c if x[3] > x[2]],
+                 "stage1_work": [x[4] - x[3] for x in c if x[4] > x[3]],
+                 "stage2_wait": [x[5] - x[4] for x in c if x[5] > x[4]],
+                 "stage2_work": [x[6] - x[5] for x in c if x[6] > x[5]],
+                 "to_span_end": [x[9] - max(x[1:9]) for x in c],
+                 "cta_total": [x[9] - x[0] for x in c]}
+        slow = sorted(range(len(c)), key=lambda i: c[i][9] - c[i][0])[-8:]
+        print(f"k8 clocked {setting}: cycles a CTA (median, max, CTAs) "
+              f"{ {k: (int(statistics.median(v)), max(v), len(v)) for k, v in parts.items() if v} }; "
+              f"the slowest CTAs (CTA, cycles) {[(i, c[i][9] - c[i][0]) for i in slow]}; "
+              f"stamps from each CTA's start of the 3 slowest and CTAs 1, 2, 3: "
+              f"{ {i: [x - c[i][0] for x in c[i][1:]] for i in slow[-3:] + [1, 2, 3]} } "
+              f"[{card}]", flush=True)
+
+
+def k8p_finisher(libs, ctas: int, dev, img, card: str) -> None:
+    """K8p as it is ("as_is", built as the variants are) against its
+    "cta_finisher" variant (every row finished by the whole CTA) on the
+    north star's raw pyramid (6 spans a row) at q 0, 16, 64 and 256: 3
+    rounds of turns (as_is, cta_finisher, cta_finisher, as_is), each
+    call checked against the plain version and timed by the profiler
+    (median of 20) and CUDA events (50 calls); each variant's median and
+    spread (max - min over its 6 turns)."""
+    import statistics
+
+    import torch
+
+    import ako_tpu_torch as P
+    import chip_smoke as cs
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import tile_qg
+    from ako_tpu_torch.ops import rate_device as rd
+    from ako_tpu_torch.tools.rate import _CachedEncoder
+
+    cur = torch.cuda.current_stream().cuda_stream
+    enc = _CachedEncoder(img, P.Settings(tiles_dimension=128), dev)
+    for q in (0, 16, 64, 256):
+        ((tl, raw),) = enc._tile_pyramids(enc._settings_at(q))
+        tw, th, ch = tl[0].w, tl[0].h, img.shape[2]
+        schedule = geometry.lift_schedule(tw, th)
+        qs, gs = rd.probe_qg(tile_qg(tw, th, ch, q, 0, 1), ch)
+        args = rd.rate_args(schedule, ch, qs, gs)
+        rows = raw.shape[0]
+        spans = max(rows, ctas)
+        scratch = torch.zeros((rd.sizes_scratch_words(rows, spans),), dtype=torch.int64,
+                              device=dev)
+        sizes = torch.empty((rows,), dtype=torch.int64, device=dev)
+        want = rd.probe_sizes_plain(raw, schedule, ch, qs, gs)
+        times = {}
+        for name in ["p_as_is", "p_cta_finisher", "p_cta_finisher", "p_as_is"] * 3:
+            lib = libs[name][0]
+
+            def call(lib=lib, name=name):
+                rc = lib.ako_rate_sizes(raw.data_ptr(), sizes.data_ptr(), scratch.data_ptr(),
+                                        scratch.numel(), rows, spans, rows, ctypes.byref(args), cur)
+                if rc:
+                    raise RuntimeError(f"k8 {name}: cudaError {rc}")
+
+            sizes.zero_()
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(sizes, want):
+                raise AssertionError(f"k8 {name} != plain on the north star at q {q}")
+            times.setdefault(name, []).append((cs._launch_ms(call, "rate_sizes"),
+                                               cs._event_ms(call)))
+        summary = {}
+        for name, t in times.items():
+            for i, how in enumerate(("profiler", "events")):
+                v = [x[i] for x in t]
+                summary[name, how] = (round(statistics.median(v), 5), round(max(v) - min(v), 5))
+        print(f"k8 finisher north_t128 {tuple(raw.shape)} q {q}: (median ms, spread ms) "
+              f"{ {f'{k[0]} {k[1]}': v for k, v in summary.items()} }; turns "
+              f"{ {k: [(round(a, 5), round(b, 5)) for a, b in v] for k, v in times.items()} } "
+              f"[{card}]", flush=True)
+
+
+def k8(other, card: str) -> None:
+    """K8p and K8s of this checkout and of OTHER's, side by side in one
+    process: each checked against its plain version, then timed in turns
+    (other, new, new, other) on the raw pyramids of the north star at
+    128-px tiles (80 x 65,560) and on the whole tile (1 x 5,242,932) at
+    q 0, 16, 64 and 256 (gate 0): device ms a launch (the profiler's median
+    of 20) and CUDA events around 50; the bounds (chip_smoke.rate_bounds_ms)
+    beside the routes' SASS instructions a value (k8_sass)."""
+    import torch
+
+    import ako_tpu_torch as P
+    import chip_smoke as cs
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import tile_qg
+    from ako_tpu_torch.ops import rate_device as rd
+    from ako_tpu_torch.tools.rate import _CachedEncoder
+    from ako_tpu_torch.utils.corpus import corpus
+
+    libs = _k8_sources(other)
+    ops = k8_sass(libs, card)
+    order = ["new"] + (["other"] if other else [])
+    turns = order[::-1] + order if other else order * 2
+    dev = torch.device("cuda:0")
+    cur = torch.cuda.current_stream().cuda_stream
+    img = corpus(42, 1, 1280, 1024, 4)[0]
+    ctas = ctypes.c_int(0)
+    if libs["new"][0].ako_rate_sizes_ctas(ctypes.byref(ctas)):
+        raise RuntimeError("k8: ako_rate_sizes_ctas failed")
+    epoch = [0]
+    for setting, tiles in (("north_t128", 128), ("whole", 0)):
+        enc = _CachedEncoder(img, P.Settings(tiles_dimension=tiles), dev)
+        for q in (0, 16, 64, 256):
+            ((tl, raw),) = enc._tile_pyramids(enc._settings_at(q))
+            tw, th, ch = tl[0].w, tl[0].h, img.shape[2]
+            schedule = geometry.lift_schedule(tw, th)
+            qs, gs = rd.probe_qg(tile_qg(tw, th, ch, q, 0, 1), ch)
+            args = rd.rate_args(schedule, ch, qs, gs)
+            rows, n = raw.shape
+            want = rd.serialize_plain(raw, schedule, ch, qs, gs)
+            want_sizes = rd.probe_sizes_plain(raw, schedule, ch, qs, gs)
+            sass = cs.k8_sass_per_value(want)
+            spans = max(rows, ctas.value)
+            new_scratch = torch.zeros((rd.sizes_scratch_words(rows, spans),), dtype=torch.int64,
+                                      device=dev)
+            chunks = rows * -(-n // 4096)
+            old_scratch = torch.zeros((chunks + rows + 1,), dtype=torch.int64, device=dev)
+            out = torch.empty_like(raw)
+            sizes = torch.empty((rows,), dtype=torch.int64, device=dev)
+            times = {}
+            for name in turns:
+                lib, new_abi, _ = libs[name]
+
+                def k8p(lib=lib, new_abi=new_abi):
+                    if new_abi:
+                        rc = lib.ako_rate_sizes(raw.data_ptr(), sizes.data_ptr(),
+                                                new_scratch.data_ptr(), new_scratch.numel(), rows,
+                                                spans, rows, ctypes.byref(args), cur)
+                    else:
+                        epoch[0] += 1
+                        rc = lib.ako_rate_sizes(raw.data_ptr(), sizes.data_ptr(),
+                                                old_scratch.data_ptr(), old_scratch.numel(), rows,
+                                                chunks, epoch[0], rows, ctypes.byref(args), cur)
+                    if rc:
+                        raise RuntimeError(f"k8 {name}: ako_rate_sizes cudaError {rc}")
+
+                def k8s(lib=lib):
+                    rc = lib.ako_rate_serialize(raw.data_ptr(), out.data_ptr(), rows,
+                                                ctypes.byref(args), cur)
+                    if rc:
+                        raise RuntimeError(f"k8 {name}: ako_rate_serialize cudaError {rc}")
+
+                for kname, fn, got, ref in (("rate_sizes", k8p, sizes, want_sizes),
+                                            ("rate_serialize", k8s, out, want)):
+                    got.zero_()
+                    fn()
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"k8 {name} {kname} != plain on {setting} q {q}")
+                    times.setdefault((name, kname), []).append(
+                        (round(cs._launch_ms(fn, kname), 4), round(cs._event_ms(fn), 4)))
+            bound = cs.rate_bounds_ms((rows, n))
+            for (name, kname), t in sorted(times.items(), key=lambda x: (x[0][1], x[0][0])):
+                print(f"k8 {setting} {tuple(raw.shape)} q {q} {kname} {name}: (profiler ms, event "
+                      f"ms) {t}; bound {bound[kname][0]:.5f} ms by {bound[kname][1]}; the "
+                      f"kernel's SASS instructions a value {sass[kname]} (diagnostic) [{card}]",
+                      flush=True)
+    k8p_parts(libs, ctas.value, dev, img, card)
+    k8p_finisher(libs, ctas.value, dev, img, card)
+    print(f"k8: ctas {ctas.value}; SASS instructions a value: K8S_SASS {ops['k8s']:.2f}, "
+          f"K8P_SASS {ops['k8p']:.2f}, K8P_SASS_TOKENIZE {ops['k8p_tokenize']:.2f} "
+          f"(chip_smoke.py's: {cs.K8S_SASS}, {cs.K8P_SASS}, {cs.K8P_SASS_TOKENIZE}) [{card}]",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in (
-            "compare", "k3", "k4", "k6", "k6d", "levels", "split", "profiler", "profiler-child",
-            "executor"):
+            "compare", "k3", "k4", "k6", "k6d", "k8", "levels", "split", "profiler",
+            "profiler-child", "executor"):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -2066,6 +2521,8 @@ def main() -> int:
         k6(other, card)
     elif sys.argv[1] == "k6d":
         k6d(other, card)
+    elif sys.argv[1] == "k8":
+        k8(other, card)
     elif sys.argv[1] == "split":
         split(other, card)
     elif sys.argv[1] == "profiler":
@@ -2080,11 +2537,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["k6d"]:
-        # its profiled windows are many and short: CUPTI torn down after
+    if sys.argv[1:2] in (["k6d"], ["k8"]):
+        # their profiled windows are many and short: CUPTI torn down after
         # each (chip_smoke.py's setting), so the process ends with os._exit
         os.environ.setdefault("TEARDOWN_CUPTI", "1")
-    if sys.argv[1:2] in (["profiler-child"], ["k6d"]):
+    if sys.argv[1:2] in (["profiler-child"], ["k6d"], ["k8"]):
         # a process that tore CUPTI down (TEARDOWN_CUPTI=1) hangs in its
         # exit, as chip_smoke.py's would
         code = main()

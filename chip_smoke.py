@@ -70,7 +70,11 @@ no result line):
                 128-px tiles and on the whole tile (one 5,242,932-value
                 row), a ragged two-group image, 512x512 crops with 1-4
                 channels, at q 0, 1, 4, 16, 64, 16384 and 65536, gate 0 and
-                16, chroma_loss 0, 1 and 3; and random full-range streams
+                16, chroma_loss 0, 1 and 3; random full-range streams; and
+                streams built for the span cut on this card's grid
+                (k8_edge_cases: a flush on a span edge, a row of one
+                value, spans with no mismatch, 1, 3, 80, 81 and 200 rows
+                and more rows than CTAs, n not a multiple of 8, -32768)
      parallel_kernels
               - K7 (lift_level_shards / unlift_level_shards,
                 csrc/lift_level.cu's shard-table instances) bit for bit
@@ -220,9 +224,10 @@ NORTH_STAR = dict(seed=42, h=1280, w=1024, ch=4)  # 1024x1280 (w x h) RGBA
 RUNS = 7  # timed runs per measurement, after one warm-up
 KERNEL_ITERS = 50  # back-to-back launches per CUDA-event timing
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-#: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet),
-#: taken as the peak of the kernels' 32-bit integer adds, shifts and compares
-SCALAR_OPS_PER_S = 67e12
+#: 32-bit integer lanes of an H100 SXM: 132 SMs of 64 INT32 lanes each
+#: (the data sheet's 67 TFLOP/s float32 counts 128 FP32 lanes a SM and an
+#: FMA as two operations); int_ops_per_s gives the rate at the SM clock
+INT32_LANES = 132 * 64
 #: integer operations per sample of one 1-D DD 13/7 lift (predict: 4
 #: taps, a multiply, the rounding shift and the add; update the same),
 #: the costliest wavelet, so an upper count on CDF 5/3 levels
@@ -307,6 +312,21 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+_INT_OPS = []
+
+
+def int_ops_per_s() -> float:
+    """The card's peak of the kernels' 32-bit integer adds, shifts and
+    compares: INT32_LANES a clock at the SM clock's maximum that nvidia-smi
+    reads (clocks.max.sm), asked once."""
+    if not _INT_OPS:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60)
+        mhz = float(res.stdout.strip().splitlines()[0].split()[0])
+        _INT_OPS.append(INT32_LANES * mhz * 1e6)
+    return _INT_OPS[0]
 
 
 def north_star_settings(P):
@@ -2181,7 +2201,7 @@ def bounds_ms(img, blob, manba_blob) -> dict:
     ops["manba_decode"] = tiles * count * K6D_OPS
     out = {}
     for k in b:
-        by_bytes, by_ops = b[k] / HBM_BYTES_PER_S * 1e3, ops[k] / SCALAR_OPS_PER_S * 1e3
+        by_bytes, by_ops = b[k] / HBM_BYTES_PER_S * 1e3, ops[k] / int_ops_per_s() * 1e3
         out[k] = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
     return out
 
@@ -2621,14 +2641,28 @@ def phase_executor(P, dev, card) -> dict:
 #: the rate search's kernels: (source, the XLA program of ako_tpu it replaces)
 RATE_KERNELS = {
     "rate_serialize": ("ako_tpu_torch/csrc/rate.cu", "ako_tpu/tools/rate.py:82"),
-    "rate_sizes": ("ako_tpu_torch/csrc/kagari_encode.cu", "ako_tpu/tools/rate.py:101"),
+    "rate_sizes": ("ako_tpu_torch/csrc/rate.cu", "ako_tpu/tools/rate.py:101"),
 }
-#: integer operations per value of K8s (the segment step, the gate's two
-#: compares, the multiply-high and its sign) and of K8p (the same, then
-#: K3's tokenizer without its pack: the zigzag, the neighbour compares, the
-#: max and sum scans, the run counter, a gamma length)
+#: integer operations a value that the function needs, counted from its
+#: plain version (ops/rate_device.serialize_plain, then
+#: kagari_device.tokenize) walked a value at a time, whatever kernel
+#: computes it: K8s the quantize/gate (the segment step, the gate's two
+#: compares, the multiply-high and its sign: 8); K8p the same, then the
+#: neighbour compare (1), the run counter (2) and its flush wrap (2), the
+#: literal's test (2), zigzag + 1 (4), the literal's gamma length (2) and
+#: the masked add of its bits (2): 15 more
 K8S_OPS = 8
-K8P_OPS = 25
+K8P_OPS = 23
+#: SASS instructions a value of the kernels' own routes, a diagnostic
+#: printed beside the bound, never the bound: `python3 chip_probe.py k8`
+#: from its probe loops (csrc/rate.cu's route code in a loop, over the
+#: values one pass maps; NVIDIA H100 80GB HBM3): K8s's 16-byte route (115
+#: a pass of 8); K8p's stage of a thread whose warp skips the tokenizer
+#: (328 a pass of 16), and what the tokenizer adds where its warp holds a
+#: mismatch (346 more)
+K8S_SASS = 14.38
+K8P_SASS = 20.5
+K8P_SASS_TOKENIZE = 21.62
 #: the probes' quantization factors of phase_rate_kernels, the descent's
 #: x4 steps past 2^15 among them (their q/g saturate in level_qg)
 RATE_QS = (0, 1, 4, 16, 64, 16384, 65536)
@@ -2705,10 +2739,85 @@ def phase_rate_kernels(P, dev, img) -> dict:
         qs, gs = probe_qg(tile_qg(128, 128, 4, q, 16, 3), 4)
         e = _rate_check("random streams", raw, schedule, 4, qs, gs)
         err = {k: max(err[k], e[k]) for k in err}
+    edge = k8_edge_cases(dev)
+    for name, raw, schedule, ch, qs, gs in edge:
+        e = _rate_check(name, raw, schedule, ch, qs, gs)
+        err = {k: max(err[k], e[k]) for k in err}
     torch.cuda.synchronize()
-    log(f"kernels: K8s and K8p equal to plain on {probes} probes of {values} values, and random "
-        "streams")
+    log(f"kernels: K8s and K8p equal to plain on {probes} probes of {values} values, random "
+        f"streams and {len(edge)} streams built for the span cut ({[n for n, *_ in edge]})")
     return err
+
+
+def k8_edge_cases(dev) -> list:
+    """[(name, raw (rows, n) int16 on dev, schedule, channels, qs, gs)]:
+    streams built to stress K8p's and K8s's span cut on this card's grid
+    (rate_device.span_cut at kernels.rate_sizes_ctas()). At q = 1, g = 0
+    the values stay as they are and each head is 1, so runs of 1 cross
+    segments: one row of 262,913 values (n not a multiple of 8) with runs
+    of 2 x 65534 + 1 (its first flush on a span edge) and 65534 - 1 (ending
+    just before one); three rows (every row but the first off 16 bytes): a
+    row of one value, a run of 65534 + 1 from a span edge, runs over many
+    spans with no mismatch; 80 and 81 rows of the north star's 65,560
+    values in runs of 1-300; 200 rows of 25 values, shorter than one stage;
+    72 more rows than the grid has CTAs, so that some CTAs take two spans;
+    -32768 among the others. The long rows at q 1, the 80 and 81 rows at
+    q 1 and at q 16 with gate 16, the short rows at q 16 with gate 16."""
+    from ako_tpu_torch.core import geometry
+    from ako_tpu_torch.encode import tile_qg
+    from ako_tpu_torch.ops import rate_device as rd
+    from ako_tpu_torch.ops.rate_device import probe_qg
+    from ako_tpu_torch.runtime import kernels
+
+    rng = np.random.default_rng(31)
+    ctas = kernels.rate_sizes_ctas()
+    k = 65534
+    big = geometry.lift_schedule(509, 513)
+    n = big.coeff_count(1)
+    ones = (np.ones((len(big.levels), 1), np.int16), np.zeros((len(big.levels), 1), np.int16))
+
+    def noise(rows, n):
+        x = rng.integers(-3, 4, (rows, n))
+        x[rng.random((rows, n)) < 0.01] = -32768
+        return x
+
+    def edges(rows, row):
+        cut = rd.span_cut(rows, n, ctas)
+        return [rd.span_bounds(row, i, n, cut)[0] for i in range(1, cut[0])]
+
+    one = noise(1, n)
+    e = edges(1, 0)
+    m = next(b for b in e if b >= k + 50) - k  # the run's first flush on an edge
+    one[0, m : m + 2 * k + 1] = 1
+    end = next(b for b in e if b >= m + 2 * k + 1 + 100 + k - 1)
+    one[0, end - k + 1 : end] = 1  # 65533 values, ending just before an edge
+    three = noise(3, n)
+    three[0] = 1
+    e = edges(3, 1)
+    start = next(b for b in e if b >= 1000)
+    three[1, start : start + k + 1] = 1
+    three[2, 100 : 100 + 3 * k] = 1
+    out = [("k8 flush on a span edge, 1 row", one, big, 1, *ones),
+           ("k8 one value and spans with no mismatch, 3 rows", three, big, 1, *ones)]
+    north = geometry.lift_schedule(128, 128)
+    nn = north.coeff_count(4)
+    for rows in (80, 81):
+        runs = np.repeat(rng.integers(-3, 3, rows * nn // 40), rng.integers(1, 300, rows * nn // 40))
+        x = runs[: rows * nn].reshape(rows, nn)
+        x[:, ::997] = -32768
+        out.append((f"k8 runs of 1-300, {rows} rows", x, north, 4,
+                    *probe_qg(tile_qg(128, 128, 4, 16, 16, 3), 4)))
+        out.append((f"k8 runs of 1-300, {rows} rows, q 1", x, north, 4,
+                    np.ones((len(north.levels), 4), np.int16),
+                    np.zeros((len(north.levels), 4), np.int16)))
+    tiny = geometry.lift_schedule(4, 5)
+    for rows in (200, ctas + 72):  # the second: more rows than CTAs, some take two spans
+        x = noise(rows, tiny.coeff_count(1))
+        x[::3] = 2
+        out.append((f"k8 {rows} rows of {tiny.coeff_count(1)} values", x, tiny, 1,
+                    *probe_qg(tile_qg(4, 5, 1, 16, 16, 0), 1)))
+    return [(name, torch.from_numpy(x.astype(np.int16)).to(dev), sch, ch, qs, gs)
+            for name, x, sch, ch, qs, gs in out]
 
 
 @contextlib.contextmanager
@@ -2829,8 +2938,13 @@ def phase_rate(P, dev, img, card) -> dict:
                 kern = events
             if name == "north_t128":
                 ms[k] = (round(kern, 4), round(plain_ms, 4))
+        bound = rate_bounds_ms(tuple(raw.shape))
+        sass = k8_sass_per_value(rd.serialize_plain(raw, schedule, ch, qs, gs))
         log(f"  K8 alone on the {name} raw pyramid {tuple(raw.shape)} at q 16: " + "; ".join(line)
-            + f" [{card}]")
+            + f"; bounds {bound} ({int_ops_per_s():.4g} integer operations a second); the "
+            f"kernels' own SASS instructions a value (diagnostic): {sass} [{card}]")
+        if name == "north_t128":
+            ms["bound"] = bound
     return {"blobs": blobs, "launches": row_launches, "ms": ms}
 
 
@@ -2891,18 +3005,37 @@ def phase_cli(P, dev, img, rate_blob) -> None:
             f"{time.perf_counter() - t:.1f} s")
 
 
+def k8_sass_per_value(values) -> dict:
+    """The K8 kernels' own SASS instructions a value on (rows, n) probe
+    streams, a diagnostic: K8S_SASS; K8P_SASS, and K8P_SASS_TOKENIZE more
+    for the values whose 512-value group (a warp's part of a stage,
+    counted from each row's start) holds a mismatch, which K8p's
+    tokenizer codes."""
+    rows, n = values.shape
+    mm = torch.ones((rows, -(-n // 512) * 512), dtype=torch.bool, device=values.device)
+    mm[:, 1:n] = values[:, 1:] != values[:, :-1]
+    mm[:, n:] = False
+    hit = mm.view(rows, -1, 512).any(dim=-1)
+    size = torch.full((hit.shape[1],), 512, device=values.device)
+    size[-1] = n - 512 * (hit.shape[1] - 1)
+    tokenized = int((hit * size).sum())
+    return {"rate_sizes": round(K8P_SASS + K8P_SASS_TOKENIZE * tokenized / (rows * n), 2),
+            "rate_serialize": K8S_SASS}
+
+
 def rate_bounds_ms(raw_shape) -> dict:
     """Least time of K8p and K8s at one probe on a (T, n) raw pyramid:
     {kernel: (ms, "bytes" or "operations")}, the larger of the bytes over
     the card's memory rate (K8p: the raw streams read once and one int64 a
     row; K8s: the raw streams read once and the streams written once) and
-    the integer operations over the 32-bit scalar rate."""
+    the function's operations (K8P_OPS, K8S_OPS a value) over the 32-bit
+    integer rate."""
     rows, n = raw_shape
     b = {"rate_sizes": 2 * rows * n + 8 * rows, "rate_serialize": 4 * rows * n}
     ops = {"rate_sizes": rows * n * K8P_OPS, "rate_serialize": rows * n * K8S_OPS}
     out = {}
     for k in b:
-        by_bytes, by_ops = b[k] / HBM_BYTES_PER_S * 1e3, ops[k] / SCALAR_OPS_PER_S * 1e3
+        by_bytes, by_ops = b[k] / HBM_BYTES_PER_S * 1e3, ops[k] / int_ops_per_s() * 1e3
         out[k] = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
     return out
 
@@ -3491,7 +3624,7 @@ def k7_times(P, dev, img, s, planes, st, card) -> dict:
             else:
                 nbytes += 2 * (4 * ch * need * tw + ch + ch * rows * lw)
             ops += ch * rows * lw * 2 * LIFT_OPS
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / int_ops_per_s() * 1e3
         bound = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
         levels = {}
         for lvl_k, group in sorted(per_level.items()):
@@ -3631,11 +3764,7 @@ def main() -> int:
             row["launch_floor_ms"] = round(split_launches[row["name"]] * floor, 5)
     # K8: the launches of RATE_ROW's search, the kernels alone at one of
     # its probes on the north star's 128-px raw pyramid
-    from ako_tpu_torch.core import geometry
-
-    raw_shape = (len(geometry.tile_grid(img.shape[1], img.shape[0], 128)),
-                 geometry.lift_schedule(128, 128).coeff_count(img.shape[2]))
-    rate_bound = rate_bounds_ms(raw_shape)
+    rate_bound = rate["ms"]["bound"]
     kernels += [
         {
             "name": k,

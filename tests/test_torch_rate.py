@@ -1,9 +1,10 @@
 """Rate control on the CPU: ako_tpu_torch/tools/rate.py and the plain
 versions of its device programs (ops/rate_device.py: serialize_plain,
 probe_sizes_plain) against ako_tpu/tools/rate.py under JAX, exactly; and
-the walks of the K8 kernels' probe table (csrc/rate_common.cuh), emulated
-as csrc/rate.cu (K8s) and csrc/kagari_encode.cu rate_sizes (K8p) run
-them, against the plain versions.
+the K8 kernels of csrc/rate.cu emulated as they run (K8s's spans and
+loads, K8p's spans, stages, records and row finishers, the closed-form
+run bits, the code lengths and the quantizer's multiplier), against the
+plain versions and ako_tpu's kagari_size_device.
 
 Images from numpy seeds (utils/corpus.py), 48x64 and 29x33, tiles 0 and
 32 (ragged: 32- and 16-px rows of tiles; a 1-px column with no level).
@@ -26,7 +27,6 @@ from ako_tpu_torch import AkoError, Compression, Settings, Wavelet, Wrap
 from ako_tpu_torch.core import geometry
 from ako_tpu_torch.encode import tile_qg
 from ako_tpu_torch.ops import rate_device as rd
-from ako_tpu_torch.ops.kagari_device import K3_CHUNK
 from ako_tpu_torch.runtime import kernels
 from ako_tpu_torch.tools import rate
 from ako_tpu_torch.utils.corpus import corpus
@@ -307,28 +307,41 @@ def test_entry_points_need_the_card_unless_cpu():
         rate._CachedEncoder(img, Settings())
 
 
-# ---------------------------------------------------------------- the kernels' table walks
+# ---------------------------------------------------------------- the kernels' walks
+
+_RATE_CU = os.path.join(os.path.dirname(kernels.__file__), "..", "csrc", "rate.cu")
 
 
-def _divt(x: int, q: int) -> int:
-    return abs(x) // q * (1 if x >= 0 else -1)
+def _cu_const(name: str) -> int:
+    import re
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", open(_RATE_CU).read()).group(1))
+
+
+THREADS, ITEMS, RING, LOADS, VEC = (_cu_const(k) for k in
+                                    ("kThreads", "kItems", "kRing", "kLoads", "kVec"))
+WARPS, STAGE, TILE = THREADS // 32, THREADS * ITEMS, THREADS * VEC * LOADS
+SLOT = STAGE + 16
+assert "constexpr int kBuf = kRing * kSlot * 2 / 16;" in open(_RATE_CU).read()
+BUF = RING * SLOT * 2 // 16  # the finisher's records a pass
 
 
 class _Table:
-    """csrc/rate_common.cuh's RateTable from a RateArgs, with
-    rate_segment, rate_next_segment and rate_value as the kernels run
-    them."""
+    """csrc/rate_common.cuh's RateTable from a RateArgs (entry 0 the LP
+    region, entry k + 1 segment k), with rate_entry, rate_body and
+    rate_value as the kernels run them: the quantizer by a multiplier
+    ceil(2^31 / q) on 2|x|."""
 
     def __init__(self, a):
-        self.n, self.lp, self.segs = a.n, a.lp, a.segs
-        self.start = list(a.start[: a.segs]) + [a.n]
-        self.q = list(a.q[: a.segs])
-        self.g = list(a.g[: a.segs])
+        self.n, self.segs = a.n, a.segs
+        qs = [1] + list(a.q[: a.segs])
+        self.start = [0] + list(a.start[: a.segs]) + [a.n]
+        self.mul = [(0x80000000 + max(q, 1) - 1) // max(q, 1) for q in qs]
+        self.gate2 = [-2] + [2 * g for g in a.g[: a.segs]]
+        self.head = qs
 
-    def segment(self, p):
-        if p < self.lp:
-            return -1
-        lo, hi = 0, self.segs - 1
+    def entry(self, p):
+        lo, hi = 0, self.segs
         while lo < hi:
             mid = (lo + hi + 1) >> 1
             if self.start[mid] <= p:
@@ -337,79 +350,280 @@ class _Table:
                 hi = mid - 1
         return lo
 
-    def next_segment(self, k, p):
-        return k + 1 if k + 1 < self.segs and p + 1 >= self.start[k + 1] else k
+    def body(self, x, e):
+        a2 = abs(int(x)) << 1
+        f = (a2 * self.mul[e]) >> 32 if a2 > self.gate2[e] else 0
+        return -f if x < 0 else f
 
-    def value(self, k, p, x):
-        if k < 0:
-            return x
-        if p == self.start[k]:
-            return self.q[k]
-        g = self.g[k]
-        return _divt(x, max(self.q[k], 1)) if (x < -g or x > g) else 0
+    def value(self, e, p, x):
+        return self.head[e] if e and p == self.start[e] else self.body(x, e)
 
-
-def _emulate_k8s(raw: np.ndarray, t: _Table) -> np.ndarray:
-    """csrc/rate.cu: eight values of the flattened rows a thread, the first
-    one's segment by search, then steps across row ends (whether the eight
-    come by one 16-byte load changes nothing else)."""
-    flat = raw.reshape(-1).astype(np.int64)
-    out = np.empty_like(flat)
-    for i0 in range(0, flat.size, 8):
-        p = i0 % t.n
-        k = t.segment(p)
-        for j in range(min(8, flat.size - i0)):
-            out[i0 + j] = t.value(k, p, int(flat[i0 + j]))
-            p += 1
-            if p == t.n:
-                p, k = 0, -1
-            else:
-                k = t.next_segment(k, p - 1)
-    return out.astype(np.int16).reshape(raw.shape)
+    def row(self, raw_row: np.ndarray) -> np.ndarray:
+        """A row's values at the probe, vectorised (positions' entries by
+        search, the same formulas)."""
+        p = np.arange(self.n)
+        e = np.searchsorted(np.asarray(self.start[:-1]), p, side="right") - 1
+        x = raw_row.astype(np.int64)
+        a2 = np.abs(x) << 1
+        f = np.where(a2 > np.asarray(self.gate2)[e], (a2 * np.asarray(self.mul, np.int64)[e]) >> 32,
+                     0)
+        v = np.where(x < 0, -f, f)
+        heads = np.asarray(self.start[1:-1], np.int64)
+        v[heads] = np.asarray(self.head[1:])
+        return v
 
 
-def _emulate_k8p_stage(raw: np.ndarray, t: _Table):
-    """kagari_encode.cu stage_rate, chunk by chunk: the staged values and
-    their two neighbours (at a row's ends, the end value with its low bit
-    flipped); eight values a thread with steps where the chunk is whole
-    and its row position 16-byte aligned, else a search per value."""
-    def value(row, p):
-        return t.value(t.segment(p), p, int(raw[row, p]))
-
+def _emulate_k8s(raw: np.ndarray, t: _Table, ctas: int, mis: int, vec: bool = True) -> np.ndarray:
+    """csrc/rate.cu rate_serialize, span by span: each CTA's spans of the
+    cut, in tiles of kLoads 16-byte loads a thread (the loads only of whole
+    granules inside the span, on the 16-byte route), each thread's entry
+    found once and stepped on, the fast route only where its 8 values hold
+    no head and no segment's end. Every output written exactly once (the
+    rest stays poisoned)."""
     rows, n = raw.shape
-    chunks = []
-    for row in range(rows):
-        for start in range(0, n, K3_CHUNK):
-            length = min(K3_CHUNK, n - start)
-            sv = np.empty(length, np.int64)
-            if length == K3_CHUNK and ((row * n + start) * 2) % 16 == 0:
-                for u in range(0, K3_CHUNK, 8):
-                    p = start + u
-                    k = t.segment(p)
-                    for j in range(8):
-                        sv[u + j] = t.value(k, p, int(raw[row, p]))
-                        k = t.next_segment(k, p)
-                        p += 1
-            else:
-                for i in range(length):
-                    sv[i] = value(row, start + i)
-            before = value(row, start - 1) if start > 0 else value(row, start) ^ 1
-            after = value(row, start + length) if start + length < n else value(
-                row, start + length - 1) ^ 1
-            chunks.append((row, start, sv, before, after))
-    return chunks
+    out = np.full(raw.shape, 0x7FFF_0000, np.int64)
+    cut = rd.span_cut(rows, n, ctas)
+    spans = rows * cut[0]
+    assert spans <= max(rows, ctas)
+    grid = min(spans, ctas)
+    for cta in range(grid):
+        for sid in range(cta, spans, grid):
+            row, k = divmod(sid, cut[0])
+            begin, end, origin = rd.span_bounds(row, k, n, cut, mis)
+            assert begin < end and (mis + row * n + origin) % 8 == 0
+            src = raw[row].astype(np.int64)
+            for tid in range(min(THREADS, -(-(end - origin) // VEC))):
+                e = -1
+                for g0 in range(origin, end, TILE):
+                    for u in range(LOADS):
+                        p = g0 + VEC * (u * THREADS + tid)
+                        if p >= end:
+                            break
+                        whole = vec and p >= begin and p + VEC <= end
+                        p0 = max(p, begin)
+                        if e < 0:
+                            e = t.entry(p0)
+                        while p0 >= t.start[e + 1]:
+                            e += 1
+                        if whole and (p > t.start[e] or not e) and p + VEC <= t.start[e + 1]:
+                            vals = [t.body(x, e) for x in src[p : p + VEC]]
+                            assert (out[row, p : p + VEC] == 0x7FFF_0000).all()
+                            out[row, p : p + VEC] = vals
+                        else:
+                            ee = e
+                            for q in range(p0, min(p + VEC, end)):
+                                while q >= t.start[ee + 1]:
+                                    ee += 1
+                                assert out[row, q] == 0x7FFF_0000
+                                out[row, q] = t.value(ee, q, src[q])
+    assert (out != 0x7FFF_0000).all(), "a value never written"
+    return out.astype(np.int16)
+
+
+def _lit_len(v):
+    return rd.lit_len(int(v))
+
+
+def _emulate_k8p(raw: np.ndarray, t: _Table, ctas: int, mis: int, rng, buf: int = BUF) -> tuple:
+    """csrc/rate.cu rate_sizes: the spans of the cut, each CTA's span
+    alone and in a scrambled order. A span's stages come through a ring
+    slot filled as issue_stage fills it (the copies that hold a position
+    of [first - 1, last + 1] of the stage inside the row; every other slot
+    poisoned); each thread maps its kItems values and its two neighbours
+    (the entry stepped on from the stage before; the route, one entry's
+    body, two entries or any, counted a thread: the values are the same
+    on each), codes the positions from its first
+    mismatch on (none when its warp has no mismatch), and keeps its
+    leading positions until the next stage's barrier, when the warps' last
+    mismatches give their run's start (run_bits). The span's record goes
+    out, the row's counter counts it in, and the row's last span's CTA
+    adds every span's leading run in closed form: `buf` records a pass,
+    each thread a block of them after the exclusive max of the blocks
+    before (a row of 32 spans or fewer: warp 0, a span a lane). Returns
+    (sizes, stats)."""
+    rows, n = raw.shape
+    flat = raw.reshape(-1).astype(np.int64)
+    cut = spr, _ = rd.span_cut(rows, n, ctas)
+    assert rows * spr <= max(rows, ctas)
+    recs, sizes = {}, {}
+    count = np.zeros(rows, np.int64)
+    stats = dict(skipped_warps=0, warps=0, routes=[0, 0, 0], threads=0, finishers=0,
+                 lead_closed=0)
+
+    def thread(first, lo, hi, sv, e):
+        """stage_values + stage_thread of one thread: (own bits, Pending as
+        a dict, e, mm)."""
+        while min(max(first - 1, 0), n - 1) >= t.start[e + 1]:
+            e += 1
+        raw18 = [int(x) for x in sv]
+        route = (0 if first > 0 and first - 1 > t.start[e] and first + ITEMS < t.start[e + 1] else
+                 1 if e < t.segs and first + ITEMS < t.start[e + 2] else 2)
+        stats["routes"][route] += 1
+        if route == 0:
+            v = [t.body(x, e) for x in raw18]
+        else:
+            v, ee = [], e
+            for j, x in enumerate(raw18):
+                p = first - 1 + j
+                if 0 <= p < n:
+                    while p >= t.start[ee + 1]:
+                        ee += 1
+                    v.append(t.value(ee, p, x))
+                else:
+                    v.append(0)
+        if first + lo == 0:
+            v[lo] = v[lo + 1] ^ 1
+        if first + hi == n:
+            v[hi + 1] = v[hi] ^ 1
+        mm = 0
+        for j in range(lo, hi):
+            mm |= (v[j + 1] != v[j]) << j
+        pd = dict(fm=first + (mm & -mm).bit_length() - 1 if mm else -1, lead_a=first + lo, v=v[lo + 1],
+                  ends=bool(mm) or v[hi + 1] != v[hi], lm=first + mm.bit_length() - 1 if mm else -1)
+        pd["lead_b"] = pd["fm"] - 1 if mm else first + hi - 1
+        own, last = 0, -64
+        for j in range(ITEMS):
+            if (mm >> j) & 1:
+                last = j
+            d = j - last
+            b = _lit_len(v[j + 1]) if 0 <= d <= 2 else 0
+            if 2 <= d <= 15 and v[j + 2] != v[j + 1]:
+                b += 2 * ((d - 1).bit_length() - 1) + 1
+            own += b if lo <= j < hi else 0
+        return own, pd, e, mm
+
+    def finish(pend, wl, carry, fm_box):
+        """finish_stage for every thread: (bits, carry after the stage)."""
+        bits = 0
+        for tid, pd in enumerate(pend):
+            before = max([carry] + wl[: tid // 32])
+            m = max(before, pd["excl"])
+            if m < 0:
+                if pd["fm"] >= 0:
+                    assert fm_box[0] == -1
+                    fm_box[0] = pd["fm"]
+                continue
+            if pd["lead_a"] <= pd["lead_b"]:
+                bits += rd.run_bits(m, pd["lead_a"], pd["lead_b"], pd["v"], pd["ends"])
+                stats["lead_closed"] += 1
+        return bits, max([carry] + wl)
+
+    for sid in rng.permutation(rows * spr):
+        row, k = divmod(int(sid), spr)
+        begin, end, origin = rd.span_bounds(row, k, n, cut, mis)
+        assert begin < end and (mis + row * n + origin) % 8 == 0
+        stages = -(-(end - origin) // STAGE)
+        ring = rng.integers(-32768, 32768, size=(RING, SLOT))  # poisoned
+        es = [-1] * THREADS
+        carry, fm_box, bits, v0, pend, wl = -1, [-1], 0, None, None, None
+        for m in range(stages):
+            s0 = origin + m * STAGE
+            slot = ring[m % RING]
+            slot[:] = rng.integers(-32768, 32768, size=SLOT)
+            lo_w, hi_w = max(max(begin, s0) - 1, 0), min(min(end, s0 + STAGE) + 1, n)
+            for i in range(SLOT // 8):
+                p = s0 - 8 + 8 * i
+                if p + 8 <= lo_w or p >= hi_w:
+                    continue
+                f = row * n + p
+                for j in range(8):
+                    if 0 <= f + j < flat.size:
+                        slot[8 * i + j] = flat[f + j]
+            if m:
+                b, carry = finish(pend, wl, carry, fm_box)
+                bits += b
+            pend, wl = [], []
+            for w in range(WARPS):
+                lanes = []
+                for lane in range(32):
+                    tid = 32 * w + lane
+                    first = s0 + ITEMS * tid
+                    lo = max(begin - first, 0)
+                    hi = max(min(min(end, s0 + STAGE) - first, ITEMS), lo)
+                    if hi == lo:  # no item: nothing coded, kept or published
+                        lanes.append((0, dict(fm=-1, lm=-1, lead_a=first + lo,
+                                              lead_b=first + lo - 1, v=0, ends=False), 0, 0))
+                        continue
+                    if es[tid] < 0:
+                        es[tid] = t.entry(min(max(first - 1, 0), n - 1))
+                    sv = slot[7 + ITEMS * tid : 7 + ITEMS * tid + ITEMS + 2]
+                    lanes.append(thread(first, lo, hi, sv, es[tid]))
+                    es[tid] = lanes[-1][2]
+                    stats["threads"] += 1
+                stats["warps"] += 1
+                if not any(mm for _, _, _, mm in lanes):
+                    stats["skipped_warps"] += 1
+                incl = -1
+                for own, pd, _, _ in lanes:
+                    pd["excl"] = incl
+                    incl = max(incl, pd["lm"])
+                    bits += own
+                    pend.append(pd)
+                wl.append(incl)
+            if m == 0:
+                v0 = pend[0]["v"]
+                assert pend[0]["lead_a"] == begin
+        b, carry = finish(pend, wl, carry, fm_box)
+        bits += b
+        if spr == 1:
+            assert fm_box[0] == 0
+            sizes[row] = (bits + 7) >> 3
+            continue
+        assert (row, k) not in recs
+        recs[row, k] = (fm_box[0], carry, bits, v0)
+        count[row] += 1
+        if count[row] == spr:  # the row's finisher
+            count[row] = 0
+            stats["finishers"] += 1
+            rr = [recs.pop((row, i)) for i in range(spr)]
+            carry, total = -1, 0
+            # 32 spans or fewer: warp 0, a span a lane (a pass of one record
+            # a thread, the same sums)
+            step = buf if spr > 32 else 32
+            for c0 in range(0, spr, step):
+                cn = min(step, spr - c0)
+                per = -(-cn // THREADS)
+                blocks = [(min(cn, per * tid), min(cn, per * tid + per)) for tid in range(THREADS)]
+                tops = [max([-1] + [rr[c0 + i][1] for i in range(i0, i1)]) for i0, i1 in blocks]
+                for tid, (i0, i1) in enumerate(blocks):
+                    m = max([carry] + tops[:tid])
+                    for i in range(i0, i1):
+                        fm, lm, sbits, sv0 = rr[c0 + i]
+                        b_i, e_i, _ = rd.span_bounds(row, c0 + i, n, cut, mis)
+                        total += sbits
+                        if fm != b_i:
+                            assert m >= 0
+                            next_fm = rr[c0 + i + 1][0] if c0 + i + 1 < spr else -1
+                            ends = fm >= 0 or e_i == n or next_fm == e_i
+                            total += rd.run_bits(m, b_i, fm - 1 if fm >= 0 else e_i - 1, sv0, ends)
+                        m = max(m, lm)
+                carry = max([carry] + tops)
+            sizes[row] = (total + 7) >> 3
+    assert not count.any() and not recs
+    return np.asarray([sizes[r] for r in range(rows)], np.int64), stats
+
+
+def _ref_sizes(values: np.ndarray) -> np.ndarray:
+    """ako_tpu's kagari_size_device (JAX), a row at a time."""
+    from ako_tpu.ops.kagari_device import kagari_size_device as ref_size
+
+    return np.asarray([int(ref_size(jnp.asarray(r.astype(np.int16)))) for r in values], np.int64)
+
+
+#: (grid CTAs, int16 offset of the raw base from 16 bytes) for the walks:
+#: the card's one-wave grid of 4 CTAs a SM, a grid smaller than the rows,
+#: and small grids with unaligned rows
+CUTS = [(528, 0), (5, 3), (37, 5), (2, 7)]
 
 
 @pytest.mark.parametrize("shape,tiles", [((48, 64, 4), 0), ((29, 33, 3), 32), ((48, 64, 3), 32)],
                          ids=["whole_4ch_3_chunks", "ragged_no_level", "ragged_2_groups"])
 def test_kernel_table_walks(shape, tiles):
     """rate_args' table, and K8s's and K8p's walks over it, against
-    serialize_plain: the table's segments in wire order at their (level,
-    channel)'s q and g; K8s's output; K8p's staged chunks, neighbours
-    and the per-row bit counter (chunks adding in a scrambled order, the
-    last writing ceil(bits / 8)) against probe_sizes_plain."""
-    from ako_tpu_torch.ops.kagari_device import tokenize
-
+    serialize_plain and probe_sizes_plain: the table's segments in wire
+    order at their (level, channel)'s q and g; K8s's output under each cut;
+    K8p's spans, stages, records and finishers (spans in a scrambled
+    order) under each cut."""
     h, w, ch = shape
     img = _image(h, w, ch)
     rng = np.random.default_rng(9)
@@ -422,40 +636,156 @@ def test_kernel_table_walks(shape, tiles):
             t = _Table(a)
             lp, starts, lengths, index = rd.segments(schedule, ch)
             assert (a.n, a.lp, a.segs) == (schedule.coeff_count(ch), lp, len(starts))
-            assert t.start[:-1] == list(starts) and (not starts or starts[0] == lp)
-            assert [e - b for b, e in zip(t.start, t.start[1:])] == list(lengths)
-            assert t.q == [int(qs.flat[i]) for i in index]
-            assert t.g == [int(gs.flat[i]) for i in index]
+            assert t.start[1:-1] == list(starts) and (not starts or starts[0] == lp)
+            assert [e - b for b, e in zip(t.start[1:], t.start[2:])] == list(lengths)
+            assert t.head[1:] == [int(qs.flat[i]) for i in index]
+            assert t.gate2[1:] == [2 * int(gs.flat[i]) for i in index]
             want = rd.serialize_plain(raw, schedule, ch, qs, gs).numpy()
-            np.testing.assert_array_equal(_emulate_k8s(raw.numpy(), t), want)
+            np.testing.assert_array_equal(t.row(raw.numpy()[0])[None], want[:1])
+            sizes = rd.probe_sizes_plain(raw, schedule, ch, qs, gs).numpy()
+            for ctas, mis in CUTS:
+                np.testing.assert_array_equal(_emulate_k8s(raw.numpy(), t, ctas, mis), want)
+                got, _ = _emulate_k8p(raw.numpy(), t, ctas, mis, rng)
+                np.testing.assert_array_equal(got, sizes, err_msg=f"cut {ctas} {mis}")
+    np.testing.assert_array_equal(_emulate_k8s(raw.numpy(), t, 5, 0, vec=False), want)
 
-            sizes = {}
-            acc = np.zeros(raw.shape[0], np.int64)
-            chunks = _emulate_k8p_stage(raw.numpy(), t)
-            per_row = np.bincount([c[0] for c in chunks])
-            for i in rng.permutation(len(chunks)):
-                row, start, sv, before, after = chunks[i]
-                np.testing.assert_array_equal(sv, want[row, start : start + len(sv)])
-                if start:
-                    assert before == want[row, start - 1]
-                else:
-                    assert before != want[row, 0]
-                if start + len(sv) < a.n:
-                    assert after == want[row, start + len(sv)]
-                else:
-                    assert after != want[row, -1]
-                # the chunk's bits: the row's tokenizer on its positions
-                _, nbits = tokenize(torch.from_numpy(want[row : row + 1]))
-                bits = int(nbits.reshape(-1, 2)[start : start + len(sv)].sum())
-                old = int(acc[row])
-                acc[row] = old + (1 << 40) + bits
-                if old >> 40 == per_row[row] - 1:
-                    sizes[row] = ((old & ((1 << 40) - 1)) + bits + 7) >> 3
-                    acc[row] = 0
-            assert not acc.any()
-            np.testing.assert_array_equal(
-                [sizes[r] for r in range(raw.shape[0])],
-                rd.probe_sizes_plain(raw, schedule, ch, qs, gs).numpy())
+
+def _lp_table(n: int, heads=()):
+    """A probe table of one row of n values: LP up to the first head, then
+    segments at q = 1, g = 0 (the values kept, a head of 1 at each)."""
+    a = kernels.RateArgs()
+    a.n, a.lp, a.segs = n, heads[0] if heads else n, len(heads)
+    a.start[: len(heads)] = list(heads)
+    a.q[: len(heads)] = [1] * len(heads)
+    a.g[: len(heads)] = [0] * len(heads)
+    return a
+
+
+def _constructed_streams():
+    """{name: ((rows, n) int16 raw streams, heads)} that stress the span
+    cut: runs of 65534 k +- 1 equal values across span edges (a flush on
+    an edge), spans with no mismatch, a row of one value, rows shorter than
+    a span, n not a multiple of 8, -32768, and 1, 3, 80, 81 and 200 rows."""
+    rng = np.random.default_rng(15)
+    k = 65534
+    out = {}
+    for extra in (-1, 0, 1):
+        row = np.concatenate([[5, 6], np.full(2 * k + extra, -3), [7], np.full(k + extra, -32768),
+                              rng.integers(-4, 4, 50)])
+        out[f"flush_runs_{extra:+d}"] = (row[None].astype(np.int16), ())
+    row = np.full(3 * k + 11, 9, np.int16)
+    out["one_value"] = (row[None], ())
+    row[[0, 70001, 150000]] = -32768
+    out["one_value_three_breaks"] = (row[None].copy(), (4097, 131075))
+    out["short_rows_3"] = (rng.integers(-2, 3, (3, 37)).astype(np.int16), (5,))
+    runs = np.repeat(rng.integers(-3, 3, 1000), rng.integers(1, 300, 1000))[: 80 * 1003]
+    out["rows_80"] = (runs.reshape(80, 1003).astype(np.int16), (11, 500))
+    out["rows_81"] = (np.repeat(rng.integers(-2, 2, 81 * 65), 7)[: 81 * 453].reshape(81, 453)
+                      .astype(np.int16), (3,))
+    full = rng.integers(-32768, 32768, (200, 61)).astype(np.int16)
+    full[::7, 10:40] = -32768
+    out["rows_200_full_range"] = (full, (29,))
+    out["rows_1_n_13"] = (np.asarray([[1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2, 3, 3]], np.int16), ())
+    return out
+
+
+CONSTRUCTED = _constructed_streams()
+
+
+@pytest.mark.parametrize("name", list(CONSTRUCTED))
+def test_k8p_walk_constructed(name):
+    """K8p's emulation on streams built to stress the span cut, under
+    several grids and offsets (so runs, flushes and spans with no mismatch
+    fall on span edges differently), against probe_sizes_plain's
+    tokenizer and ako_tpu's kagari_size_device under JAX; K8s's too on the
+    smaller ones."""
+    from ako_tpu_torch.ops.kagari_device import kagari_size_device
+
+    raw, heads = CONSTRUCTED[name]
+    t = _Table(_lp_table(raw.shape[1], heads))
+    values = np.stack([t.row(r) for r in raw])
+    want = kagari_size_device(torch.from_numpy(values.astype(np.int16))).numpy()
+    np.testing.assert_array_equal(_ref_sizes(values), want)
+    rng = np.random.default_rng(4)
+    cuts = [(528, 0), (37, 3), (7, 5)] if raw.size > 100_000 else CUTS + [(1, 1), (900, 6)]
+    for ctas, mis in cuts:
+        got, stats = _emulate_k8p(raw, t, ctas, mis, rng, buf=BUF if ctas < 500 else 7)
+        np.testing.assert_array_equal(got, want, err_msg=f"cut {ctas} {mis}")
+        if raw.size < 20_000:
+            np.testing.assert_array_equal(_emulate_k8s(raw, t, ctas, mis), values.astype(np.int16))
+    if name == "one_value":
+        assert stats["skipped_warps"] > 0 and stats["finishers"] == 1
+
+
+def test_run_bits_closed_form():
+    """rate_device.run_bits (csrc/rate.cu's) against the plain tokenizer:
+    every run length through two flushes (up to 2 x 65534 + 3) on a run that
+    goes on (prefix sums of one long run), and on runs that end there (every
+    length to 1500, around each power of two and each flush); pieces of a
+    run that start mid-run; literals of 0, 5, 32767 and -32768."""
+    from ako_tpu_torch.ops.kagari_device import tokenize
+
+    k = 65534
+    top = 2 * k + 3
+    for v in (0, 5, 32767, -32768):
+        run = torch.full((1, top + 2), v, dtype=torch.int16)
+        _, nbits = tokenize(run)
+        per = nbits.reshape(-1, 2).sum(dim=1).numpy().astype(np.int64)
+        pre = np.cumsum(per)  # pre[b]: positions 0..b; the run never ends before top + 1
+        for b in range(1, top + 1):
+            assert rd.run_bits(0, 1, b, v, False) == pre[b] - pre[0], (v, b)
+        rng = np.random.default_rng(v & 0xFFFF)
+        for a, b in np.sort(rng.integers(1, top + 1, (300, 2)), axis=1):
+            assert rd.run_bits(0, int(a), int(b), v, False) == pre[b] - pre[a - 1]
+        lengths = set(range(1, 1501)) | {2 ** j + d for j in range(11, 17) for d in (-1, 0, 1, 2)}
+        lengths |= {k + d for d in range(-3, 5)} | {2 * k + d for d in range(-3, 4)}
+        other = 1 if v != 1 else 2
+        parts, ends_at = [], []
+        pos = 0
+        for i, L in enumerate(sorted(lengths)):
+            val = v if i % 2 == 0 else other
+            parts.append(np.full(L, val, np.int16))
+            ends_at.append((pos, pos + L - 1, val))
+            pos += L
+        stream = torch.from_numpy(np.concatenate(parts)[None])
+        _, nbits = tokenize(stream)
+        per = nbits.reshape(-1, 2).sum(dim=1).numpy().astype(np.int64)
+        pre = np.concatenate([[0], np.cumsum(per)])
+        for m, b, val in ends_at:
+            if b > m:
+                assert rd.run_bits(m, m + 1, b, val, True) == pre[b + 1] - pre[m + 1], (val, b - m)
+
+
+def test_kernel_code_lengths():
+    """csrc/rate.cu's code lengths without __clz: lit_len from a float's
+    exponent for every int16 value against the plain tokenizer's literal
+    lengths (and rate_device.lit_len), small_gamma_len's table for the
+    tokens 1-15."""
+    from ako_tpu_torch.ops.kagari_device import _gamma_bits
+
+    src = open(_RATE_CU).read()
+    assert "((unsigned)abs(v) << 1 & 0xFFFEu) | 0x4B000001u" in src
+    assert "__uint_as_float(m) - 8388608.0f) >> 23) - 253" in src
+    assert "u < 8 ? (int)(0x55553310u >> (u << 2) & 15u) : 7" in src
+    v = np.arange(-32768, 32768, dtype=np.int64)
+    m = (((np.abs(v) << 1) & 0xFFFE) | 0x4B000001).astype(np.uint32)
+    e = ((m.view(np.float32) - np.float32(8388608.0)).view(np.int32) >> 23).astype(np.int64)
+    u = torch.from_numpy(((((v << 1) ^ (v >> 15)) + 1) & 0xFFFF).astype(np.int32))
+    np.testing.assert_array_equal(2 * e - 253, _gamma_bits(u).numpy())
+    np.testing.assert_array_equal([rd.lit_len(int(x)) for x in v[::97]], (2 * e - 253)[::97])
+    small = [(0x55553310 >> (k << 2) & 15) if k < 8 else 7 for k in range(1, 16)]
+    assert small == [2 * (k.bit_length() - 1) + 1 for k in range(1, 16)]
+
+
+def test_quantizer_multiplier():
+    """rate_body's multiplier: 2|x| * ceil(2^31 / q) >> 32 is |x| / q
+    truncated for every x of int16 at every q of 1-1024, every 37th q
+    after it and 32767."""
+    x = np.arange(-32768, 32768, dtype=np.int64)
+    a2 = np.abs(x) << 1
+    for q in list(range(1, 1025)) + list(range(1025, 32767, 37)) + [32767]:
+        mul = (0x80000000 + q - 1) // q
+        np.testing.assert_array_equal((a2 * mul) >> 32, np.abs(x) // q, err_msg=f"q {q}")
 
 
 def test_kernel_table_limits():
