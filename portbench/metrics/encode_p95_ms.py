@@ -1,0 +1,9 @@
+"""95th percentile of the host-clock ms of all the window's encodes
+(numpy's linear interpolation)."""
+
+import numpy as np
+
+
+def read(result, mix, config):
+    ms = result.ms_of("encode")
+    return float(np.percentile(ms, 95)) if ms else None
