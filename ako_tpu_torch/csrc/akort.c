@@ -1,9 +1,10 @@
 /*
 ako_tpu_torch native runtime: the port's own copy of ako_tpu's
-ako_tpu/runtime/native/akort.c (the same code; only comments differ),
-so that the port builds and changes it without reading a file of the
-JAX package. runtime/build.py compiles it and binds the functions the
-port calls.
+ako_tpu/runtime/native/akort.c (the same code, but for
+akort_kagari_sync, which jumps RLE runs and counts what it jumped; its
+records and failures are the same), so that the port builds and changes
+it without reading a file of the JAX package. runtime/build.py compiles
+it and binds the functions the port calls.
 
 Sequential host-side pieces of the codec.
 
@@ -532,9 +533,18 @@ static void kagari_decode_pair(KD *a, KD *b)
 Walk the Kagari stream exactly like akort_kagari_decode, but instead of
 writing values, record the decoder state at every `block`-th output
 position: (logical bit offset of the next unread code, previous value,
-consecutive-equal count, remaining run length). A TPU program then
+consecutive-equal count, remaining run length). The device decoder then
 decodes all blocks in parallel from these sync points, bit-exactly
 (ops/kagari_device.py:kagari_decode_device).
+
+The records come from a countdown to the next block boundary: the scan
+keeps the output index of its next record and compares its own output
+index with it before each code, with no division. An RLE run is jumped:
+its length code writes the record of every boundary inside the run (bit
+offset after the length code, the run's value, consec 0, the values left
+in the run from that boundary) and moves the output index to the run's
+end. The scan's cost follows the codes it reads, not the values they
+expand to.
 
 The logical bit offset is the sum of consumed code lengths; it is
 independent of the byte-granular accumulator readahead. Failure
@@ -544,13 +554,14 @@ host path would (reference kagari.c:301-366).
 
 Returns consumed input bytes (cursor position including readahead, the
 same value akort_kagari_decode returns) or 0 on broken input. Writes
-ceil(count/block) records.
+ceil(count/block) records, and on success *run_values: the output values
+that the scan passed over inside RLE runs.
 */
 API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
                              size_t output_size, size_t block,
                              uint32_t *bit_off, int16_t *prev_arr,
                              uint16_t *consec_arr, uint16_t *run_arr,
-                             uint32_t *max_code_bits)
+                             uint32_t *max_code_bits, uint64_t *run_values)
 {
 	BitSource src = {0, 0, (const uint8_t *)input,
 	                 (const uint8_t *)input + input_size};
@@ -564,6 +575,8 @@ API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
 	size_t no = count;
 	size_t out_idx = 0;
 	size_t rec = 0;
+	size_t next = 0; /* output index of the next record */
+	uint64_t jumped = 0;
 	uint32_t bitpos = 0;
 	uint32_t maxbits = 0;
 	int16_t prev = 0;
@@ -578,15 +591,15 @@ API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
 			maxbits = (uint32_t)bits;                                     \
 	} while (0)
 
+	/* the record at output index `next`; after the n_rec-th, `next`
+	   is one no output index reaches */
 #define SYNC_EMIT(consec_v, runrem_v)                                     \
 	do {                                                                  \
-		if (rec < n_rec && out_idx % block == 0) {                        \
-			bit_off[rec] = bitpos;                                        \
-			prev_arr[rec] = prev;                                         \
-			consec_arr[rec] = (uint16_t)(consec_v);                       \
-			run_arr[rec] = (uint16_t)(runrem_v);                          \
-			rec++;                                                        \
-		}                                                                 \
+		bit_off[rec] = bitpos;                                            \
+		prev_arr[rec] = prev;                                             \
+		consec_arr[rec] = (uint16_t)(consec_v);                           \
+		run_arr[rec] = (uint16_t)(runrem_v);                              \
+		next = ++rec < n_rec ? next + block : SIZE_MAX;                   \
 	} while (0)
 
 	/* first value: written without run comparison (kagari.c:322) */
@@ -603,7 +616,8 @@ API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
 	for (; no != 0; no--) {
 		if (out_idx >= out_cap)
 			return 0;
-		SYNC_EMIT(run, 0);
+		if (out_idx == next)
+			SYNC_EMIT(run, 0);
 
 		bits = 0;
 		u = source_get(&src, &bits);
@@ -624,18 +638,14 @@ API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
 				SYNC_BITS();
 				bitpos += (uint32_t)bits;
 				const uint16_t rle_len = (uint16_t)(rle_raw - 1);
-				if (out_idx + (size_t)rle_len > out_cap)
+				const size_t end = out_idx + (size_t)rle_len;
+				if (end > out_cap)
 					return 0;
-				for (size_t i = 0; i < (size_t)rle_len; i++) {
-					if (rec < n_rec && out_idx % block == 0) {
-						bit_off[rec] = bitpos;
-						prev_arr[rec] = prev;
-						consec_arr[rec] = 0;
-						run_arr[rec] = (uint16_t)(rle_len - i);
-						rec++;
-					}
-					out_idx++;
-				}
+				/* every boundary in [out_idx, end), then jump */
+				while (next < end)
+					SYNC_EMIT(0, end - next);
+				out_idx = end;
+				jumped += rle_len;
 				run = 0;
 				no -= rle_len; /* may wrap; caught by out_cap check */
 			}
@@ -649,6 +659,7 @@ API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
 #undef SYNC_EMIT
 #undef SYNC_BITS
 	*max_code_bits = maxbits;
+	*run_values = jumped;
 	return (size_t)(src.pos - (const uint8_t *)input);
 }
 

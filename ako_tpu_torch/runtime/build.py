@@ -28,7 +28,8 @@ _I64 = ctypes.c_int64
 _SZ = ctypes.c_size_t
 
 #: (restype, argtypes) per bound symbol — the same signatures as
-#: ako_tpu/runtime/build.py binds, for the functions the port calls
+#: ako_tpu/runtime/build.py binds, for the functions the port calls,
+#: but for akort_kagari_sync's last pointer (the values it jumped)
 _SIGNATURES = {
     "akort_quantization": (_I32, [_I32, _I32] + [ctypes.c_uint64] * 4),
     "akort_gate": (_I32, [_I32, _I32] + [ctypes.c_uint64] * 4),
@@ -36,7 +37,7 @@ _SIGNATURES = {
     "akort_kagari_decode": (_SZ, [_SZ, _P, _SZ, _P, _SZ]),
     "akort_manba_encode": (_SZ, [_P, _SZ, _P, _SZ]),
     "akort_manba_decode": (_SZ, [_SZ, _P, _SZ, _P, _SZ]),
-    "akort_kagari_sync": (_SZ, [_SZ, _P, _SZ, _SZ, _SZ, _P, _P, _P, _P, _P]),
+    "akort_kagari_sync": (_SZ, [_SZ, _P, _SZ, _SZ, _SZ, _P, _P, _P, _P, _P, _P]),
     "akort_manba_sync": (_SZ, [_SZ, _P, _SZ, _SZ, _P, _P, _P, _P, _P, _P, _P]),
     "akort_u8_to_planes": (None, [_P, _I32, _I32, _I32, _I32, _I32, _P]),
     "akort_tile_lift": (_I32, [_P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _SZ]),

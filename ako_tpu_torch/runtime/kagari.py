@@ -24,6 +24,7 @@ import numpy as np
 
 from ako_tpu_torch.core.settings import Compression
 from ako_tpu_torch.runtime.build import load
+from ako_tpu_torch.utils import metrics
 
 BLOCK_HEAD = struct.Struct("<I")
 
@@ -154,6 +155,12 @@ def kagari_sync(
     consumed_bytes, max_code_bits). None on broken input; the failure
     conditions are kagari_decode's.
 
+    The scan reads the stream's codes and jumps its RLE runs. A scan
+    that succeeds adds `count` to the counter `dec_scan_values` and the
+    values inside the runs it jumped to `dec_scan_run_values`
+    (utils/metrics.py): their ratio is the share of the stream that
+    cost no step.
+
     Streams with max_code_bits > 31 (only through the zigzag(-32768)+1
     wrap quirk) must be decoded on the host: the device decoder's
     window covers codes of at most 31 bits."""
@@ -165,6 +172,7 @@ def kagari_sync(
     consec = np.zeros(n_rec, dtype=np.uint16)
     run = np.zeros(n_rec, dtype=np.uint16)
     max_bits = np.zeros(1, dtype=np.uint32)
+    jumped = np.zeros(1, dtype=np.uint64)
     consumed = lib.akort_kagari_sync(
         count,
         src.ctypes.data if src.size else None,
@@ -176,9 +184,12 @@ def kagari_sync(
         consec.ctypes.data,
         run.ctypes.data,
         max_bits.ctypes.data,
+        jumped.ctypes.data,
     )
     if consumed == 0:
         return None
+    metrics.bump(metrics.DEC_SCAN_VALUES, count)
+    metrics.bump(metrics.DEC_SCAN_RUN_VALUES, int(jumped[0]))
     return bit_off, prev, consec, run, consumed, int(max_bits[0])
 
 

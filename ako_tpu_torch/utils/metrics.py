@@ -1,13 +1,14 @@
 """Process-global observability counters for silent-path events.
 
 The same counters and names as ako_tpu/utils/metrics.py (copied: the
-port imports nothing of ako_tpu). The device-entropy encoder falls back
-to the exact host coder for tiles near capacity (encode.pack_budget),
-and the device-entropy decoder falls back to the host for quirk streams
-whose gamma codes exceed the decoder's 31-bit window. Both fallbacks
-are bit-exact, so only these counters show a regression that routes
-tiles onto the slow host path; chip_smoke.py holds the north star to
-zero fallbacks.
+port imports nothing of ako_tpu), and two of the port's own: the values
+the Kagari sync scan read and those it jumped inside RLE runs. The
+device-entropy encoder falls back to the exact host coder for tiles
+near capacity (encode.pack_budget), and the device-entropy decoder
+falls back to the host for quirk streams whose gamma codes exceed the
+decoder's 31-bit window. Both fallbacks are bit-exact, so only these
+counters show a regression that routes tiles onto the slow host path;
+chip_smoke.py holds the north star to zero fallbacks.
 
 Counters are process-global and thread-safe; `reset()` + `counters()`
 bracket a measured region.
@@ -28,6 +29,11 @@ ENC_HOST_FALLBACK = "enc_pack_host_fallback_tiles"
 DEC_DEVICE = "dec_device_tiles"
 #: quirk streams (gamma codes > 31 bits) decoded on host (decode.py)
 DEC_HOST_FALLBACK = "dec_sync_host_fallback_tiles"
+#: output values of the Kagari streams the sync scan read
+#: (runtime/kagari.py:kagari_sync)
+DEC_SCAN_VALUES = "dec_scan_values"
+#: of those, the values inside RLE runs, which the scan jumped
+DEC_SCAN_RUN_VALUES = "dec_scan_run_values"
 
 
 def bump(name: str, n: int = 1) -> None:

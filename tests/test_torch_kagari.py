@@ -18,6 +18,7 @@ from ako_tpu.ops import kagari_device as ref_kd
 from ako_tpu.runtime import kagari as ref_kagari
 from ako_tpu_torch.ops import kagari_device as kd
 from ako_tpu_torch.runtime import kagari
+from ako_tpu_torch.utils import metrics
 
 
 def _random_stream():
@@ -169,6 +170,184 @@ def test_decode_matches_reference(name, block):
     for sp in (None, span):
         got = kd.kagari_decode_device(pool, base, *_sync_tensors(sync), n, block, sp)
         np.testing.assert_array_equal(got.numpy()[0], host[0])
+
+
+def _jumped_runs(v):
+    """[start, end) of each RLE run in the host coder's stream of `v`:
+    the output values the sync scan jumps. Each group of equal values
+    opens with a literal; its next repeats go as literals until
+    RLE_TRIGGER, then a length code of at most VALUE_MAX - 1 -
+    RLE_TRIGGER values (the forced flush), and so on."""
+    out, i, cap = [], 0, kd.VALUE_MAX - 1 - kd.RLE_TRIGGER
+    while i < len(v):
+        j = i + 1
+        while j < len(v) and v[j] == v[i]:
+            j += 1
+        pos, left = i + 1, j - i - 1
+        while left:
+            lits = min(left, kd.RLE_TRIGGER)
+            pos, left = pos + lits, left - lits
+            chunk = min(left, cap)
+            if lits == kd.RLE_TRIGGER:
+                out.append((pos, pos + chunk))
+            pos, left = pos + chunk, left - chunk
+        i = j
+    return out
+
+
+def _long_runs():
+    """Runs of 300, 1000, 7, 129 and 4000 values between literals."""
+    parts = [[11, -5]]
+    for k, ln in enumerate((300, 1000, 7, 129, 4000)):
+        parts += [[k - 40] * ln, [90 + k, -90 - k]]
+    return np.concatenate(parts)
+
+
+def _run_from(prefix: int, length: int):
+    """`prefix` distinct literals, then a run whose jumped part starts at
+    output prefix + RLE_TRIGGER + 1 and holds `length` values."""
+    return np.concatenate([np.arange(prefix) * 7 - 300,
+                           [77] * (1 + kd.RLE_TRIGGER + length), [5, -6]])
+
+
+def _photo_payload():
+    """One whole tile of a corpus.photo image at the tractor's settings
+    (akoDefaultSettings: DD 13/7, YCoCg, q 16, one tile), 512x336 RGB."""
+    from ako_tpu_torch import Settings, encode
+    from ako_tpu_torch.core import container, geometry
+    from ako_tpu_torch.decode import tile_block_sizes
+    from ako_tpu_torch.utils.corpus import photo
+
+    blob = encode(photo(np.random.default_rng(0x7AC), 512, 336, 3), Settings(), device="cpu")
+    view = memoryview(blob)
+    ch, w, h, st = container.head_read(view)
+    (t,) = geometry.tile_grid(w, h, st.tiles_dimension)
+    (size,) = kagari.BLOCK_HEAD.unpack_from(view, container.HEAD_SIZE)
+    start = container.HEAD_SIZE + kagari.BLOCK_HEAD.size
+    tds, spacing = tile_block_sizes(t, st, ch)
+    return tds // 2, bytes(view[start : start + size]), tds + spacing
+
+
+def _calls(v, blocks, cap=None, count=None):
+    """(count, payload, output_capacity_bytes, block) scans of the host
+    coder's stream of `v`, one a block."""
+    payload = kagari.kagari_encode(v, max(v.nbytes * 4, 64))
+    cap = v.size * 2 + 64 if cap is None else cap
+    return [(v.size if count is None else count, payload, cap, b) for b in blocks]
+
+
+def _long_run_calls():
+    v = _long_runs()
+    assert max(e - s for s, e in _jumped_runs(v)) > 3 * 128
+    return _calls(v, [1, 2, 3, 8, 128])
+
+
+def _boundary_calls(prefix, length, starts):
+    """At block 8, a run whose jumped part starts on a boundary and ends
+    off one (`starts`), or the other way round."""
+    v = _run_from(prefix, length)
+    ((s, e),) = _jumped_runs(v)
+    assert (s % 8 == 0, e % 8 == 0) == (starts, not starts)
+    return _calls(v, [8])
+
+
+def _last_record_calls():
+    v = np.array([1, 2, 3] + [4] * 997)
+    ((s, e),) = _jumped_runs(v)
+    assert all(s <= (v.size - 1) // b * b < e for b in (8, 128))
+    return _calls(v, [8, 128])
+
+
+def _flush_calls():
+    """The forced flush at 65534, with boundaries inside the runs on
+    both sides of it."""
+    streams = [_stream("flush_boundary_plus3"), _stream("two_flushes")]
+    assert all(len(_jumped_runs(v)) > 1 for v in streams)
+    return [c for v in streams for c in _calls(v, [8])]
+
+
+def _overflow_calls():
+    """The 4000-value run past the output, and a stream that ends in a
+    run one value past it."""
+    v = _long_runs()
+    ((s, e),) = [r for r in _jumped_runs(v) if r[1] - r[0] == 4000 - 1 - kd.RLE_TRIGGER]
+    end = _stream("run_at_end")
+    return _calls(v, [8, 128], cap=2 * (e - 10)) + _calls(end, [8], cap=2 * (end.size - 1))
+
+
+def _short_count_calls():
+    """The count ends inside the 4000-value run: the wrap of the
+    remaining count."""
+    v = _long_runs()
+    return _calls(v, [8, 128], count=v.size - 1000)
+
+
+def _truncation_calls():
+    ((count, payload, cap, block),) = _calls(_long_runs(), [8])
+    return [(count, payload[:k], cap, block) for k in range(len(payload) + 1)]
+
+
+def _photo_calls():
+    count, payload, cap = _photo_payload()
+    return [(count, payload, cap, b) for b in (8, 128)]
+
+
+# name -> (the scans, whether each succeeds: True, False, or None for
+# "as the reference", the first failing and the last succeeding)
+SYNC_CASES = {
+    "long_runs": (_long_run_calls, True),
+    "run_starts_on_boundary": (lambda: _boundary_calls(5, 37, True), True),
+    "run_ends_on_boundary": (lambda: _boundary_calls(4, 41, False), True),
+    "last_record_in_run": (_last_record_calls, True),
+    "flush_b8": (_flush_calls, True),
+    "run_overflows_output": (_overflow_calls, False),
+    "count_ends_in_run": (_short_count_calls, False),
+    "truncations": (_truncation_calls, None),
+    "photo_whole_tile": (_photo_calls, True),
+}
+
+
+def _sync_equal(count, payload, cap, block):
+    """kagari_sync against ako_tpu's: both None or equal record for
+    record, consumed bytes and max_code_bits included; returns the
+    port's."""
+    got = kagari.kagari_sync(count, payload, cap, block)
+    ref = ref_kagari.kagari_sync(count, payload, cap, block)
+    assert (got is None) == (ref is None)
+    if got is not None:
+        assert got[4:] == ref[4:]
+        for a, b in zip(got[:4], ref[:4]):
+            np.testing.assert_array_equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("name", list(SYNC_CASES))
+def test_sync_matches_reference(name):
+    """kagari_sync equals ako_tpu's, or fails where it fails, on streams
+    whose RLE runs the scan jumps across block boundaries."""
+    make, ok = SYNC_CASES[name]
+    got = [_sync_equal(*c) is not None for c in make()]
+    if ok is None:
+        assert not got[0] and got[-1]
+    else:
+        assert got == [ok] * len(got)
+
+
+@pytest.mark.parametrize("name,runs", [("run_at_end", 47), ("two_flushes", 131072),
+                                       ("distinct", 0)])
+def test_scan_counters(name, runs):
+    """A scan that succeeds adds its count to dec_scan_values and the
+    values of the runs it jumped to dec_scan_run_values; one that fails
+    adds nothing."""
+    v = _stream(name)
+    assert sum(e - s for s, e in _jumped_runs(v)) == runs
+    payload = kagari.kagari_encode(v, max(v.nbytes * 4, 64))
+    metrics.reset()
+    assert kagari.kagari_sync(v.size, payload, v.size * 2 + 64, 128) is not None
+    assert kagari.kagari_sync(v.size, payload[:1], v.size * 2 + 64, 128) is None
+    c = metrics.counters()
+    assert c.get(metrics.DEC_SCAN_VALUES, 0) == v.size
+    assert c.get(metrics.DEC_SCAN_RUN_VALUES, 0) == runs
 
 
 def test_decode_many_tiles_in_one_pool():
