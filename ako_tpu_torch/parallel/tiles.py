@@ -10,6 +10,20 @@ collect_tiles_blocks to encode, and pack_entropy_upload / K4
 (kagari_decode_device) / stream_pixels to decode. The pad tiles' results
 are dropped. Blobs and pixels are the one-device codec's.
 
+Each shard's work stays on its device and stream, whether the mesh's
+devices are distinct cards or one card repeated. The route's host work
+is spans (utils/tracing.py): `ako.shard.encode` and `ako.shard.decode`
+around each call; in the Kagari encode `ako.shard.encode.stage` (the
+staging, a shape group), `ako.shard.encode.dispatch` (a shard's upload
+and launches, a shard and group) and `ako.shard.encode.collect` (a
+shard's wait and framing, a shard and group with real tiles); in the
+device-entropy decode `ako.shard.decode.scan` (the block walk and the
+sync scans), `ako.shard.decode.dispatch` (a shard's packing, upload and
+launches, a shard and group) and `ako.shard.decode.place` (a shard's
+wait, download and placement, a shard and group). The counters
+`shard_tiles` and `shard_pad_tiles` (utils/metrics.py) count the real
+and the pad tiles dispatched.
+
 Replaces the reference's sequential tile loop (library/encode.c:115,
 library/decode.c:128) with one run per shard and shape group.
 """
@@ -56,7 +70,7 @@ from ako_tpu_torch.runtime.kagari import (
     kagari_decode,
     kagari_sync,
 )
-from ako_tpu_torch.utils import metrics
+from ako_tpu_torch.utils import metrics, tracing
 
 
 def pad_batch(n: int, n_shards: int) -> int:
@@ -66,8 +80,13 @@ def pad_batch(n: int, n_shards: int) -> int:
 
 
 def _runs(n: int, n_shards: int) -> list:
-    """Each shard's run [lo, hi) of a padded batch of n items."""
-    per = pad_batch(n, n_shards) // n_shards
+    """Each shard's run [lo, hi) of a padded batch of n items, counted as
+    n real tiles and the pad's tiles dispatched (every caller dispatches
+    each run)."""
+    padded = pad_batch(n, n_shards)
+    metrics.bump(metrics.SHARD_TILES, n)
+    metrics.bump(metrics.SHARD_PAD_TILES, padded - n)
+    per = padded // n_shards
     return [(s * per, (s + 1) * per) for s in range(n_shards)]
 
 
@@ -119,57 +138,63 @@ def encode_image_sharded(
     """Full multi-device encode: tile grid sharded over the mesh, each
     shard's compressed rows gathered, container assembled on host.
     Byte-identical to the single-device encode()."""
-    s = checked_settings(s)
-    image_h, image_w, channels = image.shape
-    head = container.head_write(channels, image_w, image_h, s)
-    grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
+    with tracing.span("ako.shard.encode"):
+        s = checked_settings(s)
+        image_h, image_w, channels = image.shape
+        head = container.head_write(channels, image_w, image_h, s)
+        grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
 
-    # Raw blocks (NONE) and the real-rANS extension (MANBAVARAN under
-    # AKO_TPU_MANBAVARAN=1) take the sharded lift with host framing,
-    # matching the single-device encode()'s bytes for every method.
-    if (
-        s.compression == Compression.NONE
-        or effective_method(s.compression) == Compression.MANBAVARAN
-    ):
-        parts: list = [head]
-        for t, values in zip(grid, encode_tiles_sharded(image, s, mesh, axis_name)):
-            if s.compression == Compression.NONE:
-                parts.append(values.tobytes())
-                continue
-            block = compress_block(values, tile_stream_bytes(t, s, channels), s.compression)
-            if block is None:
-                raise AkoError(Status.ERROR, "incompressible tile")
-            parts.append(block)
-        return b"".join(parts)
+        # Raw blocks (NONE) and the real-rANS extension (MANBAVARAN under
+        # AKO_TPU_MANBAVARAN=1) take the sharded lift with host framing,
+        # matching the single-device encode()'s bytes for every method.
+        if (
+            s.compression == Compression.NONE
+            or effective_method(s.compression) == Compression.MANBAVARAN
+        ):
+            parts: list = [head]
+            for t, values in zip(grid, encode_tiles_sharded(image, s, mesh, axis_name)):
+                if s.compression == Compression.NONE:
+                    parts.append(values.tobytes())
+                    continue
+                block = compress_block(values, tile_stream_bytes(t, s, channels), s.compression)
+                if block is None:
+                    raise AkoError(Status.ERROR, "incompressible tile")
+                parts.append(block)
+            return b"".join(parts)
 
-    shards = mesh.shards(axis_name)
-    src, fill_val = staging_source(image)
-    dispatched = []
-    for (tw, th), tiles in geometry.group_by_shape(grid).items():
-        capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
-        budget = pack_budget(capacity, s.quantization)
-        batch = stage_tiles(src, tiles, tw, th)
-        for shard, (lo, hi) in zip(shards, _runs(len(tiles), len(shards))):
-            part = _shard_tiles(batch, lo, hi, shard, fill_val)
-            with shard.use():
-                # the stream stays on the shard for the near-capacity fallback
-                stream = forward_streams(part, tw, th, channels, s)
-                comp, totals = kagari_encode_device(stream, capacity, budget)
-            real = tiles[lo:hi]
-            if real:
-                dispatched.append((shard, (real, stream, comp[: len(real)], totals[: len(real)],
-                                           capacity, budget)))
-    # Each shard's rows come back cut at its largest compressed size
-    # (collect_tiles_blocks); ako_tpu rounds that width up to a power of
-    # two (_bucket_width) only to bound its compiled gather programs,
-    # which the port does not have. The blob is the same.
-    blocks: list = [None] * len(grid)
-    for shard, record in dispatched:
-        shard.synchronize()
-        got = collect_tiles_blocks(grid, [record])
-        for t in record[0]:
-            blocks[t.index] = got[t.index]
-    return head + b"".join(blocks)
+        shards = mesh.shards(axis_name)
+        src = fill_val = None
+        dispatched = []
+        for (tw, th), tiles in geometry.group_by_shape(grid).items():
+            capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
+            budget = pack_budget(capacity, s.quantization)
+            with tracing.span("ako.shard.encode.stage"):
+                if src is None:  # in the first group's span: one span a group
+                    src, fill_val = staging_source(image)
+                batch = stage_tiles(src, tiles, tw, th)
+            for shard, (lo, hi) in zip(shards, _runs(len(tiles), len(shards))):
+                with tracing.span("ako.shard.encode.dispatch"):
+                    part = _shard_tiles(batch, lo, hi, shard, fill_val)
+                    with shard.use():
+                        # the stream stays on the shard for the near-capacity fallback
+                        stream = forward_streams(part, tw, th, channels, s)
+                        comp, totals = kagari_encode_device(stream, capacity, budget)
+                real = tiles[lo:hi]
+                if real:
+                    dispatched.append((shard, (real, stream, comp[: len(real)],
+                                               totals[: len(real)], capacity, budget)))
+        # Each shard's rows come back cut at its largest compressed size
+        # (collect_tiles_blocks); ako_tpu rounds that width up to a power of
+        # two (_bucket_width) only to bound its compiled gather programs,
+        # which the port does not have. The blob is the same.
+        blocks: list = [None] * len(grid)
+        for shard, record in dispatched:
+            with tracing.span("ako.shard.encode.collect"):
+                shard.synchronize()
+                got = collect_tiles_blocks(grid, [record])
+            for t in record[0]:
+                blocks[t.index] = got[t.index]
+        return head + b"".join(blocks)
 
 
 def decode_image_sharded(
@@ -185,84 +210,89 @@ def decode_image_sharded(
     into its own word pool; tiles with oversized codes (the
     zigzag(-32768) quirk) decode on the host exactly, then ride the
     sharded unlift with everyone else."""
-    view = memoryview(blob)
-    channels, image_w, image_h, s = container.head_read(view)
-    _check_decode_budget(image_w, image_h, channels)
-    cursor = container.HEAD_SIZE
-    grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
-    if device_entropy is None:
-        device_entropy = all(d.type == "cuda" for d in mesh.axis_devices(axis_name))
+    with tracing.span("ako.shard.decode"):
+        view = memoryview(blob)
+        channels, image_w, image_h, s = container.head_read(view)
+        _check_decode_budget(image_w, image_h, channels)
+        cursor = container.HEAD_SIZE
+        grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
+        if device_entropy is None:
+            device_entropy = all(d.type == "cuda" for d in mesh.axis_devices(axis_name))
 
-    image = np.empty((image_h, image_w, channels), dtype=np.uint8)
+        image = np.empty((image_h, image_w, channels), dtype=np.uint8)
 
-    if not (device_entropy and s.compression == Compression.KAGARI):
-        streams = []
-        for t in grid:
-            values, cursor = read_tile_stream(view, cursor, t, s, channels)
-            streams.append(values)
-        decode_tiles_sharded(streams, grid, image, s, channels, mesh, axis_name)
+        if not (device_entropy and s.compression == Compression.KAGARI):
+            streams = []
+            for t in grid:
+                values, cursor = read_tile_stream(view, cursor, t, s, channels)
+                streams.append(values)
+            decode_tiles_sharded(streams, grid, image, s, channels, mesh, axis_name)
+            return image, s, channels
+
+        per_shape: dict = {}
+        host_streams: dict = {}
+        with tracing.span("ako.shard.decode.scan"):
+            for t in grid:
+                payload, cursor = read_tile_block(view, cursor, t, s, channels)
+                tds, spacing = tile_block_sizes(t, s, channels)
+                sync = kagari_sync(tds // 2, payload, tds + spacing, DECODE_BLOCK)
+                if sync is None or sync[4] != len(payload):
+                    raise AkoError(Status.BROKEN_INPUT)
+                if sync[5] > 31:
+                    res = kagari_decode(tds // 2, payload, tds + spacing)
+                    if res is None:
+                        raise AkoError(Status.BROKEN_INPUT)
+                    host_streams[t.index] = res[0]
+                else:
+                    per_shape.setdefault((t.w, t.h), []).append((t, payload, sync))
+        metrics.bump(metrics.DEC_DEVICE, sum(map(len, per_shape.values())))
+        metrics.bump(metrics.DEC_HOST_FALLBACK, len(host_streams))
+
+        shards = mesh.shards(axis_name)
+        done = []
+        for (tw, th), items in per_shape.items():
+            count = geometry.tile_data_size(tw, th) * channels // 2
+            # pad rows repeat the last real tile: a valid decode whose output
+            # is dropped (zero rows would make the decoder chase garbage
+            # offsets)
+            padded = items + [items[-1]] * (pad_batch(len(items), len(shards)) - len(items))
+            for shard, (lo, hi) in zip(shards, _runs(len(items), len(shards))):
+                with tracing.span("ako.shard.decode.dispatch"):
+                    run = padded[lo:hi]
+                    span = None  # K4 reads the pool; only the plain decoder needs a window
+                    if shard.device.type == "cpu":
+                        span = max(decode_span_words(sy[0], len(p) * 8) for _, p, sy in run)
+                    buf, T, B = pack_entropy_upload(run)
+                    with shard.use():
+                        parts = split_entropy_upload(torch.from_numpy(buf).to(shard.device), T, B)
+                        coeffs = kagari_decode_device(*parts, count, DECODE_BLOCK, span)
+                        done.append((shard, [t for t, _, _ in items[lo:hi]],
+                                     stream_pixels(coeffs, tw, th, channels, s)))
+        _place(done, image)
+
+        if host_streams:
+            host_grid = [t for t in grid if t.index in host_streams]
+            # reindex into a dense list for decode_tiles_sharded's contract
+            dense = [host_streams[t.index] for t in host_grid]
+            remapped = [
+                geometry.TilePlacement(i, t.x, t.y, t.w, t.h)
+                for i, t in enumerate(host_grid)
+            ]
+            decode_tiles_sharded(dense, remapped, image, s, channels, mesh, axis_name)
+
         return image, s, channels
-
-    per_shape: dict = {}
-    host_streams: dict = {}
-    for t in grid:
-        payload, cursor = read_tile_block(view, cursor, t, s, channels)
-        tds, spacing = tile_block_sizes(t, s, channels)
-        sync = kagari_sync(tds // 2, payload, tds + spacing, DECODE_BLOCK)
-        if sync is None or sync[4] != len(payload):
-            raise AkoError(Status.BROKEN_INPUT)
-        if sync[5] > 31:
-            res = kagari_decode(tds // 2, payload, tds + spacing)
-            if res is None:
-                raise AkoError(Status.BROKEN_INPUT)
-            host_streams[t.index] = res[0]
-        else:
-            per_shape.setdefault((t.w, t.h), []).append((t, payload, sync))
-    metrics.bump(metrics.DEC_DEVICE, sum(map(len, per_shape.values())))
-    metrics.bump(metrics.DEC_HOST_FALLBACK, len(host_streams))
-
-    shards = mesh.shards(axis_name)
-    done = []
-    for (tw, th), items in per_shape.items():
-        count = geometry.tile_data_size(tw, th) * channels // 2
-        # pad rows repeat the last real tile: a valid decode whose output
-        # is dropped (zero rows would make the decoder chase garbage
-        # offsets)
-        padded = items + [items[-1]] * (pad_batch(len(items), len(shards)) - len(items))
-        for shard, (lo, hi) in zip(shards, _runs(len(items), len(shards))):
-            run = padded[lo:hi]
-            span = None  # K4 reads the pool; only the plain decoder needs a window
-            if shard.device.type == "cpu":
-                span = max(decode_span_words(sy[0], len(p) * 8) for _, p, sy in run)
-            buf, T, B = pack_entropy_upload(run)
-            with shard.use():
-                parts = split_entropy_upload(torch.from_numpy(buf).to(shard.device), T, B)
-                coeffs = kagari_decode_device(*parts, count, DECODE_BLOCK, span)
-                done.append((shard, [t for t, _, _ in items[lo:hi]],
-                             stream_pixels(coeffs, tw, th, channels, s)))
-    _place(done, image)
-
-    if host_streams:
-        host_grid = [t for t in grid if t.index in host_streams]
-        # reindex into a dense list for decode_tiles_sharded's contract
-        dense = [host_streams[t.index] for t in host_grid]
-        remapped = [
-            geometry.TilePlacement(i, t.x, t.y, t.w, t.h)
-            for i, t in enumerate(host_grid)
-        ]
-        decode_tiles_sharded(dense, remapped, image, s, channels, mesh, axis_name)
-
-    return image, s, channels
 
 
 def _place(done: list, image: np.ndarray) -> None:
     """Each shard's (T, th, tw, C) pixels into `image` at its tiles, once
-    its stream is done; its pad tiles' pixels are dropped."""
+    its stream is done; its pad tiles' pixels are dropped. One span
+    ako.shard.decode.place a shard's run."""
     for shard, tiles, pixels in done:
-        shard.synchronize()
-        pix = pixels.cpu().numpy()
-        for i, t in enumerate(tiles):
-            image[t.y : t.y + t.h, t.x : t.x + t.w, :] = pix[i]
+        with tracing.span("ako.shard.decode.place"):
+            shard.synchronize()
+            pix = pixels.cpu().numpy()
+            for i, t in enumerate(tiles):
+                image[t.y : t.y + t.h, t.x : t.x + t.w, :] = pix[i]
 
 
 def decode_tiles_sharded(
