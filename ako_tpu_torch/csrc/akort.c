@@ -2,9 +2,10 @@
 ako_tpu_torch native runtime: the port's own copy of ako_tpu's
 ako_tpu/runtime/native/akort.c (the same code, but for
 akort_kagari_sync, which jumps RLE runs and counts what it jumped; its
-records and failures are the same), so that the port builds and changes
-it without reading a file of the JAX package. runtime/build.py compiles
-it and binds the functions the port calls.
+records and failures are the same; and akort_kagari_sync_tiles, which
+scans an image's tiles in one call on native threads), so that the port
+builds and changes it without reading a file of the JAX package.
+runtime/build.py compiles it and binds the functions the port calls.
 
 Sequential host-side pieces of the codec.
 
@@ -26,15 +27,20 @@ The wavelet/color/quantization compute path lives on the device; this
 file is only the host bitstream tail (and its curve twin), plus a CPU
 golden path used by tests and as the port's oracle.
 
-Build: cc -O2 -fPIC -shared akort.c -lm -o _akort.so (see
+Build: cc -O2 -pthread -fPIC -shared akort.c -lm -o _akort.so (see
 runtime/build.py).
 */
 
 #include <math.h>
+#include <pthread.h>
+#include <stdatomic.h>
 #include <stddef.h>
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#include <sys/syscall.h>
+#include <time.h>
+#include <unistd.h>
 
 #define API __attribute__((visibility("default")))
 
@@ -556,12 +562,16 @@ Returns consumed input bytes (cursor position including readahead, the
 same value akort_kagari_decode returns) or 0 on broken input. Writes
 ceil(count/block) records, and on success *run_values: the output values
 that the scan passed over inside RLE runs.
+
+The one body of both entry points, akort_kagari_sync (one stream) and
+akort_kagari_sync_tiles (an image's tiles on native threads).
 */
-API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
-                             size_t output_size, size_t block,
-                             uint32_t *bit_off, int16_t *prev_arr,
-                             uint16_t *consec_arr, uint16_t *run_arr,
-                             uint32_t *max_code_bits, uint64_t *run_values)
+static size_t kagari_sync_scan(size_t count, const void *input,
+                               size_t input_size, size_t output_size,
+                               size_t block, uint32_t *bit_off,
+                               int16_t *prev_arr, uint16_t *consec_arr,
+                               uint16_t *run_arr, uint32_t *max_code_bits,
+                               uint64_t *run_values)
 {
 	BitSource src = {0, 0, (const uint8_t *)input,
 	                 (const uint8_t *)input + input_size};
@@ -661,6 +671,124 @@ API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
 	*max_code_bits = maxbits;
 	*run_values = jumped;
 	return (size_t)(src.pos - (const uint8_t *)input);
+}
+
+API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
+                             size_t output_size, size_t block,
+                             uint32_t *bit_off, int16_t *prev_arr,
+                             uint16_t *consec_arr, uint16_t *run_arr,
+                             uint32_t *max_code_bits, uint64_t *run_values)
+{
+	return kagari_sync_scan(count, input, input_size, output_size, block,
+	                        bit_off, prev_arr, consec_arr, run_arr,
+	                        max_code_bits, run_values);
+}
+
+/* The sync scans of n tiles whose payloads lie in one blob: tile i's
+   payload is blob[pay_off[i], pay_off[i] + pay_size[i]), its `counts[i]`
+   values have an output capacity of caps[i] bytes, and its records start
+   at rec_off[i] in the four shared record arrays. Per tile it writes
+   consumed[i] (0: broken input), max_bits[i] and jumped[i] (0 where
+   broken), as akort_kagari_sync returns and writes them; every tile is
+   scanned, broken ones too.
+
+   The tiles go to `threads` native threads, made for this call, each
+   taking the next unscanned tile from one atomic counter: a tile's cost
+   follows its codes, so a static cut would leave threads idle. With one
+   tile or one thread the calling thread scans and no thread is made. Given
+   t_start, the scan of tile i ran from t_start[i] to t_end[i] (ns on
+   CLOCK_REALTIME, time.time_ns()'s clock) on thread tid[i] (gettid()).
+
+   Returns the number of threads that scanned: fewer than asked where the
+   system refused a thread (the others scan its share). */
+typedef struct {
+	const uint8_t *blob;
+	const int64_t *pay_off, *pay_size, *counts, *caps, *rec_off;
+	size_t block;
+	int64_t n;
+	_Atomic int64_t next;
+	uint32_t *bit_off;
+	int16_t *prev;
+	uint16_t *consec, *run;
+	int64_t *consumed;
+	uint32_t *max_bits;
+	uint64_t *jumped;
+	int64_t *t_start, *t_end;
+	int32_t *tid;
+} SyncTiles;
+
+static int64_t now_ns(void)
+{
+	struct timespec ts;
+	clock_gettime(CLOCK_REALTIME, &ts);
+	return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
+}
+
+static void *sync_tiles_worker(void *arg)
+{
+	SyncTiles *job = (SyncTiles *)arg;
+	const int32_t tid = job->t_start ? (int32_t)syscall(SYS_gettid) : 0;
+	for (;;) {
+		const int64_t i = atomic_fetch_add_explicit(&job->next, 1,
+		                                            memory_order_relaxed);
+		if (i >= job->n)
+			return NULL;
+		if (job->t_start)
+			job->t_start[i] = now_ns();
+		const int64_t r = job->rec_off[i];
+		uint32_t maxbits = 0;
+		uint64_t jumped = 0;
+		const size_t consumed = kagari_sync_scan(
+		    (size_t)job->counts[i], job->blob + job->pay_off[i],
+		    (size_t)job->pay_size[i], (size_t)job->caps[i], job->block,
+		    job->bit_off + r, job->prev + r, job->consec + r,
+		    job->run + r, &maxbits, &jumped);
+		job->consumed[i] = (int64_t)consumed;
+		job->max_bits[i] = consumed ? maxbits : 0;
+		job->jumped[i] = consumed ? jumped : 0;
+		if (job->t_start) {
+			job->t_end[i] = now_ns();
+			job->tid[i] = tid;
+		}
+	}
+}
+
+API int32_t akort_kagari_sync_tiles(
+    const uint8_t *blob, int64_t n, const int64_t *pay_off,
+    const int64_t *pay_size, const int64_t *counts, const int64_t *caps,
+    const int64_t *rec_off, int64_t block, int32_t threads,
+    uint32_t *bit_off, int16_t *prev, uint16_t *consec, uint16_t *run,
+    int64_t *consumed, uint32_t *max_bits, uint64_t *jumped,
+    int64_t *t_start, int64_t *t_end, int32_t *tid)
+{
+	SyncTiles job = {blob, pay_off, pay_size, counts, caps, rec_off,
+	                 (size_t)block, n, 0, bit_off, prev, consec, run,
+	                 consumed, max_bits, jumped, t_start, t_end, tid};
+	if (threads > n)
+		threads = (int32_t)n;
+	pthread_t *pool = threads > 1
+	                      ? (pthread_t *)malloc(sizeof(pthread_t) * threads)
+	                      : NULL;
+	/* a scan needs little stack: at 256 KiB the C library keeps the
+	   stacks of a call's threads for the next call, where its default 8
+	   MiB stacks are mapped and unmapped anew past its cache's first few
+	   (32 threads over 260 one-value tiles: 5.6 ms with the default
+	   stacks, 2.3 ms with these, on the 32-core host of four H100s) */
+	pthread_attr_t attr;
+	pthread_attr_init(&attr);
+	pthread_attr_setstacksize(&attr, 256 << 10);
+	int32_t made = 0;
+	if (pool != NULL)
+		while (made < threads &&
+		       pthread_create(&pool[made], &attr, sync_tiles_worker, &job) == 0)
+			made++;
+	pthread_attr_destroy(&attr);
+	if (made == 0) /* one tile, one thread, or no thread to be had */
+		sync_tiles_worker(&job);
+	for (int32_t k = 0; k < made; k++)
+		pthread_join(pool[k], NULL);
+	free(pool);
+	return made ? made : 1;
 }
 
 /* ------------------------------------------------------------------ */

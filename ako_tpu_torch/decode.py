@@ -3,8 +3,9 @@
 Two paths, as in ako_tpu's decode (ako_tpu/decode.py:974-1043):
 
 - device entropy (the default on the card; ako_tpu/decode.py:732-929):
-  the host walks the tile blocks and scans each Kagari payload for
-  per-block sync records (akort_kagari_sync); per tile-shape group one
+  the host walks the tile blocks and scans the Kagari payloads for
+  per-block sync records, an image's tiles in one native call on native
+  threads (scan_blocks, akort_kagari_sync_tiles); per tile-shape group one
   upload carries the payloads as a dense word pool plus the records,
   and the block-parallel Kagari decode (ops/kagari_device.py, kernel
   K4), the dequantize, the unlift and the inverse colour transform run
@@ -66,6 +67,7 @@ from ako_tpu_torch.runtime.kagari import (
     decompress_block,
     kagari_decode,
     kagari_sync,
+    kagari_sync_tiles,
     manba_sync,
 )
 from ako_tpu_torch.utils import metrics, tracing
@@ -83,9 +85,10 @@ _pool: Optional[ThreadPoolExecutor] = None
 
 
 def scan_pool() -> ThreadPoolExecutor:
-    """Worker threads for the tiles' host sync scans: the native scanner
-    runs without the GIL (a ctypes call), so the scans of one image run
-    on all cores, as in ako_tpu/decode.py:779."""
+    """Worker threads for the tiles' host sync scans (scan_blocks): an
+    image's native Kagari call, or under MANBAVARAN settings a tile a
+    task; the native scanners run without the GIL (ctypes calls), as in
+    ako_tpu/decode.py:779."""
     global _pool
     with _pool_lock:
         if _pool is None:
@@ -275,68 +278,118 @@ def manba_spans(items) -> tuple:
     return rspan, espan
 
 
+def scan_blocks(view, cursor: int, grid, s: Settings, channels: int,
+                pool: Optional[ThreadPoolExecutor] = None) -> tuple:
+    """The device-entropy decode's host stage: walk the tile blocks, scan
+    each payload for its sync records, check that each scan consumed its
+    block, and split the tiles. Returns three dicts, each (tw, th) ->
+    [(tile, payload, sync record)] in tile order: the Kagari tiles for
+    K4, the Manbavaran tiles for K6d, and the quirk tiles (Kagari streams
+    with gamma codes over 31 bits, the zigzag(-32768) quirk), which
+    decode on the host. Counts the device tiles and the quirk tiles
+    (utils/metrics.py). Raises AkoError(BROKEN_INPUT) on a truncated or
+    broken block.
+
+    A Kagari image's scans run in one native call (runtime/kagari.py
+    kagari_sync_tiles), made from a thread of `pool` (scan_pool() when
+    None), on as many native threads as the caller's pool has workers
+    (the executor's), else os.cpu_count(), at most one a tile. Under
+    MANBAVARAN settings each block is tried as rANS first, then as Kagari
+    (reserved-flag blocks holding Kagari bytes fail the rANS magic
+    check), one tile a task on the pool, each in a span
+    ako.decode.scan_tile."""
+    # the block sizes live in the block heads: a sequential walk
+    blocks, sizes = [], {}
+    for t in grid:
+        payload, cursor = read_tile_block(view, cursor, t, s, channels)
+        blocks.append((t, payload, cursor - len(payload)))
+        if (t.w, t.h) not in sizes:
+            sizes[t.w, t.h] = tile_block_sizes(t, s, channels)
+
+    if s.compression == Compression.MANBAVARAN:
+        def scan(block):
+            t, payload, _ = block
+            tds, spacing = sizes[t.w, t.h]
+            with tracing.span("ako.decode.scan_tile"):
+                ms = manba_sync(tds // 2, payload, DECODE_BLOCK)
+                if ms is not None:
+                    return "manba", ms
+                return "kagari", kagari_sync(tds // 2, payload, tds + spacing, DECODE_BLOCK)
+
+        syncs = list((scan_pool() if pool is None else pool).map(scan, blocks))
+    else:
+        per_tile = [sizes[t.w, t.h] for t, _, _ in blocks]
+        runner = scan_pool() if pool is None else pool
+        # ThreadPoolExecutor keeps its width as _max_workers
+        width = pool._max_workers if pool is not None else os.cpu_count() or 1
+        # made from a pool thread, not the caller's: with the scan on the
+        # caller's thread the rest of a whole-tile decode ran slower (p50
+        # 25.6 against 23.1 ms on an H100's host), the scan itself not
+        found = runner.submit(
+            kagari_sync_tiles, view, [off for _, _, off in blocks],
+            [len(p) for _, p, _ in blocks], [tds // 2 for tds, _ in per_tile],
+            [tds + sp for tds, sp in per_tile], DECODE_BLOCK,
+            max(1, min(width, len(blocks)))).result()
+        syncs = [("kagari", sync) for sync in found]
+
+    kagari: dict = {}
+    manba: dict = {}
+    quirk: dict = {}
+    for (t, payload, _), (kind, sync) in zip(blocks, syncs):
+        # the consumed byte count must be the block's size
+        if sync is None or sync[7 if kind == "manba" else 4] != len(payload):
+            raise AkoError(Status.BROKEN_INPUT)
+        if kind == "manba":
+            group = manba
+        else:
+            group = quirk if sync[5] > 31 else kagari
+        group.setdefault((t.w, t.h), []).append((t, payload, sync))
+    metrics.bump(metrics.DEC_DEVICE, sum(map(len, kagari.values()))
+                 + sum(map(len, manba.values())))
+    quirks = sum(map(len, quirk.values()))
+    metrics.bump(metrics.DEC_HOST_FALLBACK, quirks)
+    if quirks:
+        dev_printf("dec: %d/%d quirk streams (gamma codes > 31 bits) decoded on host",
+                   quirks, len(grid))
+    return kagari, manba, quirk
+
+
+def quirk_streams(items, s: Settings, channels: int) -> list:
+    """The int16 streams of quirk tiles ((tile, payload, sync) items of
+    scan_blocks), entropy-decoded on the host."""
+    streams = []
+    for t, payload, _ in items:
+        tds, spacing = tile_block_sizes(t, s, channels)
+        res = kagari_decode(tds // 2, payload, tds + spacing)
+        if res is None:
+            raise AkoError(Status.BROKEN_INPUT)
+        streams.append(res[0])
+    return streams
+
+
 def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels: int,
                                   device: torch.device, events=None, events_user=None,
                                   pool: Optional[ThreadPoolExecutor] = None, host=None) -> list:
     """Device-entropy decode, phase 1: walk the blocks and scan them for
-    sync records on the host, then per shape group upload, decode, unlift
-    and format on the device, enqueued without waiting. Returns
-    (tiles, th, tw, pixels on the device) per group: the Kagari groups,
-    then the Manbavaran ones, then the quirk tiles'. The scans run on
-    `pool` (scan_pool() when None); given an executor slot `host`
+    sync records on the host (scan_blocks), then per shape group upload,
+    decode, unlift and format on the device, enqueued without waiting.
+    Returns (tiles, th, tw, pixels on the device) per group: the Kagari
+    groups, then the Manbavaran ones, then the quirk tiles'. `pool` sets
+    the scans' threads (scan_blocks); given an executor slot `host`
     (runtime/executor.py Slot), the uploads go through its pinned buffers
     on its stream.
 
     Events as in ako_tpu's fused path: one COMPRESSION pair (tile 0)
     around the walk and the scans, then one per group around its upload
     and dispatch. The walk and the scans are the span ako.decode.scan,
-    each tile's scan the span ako.decode.scan_tile on its pool thread
-    (utils/tracing.py)."""
+    each tile's scan the span ako.decode.scan_tile on the thread that ran
+    it (utils/tracing.py)."""
     total = len(grid)
     fire(events, 0, total, Event.COMPRESSION_START, events_user)
     with tracing.span("ako.decode.scan"):
-        # the block sizes live in the block heads: a sequential walk ...
-        blocks = []
-        for t in grid:
-            payload, cursor = read_tile_block(view, cursor, t, s, channels)
-            blocks.append((t, payload))
-
-        # ... then independent scans on the worker threads; a MANBAVARAN
-        # flagged block is tried as rANS first (reserved-flag blocks holding
-        # Kagari bytes fail its magic check and scan as Kagari)
-        def scan(block):
-            t, payload = block
-            tds, spacing = tile_block_sizes(t, s, channels)
-            with tracing.span("ako.decode.scan_tile"):
-                if s.compression == Compression.MANBAVARAN:
-                    ms = manba_sync(tds // 2, payload, DECODE_BLOCK)
-                    if ms is not None:
-                        return "manba", ms
-                return "kagari", kagari_sync(tds // 2, payload, tds + spacing, DECODE_BLOCK)
-
-        syncs = list((scan_pool() if pool is None else pool).map(scan, blocks))
+        per_shape, per_shape_manba, host_tiles = scan_blocks(view, cursor, grid, s, channels,
+                                                             pool)
     fire(events, 0, total, Event.COMPRESSION_END, events_user)
-
-    per_shape: dict = {}
-    per_shape_manba: dict = {}
-    host_tiles: dict = {}
-    for (t, payload), (kind, sync) in zip(blocks, syncs):
-        # the consumed byte count must be the block's size
-        if sync is None or sync[7 if kind == "manba" else 4] != len(payload):
-            raise AkoError(Status.BROKEN_INPUT)
-        if kind == "manba":
-            group = per_shape_manba
-        else:
-            # quirk streams (zigzag(-32768) codes over 31 bits) stay on the host
-            group = host_tiles if sync[5] > 31 else per_shape
-        group.setdefault((t.w, t.h), []).append((t, payload, sync))
-    metrics.bump(metrics.DEC_DEVICE, sum(map(len, per_shape.values()))
-                 + sum(map(len, per_shape_manba.values())))
-    quirks = sum(map(len, host_tiles.values()))
-    metrics.bump(metrics.DEC_HOST_FALLBACK, quirks)
-    if quirks:
-        dev_printf("dec: %d/%d quirk streams (gamma codes > 31 bits) decoded on host",
-                   quirks, total)
 
     dispatched = []
     for (tw, th), items in per_shape.items():
@@ -371,13 +424,7 @@ def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels
     for (tw, th), items in host_tiles.items():
         t0 = items[0][0].index
         fire(events, t0, total, Event.COMPRESSION_START, events_user)
-        streams = []
-        for t, payload, _ in items:
-            tds, spacing = tile_block_sizes(t, s, channels)
-            res = kagari_decode(tds // 2, payload, tds + spacing)
-            if res is None:
-                raise AkoError(Status.BROKEN_INPUT)
-            streams.append(res[0])
+        streams = quirk_streams(items, s, channels)
         coeffs = to_device(torch.from_numpy(np.stack(streams)), device, host, ("quirk", tw, th))
         pixels = stream_pixels(coeffs, tw, th, channels, s)
         fire(events, t0, total, Event.COMPRESSION_END, events_user)

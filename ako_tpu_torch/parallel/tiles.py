@@ -18,11 +18,12 @@ staging, a shape group), `ako.shard.encode.dispatch` (a shard's upload
 and launches, a shard and group) and `ako.shard.encode.collect` (a
 shard's wait and framing, a shard and group with real tiles); in the
 device-entropy decode `ako.shard.decode.scan` (the block walk and the
-sync scans), `ako.shard.decode.dispatch` (a shard's packing, upload and
-launches, a shard and group) and `ako.shard.decode.place` (a shard's
-wait, download and placement, a shard and group). The counters
-`shard_tiles` and `shard_pad_tiles` (utils/metrics.py) count the real
-and the pad tiles dispatched.
+sync scans: the one-device decode's `decode.scan_blocks`, one native
+call on `os.cpu_count()` threads), `ako.shard.decode.dispatch` (a
+shard's packing, upload and launches, a shard and group) and
+`ako.shard.decode.place` (a shard's wait, download and placement, a
+shard and group). The counters `shard_tiles` and `shard_pad_tiles`
+(utils/metrics.py) count the real and the pad tiles dispatched.
 
 Replaces the reference's sequential tile loop (library/encode.c:115,
 library/decode.c:128) with one run per shard and shape group.
@@ -40,11 +41,11 @@ from ako_tpu_torch.core.settings import AkoError, Compression, Settings, Status
 from ako_tpu_torch.decode import (
     _check_decode_budget,
     pack_entropy_upload,
-    read_tile_block,
+    quirk_streams,
     read_tile_stream,
+    scan_blocks,
     split_entropy_upload,
     stream_pixels,
-    tile_block_sizes,
 )
 from ako_tpu_torch.encode import (
     checked_settings,
@@ -63,13 +64,7 @@ from ako_tpu_torch.ops.kagari_device import (
     kagari_encode_device,
 )
 from ako_tpu_torch.parallel.mesh import Mesh
-from ako_tpu_torch.runtime.kagari import (
-    BLOCK_HEAD,
-    compress_block,
-    effective_method,
-    kagari_decode,
-    kagari_sync,
-)
+from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, compress_block, effective_method
 from ako_tpu_torch.utils import metrics, tracing
 
 
@@ -229,24 +224,12 @@ def decode_image_sharded(
             decode_tiles_sharded(streams, grid, image, s, channels, mesh, axis_name)
             return image, s, channels
 
-        per_shape: dict = {}
         host_streams: dict = {}
         with tracing.span("ako.shard.decode.scan"):
-            for t in grid:
-                payload, cursor = read_tile_block(view, cursor, t, s, channels)
-                tds, spacing = tile_block_sizes(t, s, channels)
-                sync = kagari_sync(tds // 2, payload, tds + spacing, DECODE_BLOCK)
-                if sync is None or sync[4] != len(payload):
-                    raise AkoError(Status.BROKEN_INPUT)
-                if sync[5] > 31:
-                    res = kagari_decode(tds // 2, payload, tds + spacing)
-                    if res is None:
-                        raise AkoError(Status.BROKEN_INPUT)
-                    host_streams[t.index] = res[0]
-                else:
-                    per_shape.setdefault((t.w, t.h), []).append((t, payload, sync))
-        metrics.bump(metrics.DEC_DEVICE, sum(map(len, per_shape.values())))
-        metrics.bump(metrics.DEC_HOST_FALLBACK, len(host_streams))
+            per_shape, _, quirks = scan_blocks(view, cursor, grid, s, channels)
+            for items in quirks.values():
+                for (t, _, _), values in zip(items, quirk_streams(items, s, channels)):
+                    host_streams[t.index] = values
 
         shards = mesh.shards(axis_name)
         done = []

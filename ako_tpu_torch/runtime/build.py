@@ -4,7 +4,7 @@ The C source is the port's own copy, `csrc/akort.c` (the same code as
 ako_tpu's `runtime/native/akort.c`; the port reads no file of the JAX
 package). The library goes into this package's `_build/` directory,
 cached by source mtime, and is bound with ctypes. No pip/apt
-dependencies: plain cc + libm.
+dependencies: plain cc + libm (and the C library's threads).
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ _SZ = ctypes.c_size_t
 
 #: (restype, argtypes) per bound symbol — the same signatures as
 #: ako_tpu/runtime/build.py binds, for the functions the port calls,
-#: but for akort_kagari_sync's last pointer (the values it jumped)
+#: but for akort_kagari_sync's last pointer (the values it jumped) and
+#: the port's own akort_kagari_sync_tiles
 _SIGNATURES = {
     "akort_quantization": (_I32, [_I32, _I32] + [ctypes.c_uint64] * 4),
     "akort_gate": (_I32, [_I32, _I32] + [ctypes.c_uint64] * 4),
@@ -38,6 +39,10 @@ _SIGNATURES = {
     "akort_manba_encode": (_SZ, [_P, _SZ, _P, _SZ]),
     "akort_manba_decode": (_SZ, [_SZ, _P, _SZ, _P, _SZ]),
     "akort_kagari_sync": (_SZ, [_SZ, _P, _SZ, _SZ, _SZ, _P, _P, _P, _P, _P, _P]),
+    # blob, n, pay_off, pay_size, counts, caps, rec_off, block, threads,
+    # bit_off, prev, consec, run, consumed, max_bits, jumped, t_start,
+    # t_end, tid
+    "akort_kagari_sync_tiles": (_I32, [_P, _I64, _P, _P, _P, _P, _P, _I64, _I32] + [_P] * 10),
     "akort_manba_sync": (_SZ, [_SZ, _P, _SZ, _SZ, _P, _P, _P, _P, _P, _P, _P]),
     "akort_u8_to_planes": (None, [_P, _I32, _I32, _I32, _I32, _I32, _P]),
     "akort_tile_lift": (_I32, [_P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _SZ]),
@@ -73,7 +78,7 @@ def _compile() -> None:
     # race to build; os.replace keeps the install atomic either way
     tmp = f"{_LIB}.{os.getpid()}.tmp"
     opt = ["-O3", "-march=native"]
-    base = ["-fPIC", "-shared", "-fvisibility=hidden", SRC, "-lm", "-o", tmp]
+    base = ["-pthread", "-fPIC", "-shared", "-fvisibility=hidden", SRC, "-lm", "-o", tmp]
     try:
         subprocess.run([cc, *opt, *base], check=True, capture_output=True)
     except subprocess.CalledProcessError:

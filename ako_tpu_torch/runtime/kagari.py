@@ -24,7 +24,7 @@ import numpy as np
 
 from ako_tpu_torch.core.settings import Compression
 from ako_tpu_torch.runtime.build import load
-from ako_tpu_torch.utils import metrics
+from ako_tpu_torch.utils import metrics, tracing
 
 BLOCK_HEAD = struct.Struct("<I")
 
@@ -191,6 +191,74 @@ def kagari_sync(
     metrics.bump(metrics.DEC_SCAN_VALUES, count)
     metrics.bump(metrics.DEC_SCAN_RUN_VALUES, int(jumped[0]))
     return bit_off, prev, consec, run, consumed, int(max_bits[0])
+
+
+def kagari_sync_tiles(
+    blob: bytes | memoryview,
+    offsets,
+    sizes,
+    counts,
+    caps,
+    block: int,
+    threads: int,
+) -> list:
+    """kagari_sync of n tiles whose payloads lie in one blob, in one
+    native call (akort_kagari_sync_tiles) that releases the GIL once and
+    spreads the tiles over `threads` native threads: tile i's payload is
+    blob[offsets[i] : offsets[i] + sizes[i]], with counts[i] values and
+    an output capacity of caps[i] bytes. Returns per tile kagari_sync's
+    6-tuple, its record arrays views into four arrays shared by the
+    tiles, or None on broken input; every tile is scanned.
+
+    It adds the successful tiles' counts and jumped values to
+    `dec_scan_values` and `dec_scan_run_values`, 1 to `dec_scan_batches`
+    and n to `dec_scan_batch_tiles` (utils/metrics.py). While a profiler
+    records, each tile's scan is logged as the span ako.decode.scan_tile
+    on the native thread that ran it (utils/tracing.py)."""
+    src = np.frombuffer(blob, dtype=np.uint8)
+    offsets, sizes, counts, caps = (np.ascontiguousarray(a, dtype=np.int64)
+                                    for a in (offsets, sizes, counts, caps))
+    n = len(counts)
+    if not len(offsets) == len(sizes) == len(caps) == n:
+        raise ValueError("offsets, sizes, counts and caps differ in length")
+    if block <= 0:
+        raise ValueError("block must be positive")
+    if (counts < 0).any() or (caps < 0).any():
+        raise ValueError("a count or capacity is negative")
+    if n and ((offsets < 0).any() or (sizes < 0).any() or (offsets + sizes > src.size).any()):
+        raise ValueError("a payload lies outside the blob")
+    rec_off = np.zeros(n + 1, np.int64)
+    np.cumsum((counts + block - 1) // block, out=rec_off[1:])
+    bit_off = np.zeros(rec_off[-1], dtype=np.uint32)
+    prev = np.zeros(rec_off[-1], dtype=np.int16)
+    consec = np.zeros(rec_off[-1], dtype=np.uint16)
+    run = np.zeros(rec_off[-1], dtype=np.uint16)
+    consumed = np.zeros(n, dtype=np.int64)
+    max_bits = np.zeros(n, dtype=np.uint32)
+    jumped = np.zeros(n, dtype=np.uint64)
+    # the scans' start and end ns and thread ids, while a profiler records
+    timed = tracing.recording()
+    stamps = [np.zeros(n, t) for t in (np.int64, np.int64, np.int32)] if timed else []
+    load().akort_kagari_sync_tiles(
+        src.ctypes.data if src.size else None, n, offsets.ctypes.data, sizes.ctypes.data,
+        counts.ctypes.data, caps.ctypes.data, rec_off.ctypes.data, block, threads,
+        bit_off.ctypes.data, prev.ctypes.data, consec.ctypes.data, run.ctypes.data,
+        consumed.ctypes.data, max_bits.ctypes.data, jumped.ctypes.data,
+        *([a.ctypes.data for a in stamps] or [None] * 3),
+    )
+    ok = consumed != 0
+    metrics.bump(metrics.DEC_SCAN_VALUES, int(counts[ok].sum()))
+    metrics.bump(metrics.DEC_SCAN_RUN_VALUES, int(jumped[ok].sum()))
+    metrics.bump(metrics.DEC_SCAN_BATCHES)
+    metrics.bump(metrics.DEC_SCAN_BATCH_TILES, n)
+    if timed:
+        t0, t1, tid = (a.tolist() for a in stamps)
+        tracing.log_spans("ako.decode.scan_tile", tid, t0, t1)
+    return [
+        (bit_off[a:b], prev[a:b], consec[a:b], run[a:b], c, m) if c else None
+        for a, b, c, m in zip(rec_off[:-1].tolist(), rec_off[1:].tolist(),
+                              consumed.tolist(), max_bits.tolist())
+    ]
 
 
 def manba_sync(count: int, blob: bytes | memoryview, block: int) -> tuple | None:

@@ -1,9 +1,10 @@
 """Process-global observability counters for silent-path events.
 
 The same counters and names as ako_tpu/utils/metrics.py (copied: the
-port imports nothing of ako_tpu), and four of the port's own: the values
-the Kagari sync scan read and those it jumped inside RLE runs, and the
-real and pad tiles the tile-sharded codec dispatched to its shards. The
+port imports nothing of ako_tpu), and six of the port's own: the values
+the Kagari sync scan read and those it jumped inside RLE runs, the
+batched scan calls and their tiles, and the real and pad tiles the
+tile-sharded codec dispatched to its shards. The
 device-entropy encoder falls back to the exact host coder for tiles
 near capacity (encode.pack_budget), and the device-entropy decoder
 falls back to the host for quirk streams whose gamma codes exceed the
@@ -35,6 +36,11 @@ DEC_HOST_FALLBACK = "dec_sync_host_fallback_tiles"
 DEC_SCAN_VALUES = "dec_scan_values"
 #: of those, the values inside RLE runs, which the scan jumped
 DEC_SCAN_RUN_VALUES = "dec_scan_run_values"
+#: native calls that scanned an image's Kagari tiles on native threads
+#: (runtime/kagari.py:kagari_sync_tiles)
+DEC_SCAN_BATCHES = "dec_scan_batches"
+#: the tiles those calls scanned
+DEC_SCAN_BATCH_TILES = "dec_scan_batch_tiles"
 #: real tiles the tile-sharded codec dispatched to shards
 #: (parallel/tiles.py), each call
 SHARD_TILES = "shard_tiles"

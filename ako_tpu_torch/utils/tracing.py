@@ -19,6 +19,8 @@ log that `recorded_spans()` reads: a profiler started
 without `profile_all_threads` records no range opened on another thread
 (the scan pool, the executor's IO threads, the stream's encoder). With
 no profiler it is one shared null context, and no range is built.
+Native code that times its own threads' work logs it with `log_spans`:
+log entries only, no profiler range.
 """
 
 from __future__ import annotations
@@ -83,6 +85,19 @@ def span(name: str):
     if not _profiler._is_profiler_enabled:
         return _NULL
     return _Span(name)
+
+
+def recording() -> bool:
+    """Whether a profiler records, so that spans are built and logged."""
+    return _profiler._is_profiler_enabled
+
+
+def log_spans(name: str, tids, starts, ends) -> None:
+    """Log spans that native code timed on its own threads, one a
+    (native thread id, start ns, end ns) on time.time_ns()'s clock, as
+    `span` logs its own. For callers that saw `recording()`."""
+    with _log_lock:
+        _log.extend(zip(itertools.repeat(name), tids, starts, ends))
 
 
 def recorded_spans(since_ns: int = 0) -> list:

@@ -1856,7 +1856,7 @@ def executor(card: str, dev=None) -> None:
     from ako_tpu_torch.core import container, geometry
     from ako_tpu_torch.ops.kagari_device import DECODE_BLOCK
     from ako_tpu_torch.runtime import executor as ex
-    from ako_tpu_torch.runtime.kagari import kagari_sync
+    from ako_tpu_torch.runtime.kagari import kagari_sync, kagari_sync_tiles
     from ako_tpu_torch.utils.corpus import corpus
 
     dec_mod = importlib.import_module("ako_tpu_torch.decode")
@@ -1879,10 +1879,11 @@ def executor(card: str, dev=None) -> None:
             times.append((time.perf_counter() - t) * 1e3)
         return statistics.median(times)
 
-    blocks, cursor = [], container.HEAD_SIZE
+    blocks, offs, cursor = [], [], container.HEAD_SIZE
     for t in grid:
         payload, cursor = dec_mod.read_tile_block(view, cursor, t, s, ch)
         blocks.append((t, payload))
+        offs.append(cursor - len(payload))
 
     def scan(b):
         t, payload = b
@@ -1894,7 +1895,13 @@ def executor(card: str, dev=None) -> None:
     for n in sorted({1, 2, 4, cpus}):
         with ThreadPoolExecutor(n) as pool:
             line[f"pool {n}"] = med(lambda: list(pool.map(scan, blocks)))
-    print(f"executor probe: one image's 80 sync scans, ms: "
+    sizes = [dec_mod.tile_block_sizes(t, s, ch) for t, _ in blocks]
+    for n in sorted({1, 2, 4, cpus}):
+        line[f"native {n}"] = med(lambda: kagari_sync_tiles(
+            view, offs, [len(p) for _, p in blocks], [b // 2 for b, _ in sizes],
+            [b + sp for b, sp in sizes], DECODE_BLOCK, n))
+    print(f"executor probe: one image's 80 sync scans (pool: a call a tile; native: "
+          f"one call on n native threads), ms: "
           f"{ {k: round(v, 3) for k, v in line.items()} } (os.cpu_count() {cpus}) [{card}]",
           flush=True)
     items = [(t, p, sy) for (t, p), sy in zip(blocks, [scan(b) for b in blocks])]
@@ -1950,7 +1957,7 @@ def executor(card: str, dev=None) -> None:
         return mod, name, fn
 
     patches = [
-        timed(dec_mod, "kagari_sync"), timed(dec_mod, "pack_entropy_upload"),
+        timed(dec_mod, "kagari_sync_tiles"), timed(dec_mod, "pack_entropy_upload"),
         timed(dec_mod, "kagari_decode_device"), timed(dec_mod, "stream_pixels"),
         timed(ex, "dispatch_tiles_device_entropy"),
         timed(ex, "dispatch_tiles_fused"), timed(ex, "collect_tiles_blocks"),

@@ -113,13 +113,12 @@ def test_decode_quirk_tiles_on_the_host(monkeypatch):
     host, are counted, and stay exact (the flag is forced, as in
     tests/test_metrics.py)."""
     port_decode = importlib.import_module("ako_tpu_torch.decode")
-    orig = port_decode.kagari_sync
+    orig = port_decode.kagari_sync_tiles
 
     def flagged(*a, **k):
-        r = orig(*a, **k)
-        return None if r is None else (*r[:5], 33)
+        return [None if r is None else (*r[:5], 33) for r in orig(*a, **k)]
 
-    monkeypatch.setattr(port_decode, "kagari_sync", flagged)
+    monkeypatch.setattr(port_decode, "kagari_sync_tiles", flagged)
     _, blob, pix, _ = _reference("lossy_t32_const_alpha")
     metrics.reset()
     got = ako_tpu_torch.decode(blob, device="cpu", device_entropy=True)[0]

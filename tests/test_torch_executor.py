@@ -166,13 +166,12 @@ def test_decoder_quirk_tiles_on_the_host(monkeypatch):
     """Tiles whose sync scan reports codes over 31 bits decode on the host
     and go up through the slot's buffer; the pixels stay exact."""
     port_decode = importlib.import_module("ako_tpu_torch.decode")
-    orig = port_decode.kagari_sync
+    orig = port_decode.kagari_sync_tiles
 
     def flagged(*a, **k):
-        r = orig(*a, **k)
-        return None if r is None else (*r[:5], 33)
+        return [None if r is None else (*r[:5], 33) for r in orig(*a, **k)]
 
-    monkeypatch.setattr(port_decode, "kagari_sync", flagged)
+    monkeypatch.setattr(port_decode, "kagari_sync_tiles", flagged)
     _, blobs, pixels = _reference("rgb_t16")
     metrics.reset()
     got = list(PipelineDecoder(workers=2, device="cpu").decode_iter(blobs, device_entropy=True))

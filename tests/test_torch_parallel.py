@@ -32,6 +32,7 @@ from ako_tpu_torch.parallel import tiles as ptiles
 from ako_tpu_torch.utils import metrics
 
 port_encode = importlib.import_module("ako_tpu_torch.encode")
+port_decode = importlib.import_module("ako_tpu_torch.decode")
 
 CPU = torch.device("cpu")
 WAVELETS = [Wavelet.DD137, Wavelet.CDF53, Wavelet.HAAR]
@@ -646,17 +647,16 @@ def test_decode_quirk_tiles_ride_the_sharded_unlift(monkeypatch):
     blob = ako_tpu.encode(img, ako_tpu.Settings(quantization=16, tiles_dimension=32),
                           device_entropy=False)
     ref, _, _ = ako_tpu.decode(blob, device_entropy=False)
-    real_sync = ptiles.kagari_sync
+    real_sync = port_decode.kagari_sync_tiles
     hits = [0]
 
     def oversized_first(*a, **k):
         res = real_sync(*a, **k)
-        if res is not None and hits[0] == 0:
-            hits[0] += 1
-            return res[:5] + (32,)
-        return res
+        hits[0] += 1
+        return [res[0][:5] + (32,)] + res[1:]
 
-    monkeypatch.setattr(ptiles, "kagari_sync", oversized_first)
+    # the batched scan of decode.scan_blocks, which the sharded route calls
+    monkeypatch.setattr(port_decode, "kagari_sync_tiles", oversized_first)
     metrics.reset()
     got, _, _ = ptiles.decode_image_sharded(blob, _mesh(8, "tiles"), device_entropy=True)
     assert hits[0] == 1
@@ -672,7 +672,7 @@ def test_device_entropy_default_follows_the_mesh(monkeypatch):
     img = rng.integers(0, 256, size=(32, 32, 3), dtype=np.uint8)
     blob = ako_tpu_torch.encode(img, Settings(quantization=16, tiles_dimension=16), device="cpu")
     calls = []
-    monkeypatch.setattr(ptiles, "kagari_sync", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(port_decode, "kagari_sync_tiles", lambda *a, **k: calls.append(a))
     got, _, _ = ptiles.decode_image_sharded(blob, _mesh(2, "tiles"))
     assert not calls
     np.testing.assert_array_equal(got, ako_tpu_torch.decode(blob, device="cpu")[0])

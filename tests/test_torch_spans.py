@@ -4,11 +4,14 @@ the span log (`recorded_spans`) under a profiler that records every
 thread, and the same names in the profiler's own events; that with no
 profiler `span` is the one shared null context and builds no profiler
 range (record_function or its function-scope kind) on any path; and
-that an AKO_TPU_TRACE_DIR trace holds the scan pool's spans. Images
-from numpy seeds (utils/corpus.py)."""
+that an AKO_TPU_TRACE_DIR trace holds the scan pool's spans; and the
+tile scans that native threads log. Images from numpy seeds
+(utils/corpus.py)."""
 
 import collections
+import dataclasses
 import json
+import os
 import threading
 import time
 
@@ -19,8 +22,10 @@ from torch._C._profiler import _ExperimentalConfig
 from torch.profiler import ProfilerActivity, profile
 
 import ako_tpu_torch
-from ako_tpu_torch import Settings
+from ako_tpu_torch import Compression, Settings
 from ako_tpu_torch.core import geometry
+from ako_tpu_torch.parallel import make_mesh
+from ako_tpu_torch.parallel import tiles as ptiles
 from ako_tpu_torch.runtime.executor import roundtrip_iter
 from ako_tpu_torch.tools import rate
 from ako_tpu_torch.utils import tracing
@@ -28,6 +33,7 @@ from ako_tpu_torch.utils.corpus import corpus
 
 # 40x32 at 16-px tiles: 6 tiles in two shape groups
 S16 = Settings(quantization=16, tiles_dimension=16)
+S16_MANBA = dataclasses.replace(S16, compression=Compression.MANBAVARAN)
 
 
 def _rgba(seed=61, n=1):
@@ -85,8 +91,10 @@ def test_encode_source_span():
 
 
 def test_decode_scan_spans_on_the_pool():
+    """Under MANBAVARAN settings the scans run a tile a task on the scan
+    pool (reserved-flag Kagari bytes here, tried as rANS first)."""
     img = _rgba()[0]
-    blob = _encode(img)
+    blob = ako_tpu_torch.encode(img, S16_MANBA, device="cpu", device_entropy=True)
     with Recorded() as rec:
         assert (_decode(blob) == img).any()
     n_tiles = len(geometry.tile_grid(40, 32, 16))
@@ -98,6 +106,34 @@ def test_decode_scan_spans_on_the_pool():
         assert a <= ta <= tb <= b
         assert tid != main and names[tid].startswith("ako-sync")
     assert rec.counts() == {"ako.decode.scan": 1, "ako.decode.scan_tile": n_tiles}
+
+
+@pytest.mark.parametrize("route", ["decode", "sharded"])
+def test_native_scan_tile_spans(monkeypatch, route):
+    """A Kagari image's scans run in one native call: one
+    ako.decode.scan_tile a tile, logged from the C side's clocks, inside
+    the decode's scan span, on native threads that are neither the
+    caller's nor a Python thread, at most os.cpu_count() of them."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 4)
+    img = _rgba()[0]
+    blob = _encode(img)
+    scan = "ako.decode.scan" if route == "decode" else "ako.shard.decode.scan"
+    with Recorded() as rec:
+        if route == "decode":
+            got = _decode(blob)
+        else:
+            mesh = make_mesh((2,), ("tiles",), devices=[torch.device("cpu")] * 2)
+            got = ptiles.decode_image_sharded(blob, mesh, device_entropy=True)[0]
+    assert (got == ako_tpu_torch.decode(blob, device="cpu")[0]).all()
+    (_, main, a, b), = rec.named(scan)
+    tiles = rec.named("ako.decode.scan_tile")
+    assert len(tiles) == len(geometry.tile_grid(40, 32, 16)) == 6
+    python_threads = {t.native_id for t in threading.enumerate()}
+    assert main == threading.get_native_id()
+    for _, tid, ta, tb in tiles:
+        assert a <= ta <= tb <= b
+        assert tid not in python_threads
+    assert 1 <= len({tid for _, tid, _, _ in tiles}) <= 4
 
 
 def test_roundtrip_spans():
@@ -153,7 +189,9 @@ def test_rate_search_spans(monkeypatch):
 
 @pytest.mark.parametrize("call", ["encode", "decode", "roundtrip"])
 def test_profiler_events_carry_the_logged_spans(call):
-    """The profiler's own ranges, on every thread, match the log."""
+    """The profiler's own ranges, on every thread, match the log, but for
+    the tile scans that the native scan logs, which no range carries (6
+    tiles an image)."""
     img = _rgba()[0]
     blob = _encode(img)
     with Recorded() as rec:
@@ -163,7 +201,10 @@ def test_profiler_events_carry_the_logged_spans(call):
             _decode(blob)
         else:
             list(roundtrip_iter(_rgba(63, 2), S16, device="cpu", device_entropy=True))
-    assert rec.events == rec.counts() and rec.events
+    native = collections.Counter({"ako.decode.scan_tile": {"encode": 0, "decode": 6,
+                                                           "roundtrip": 12}[call]})
+    assert rec.counts()["ako.decode.scan_tile"] == native["ako.decode.scan_tile"]
+    assert rec.events == rec.counts() - native and rec.events
 
 
 def _no_record_function(monkeypatch):
@@ -207,8 +248,9 @@ def test_no_record_function_on_any_path_without_a_profiler(monkeypatch, path):
 
 def test_trace_dir_holds_the_scan_pool_spans(monkeypatch, tmp_path):
     """AKO_TPU_TRACE_DIR's trace of a decode records every thread: the
-    scans' spans on the pool's threads beside the decode's own."""
-    blob = _encode(_rgba()[0])
+    scans' spans on the pool's threads beside the decode's own (the
+    pool's: MANBAVARAN settings)."""
+    blob = ako_tpu_torch.encode(_rgba()[0], S16_MANBA, device="cpu", device_entropy=True)
     monkeypatch.setenv("AKO_TPU_TRACE_DIR", str(tmp_path))
     _decode(blob)
     (path,) = tmp_path.glob("decode-*.json")
