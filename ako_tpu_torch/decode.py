@@ -45,13 +45,7 @@ import torch
 from ako_tpu_torch.core import container, geometry
 from ako_tpu_torch.core.events import Event, EventsCallback, fire
 from ako_tpu_torch.core.settings import AkoError, Compression, Settings, Status, Wavelet
-from ako_tpu_torch.encode import (
-    resolve_device,
-    tile_events_mode,
-    tile_stream_bytes,
-    to_device,
-    wait_device,
-)
+from ako_tpu_torch.encode import pad_rows, resolve_device, tile_events_mode, tile_stream_bytes
 from ako_tpu_torch.ops.colorspace import to_interleaved_u8
 from ako_tpu_torch.ops.kagari_device import (
     DECODE_BLOCK,
@@ -61,6 +55,7 @@ from ako_tpu_torch.ops.kagari_device import (
 )
 from ako_tpu_torch.ops.lifting import inverse_tiles
 from ako_tpu_torch.ops.manba_device import SYMS, manba_decode_device, span_words
+from ako_tpu_torch.parallel.mesh import Caller
 from ako_tpu_torch.runtime import hostcodec
 from ako_tpu_torch.runtime.kagari import (
     BLOCK_HEAD,
@@ -198,21 +193,27 @@ def stream_pixels(coeffs, tw: int, th: int, channels: int, s: Settings):
     return inverse_tiles(coeffs, schedule, s.wavelet, s.wrap, channels, s.color)
 
 
-def decode_tiles_device(streams, tw: int, th: int, channels: int, s: Settings,
-                        device: torch.device) -> np.ndarray:
-    """(T, coeff_count) int16 streams -> (T, th, tw, channels) u8 tiles:
-    one upload, the unlift and inverse colour on `device`, one download."""
-    coeffs = torch.from_numpy(streams).to(device)
-    return stream_pixels(coeffs, tw, th, channels, s).cpu().numpy()
+def upload_streams(lane, batch: np.ndarray, key, run=None):
+    """A shape group's (T, coeff_count) int16 streams on the host, or the
+    run [lo, hi) of them, on the lane's device: one upload, zero streams
+    past the group's end."""
+    lo, hi = run or (0, len(batch))
+    return pad_rows(lane.upload(key, torch.from_numpy(batch[lo:hi])), hi - lo)
 
 
-def pack_entropy_upload(items) -> tuple:
-    """One shape group's device-decode input as one int32 buffer:
-    [base (T) | bit_off (T*B) | prev (T*B) | consec (T*B) | run (T*B) |
-    word pool]. The pool holds the payloads word-aligned, tile i from
-    word base[i], as big-endian 32-bit words (bit patterns), then
-    DECODE_SLACK_WORDS zero words. items: (tile, payload, sync record)
-    triples. Returns (buf, T, B)."""
+def place(image: np.ndarray, tiles, pixels: np.ndarray) -> None:
+    """A group's (or a run's) downloaded (T, th, tw, channels) pixels into
+    `image` at its tiles; pixels past the tiles (pads) are dropped."""
+    for t, pix in zip(tiles, pixels):
+        image[t.y : t.y + t.h, t.x : t.x + t.w] = pix
+
+
+def _with_pool(head: list, items) -> np.ndarray:
+    """[base (T) | head's arrays | word pool] as one int32 buffer, the
+    head's values as uint32 bit patterns. The pool holds the payloads of
+    the (tile, payload, sync record) items word-aligned, tile i from word
+    base[i], as big-endian 32-bit words (bit patterns), then
+    DECODE_SLACK_WORDS zero words."""
     bases, w = [], 0
     for _, p, _ in items:
         bases.append(w)
@@ -220,11 +221,18 @@ def pack_entropy_upload(items) -> tuple:
     pool8 = np.zeros((w + DECODE_SLACK_WORDS) * 4, np.uint8)
     for (_, p, _), b in zip(items, bases):
         pool8[b * 4 : b * 4 + len(p)] = np.frombuffer(p, np.uint8)
-    T, B = len(items), len(items[0][2][0])
-    sync = [np.stack([sy[k] for _, _, sy in items]).astype(np.int64) for k in range(4)]
-    head = np.concatenate([np.asarray(bases, np.int64)] + [a.ravel() for a in sync])
+    head = np.concatenate([np.asarray(a, np.int64).ravel() for a in [bases] + head])
     pool = pool8.view(">u4").astype(np.uint32).view(np.int32)
-    return np.concatenate([head.astype(np.uint32).view(np.int32), pool]), T, B
+    return np.concatenate([head.astype(np.uint32).view(np.int32), pool])
+
+
+def pack_entropy_upload(items) -> tuple:
+    """One shape group's device-decode input as one int32 buffer:
+    [base (T) | bit_off (T*B) | prev (T*B) | consec (T*B) | run (T*B) |
+    word pool] (_with_pool). items: (tile, payload, sync record)
+    triples. Returns (buf, T, B)."""
+    T, B = len(items), len(items[0][2][0])
+    return _with_pool([np.stack([sy[k] for _, _, sy in items]) for k in range(4)], items), T, B
 
 
 def split_entropy_upload(buf, T: int, B: int):
@@ -240,22 +248,13 @@ def pack_manba_upload(items) -> tuple:
     """One shape group's Manbavaran decode input as one int32 buffer
     (ako_tpu/decode.py:502-563): [base (T) | rans_end (T) | extras_off
     (T) | x (T*B) | rbyte (T*B) | ebit (T*B) | freq (T*17) | word pool],
-    the pool as pack_entropy_upload's. items: (tile, payload, manba_sync
-    record) triples. Returns (buf, T, B)."""
-    bases, w = [], 0
-    for _, p, _ in items:
-        bases.append(w)
-        w += (len(p) + 3) // 4
-    pool8 = np.zeros((w + DECODE_SLACK_WORDS) * 4, np.uint8)
-    for (_, p, _), b in zip(items, bases):
-        pool8[b * 4 : b * 4 + len(p)] = np.frombuffer(p, np.uint8)
+    the pool as pack_entropy_upload's (_with_pool). items: (tile,
+    payload, manba_sync record) triples. Returns (buf, T, B)."""
     syncs = [sy for _, _, sy in items]
     T, B = len(items), len(syncs[0][0])
-    head = [np.asarray(bases, np.int64), [sy[5] for sy in syncs], [sy[6] for sy in syncs]]
-    head += [np.stack([sy[k] for sy in syncs]).ravel() for k in range(4)]
-    head = np.concatenate([np.asarray(a, np.int64) for a in head])
-    pool = pool8.view(">u4").astype(np.uint32).view(np.int32)
-    return np.concatenate([head.astype(np.uint32).view(np.int32), pool]), T, B
+    head = [[sy[5] for sy in syncs], [sy[6] for sy in syncs]]
+    head += [np.stack([sy[k] for sy in syncs]) for k in range(4)]
+    return _with_pool(head, items), T, B
 
 
 def split_manba_upload(buf, T: int, B: int):
@@ -276,6 +275,48 @@ def manba_spans(items) -> tuple:
     espan = max(span_words(sy[2].astype(np.int64) + sy[6] * 8, len(p) * 8, bits=True)
                 for _, p, sy in items)
     return rspan, espan
+
+
+def entropy_streams(lane, items, channels: int, s: Settings, manba: bool = False, run=None):
+    """A shape group's entropy-coded tiles ((tile, payload, sync record)
+    items of scan_blocks), or the run [lo, hi) of them, decoded on the
+    lane's device into their (hi - lo, coeff_count) int16 streams,
+    enqueued: the payloads and records packed into one buffer, one upload,
+    then K4 (Kagari) or K6d (`manba`). Items past the group's end repeat
+    its last tile: a valid decode whose output is dropped (zero rows would
+    make the decoder chase garbage offsets)."""
+    lo, hi = run or (0, len(items))
+    items = (items + [items[-1]] * (hi - len(items)))[lo:hi]
+    t = items[0][0]
+    key = ("manba" if manba else "kagari", t.w, t.h)
+    count = tile_block_sizes(t, s, channels)[0] // 2
+    # K4 and K6d read the pool; only the plain decoders need windows
+    plain = lane.device.type == "cpu"
+    if manba:
+        buf, T, B = pack_manba_upload(items)
+        parts = split_manba_upload(lane.upload(key, torch.from_numpy(buf)), T, B)
+        spans = manba_spans(items) if plain else (None, None)
+        return manba_decode_device(*parts, count, DECODE_BLOCK, *spans)
+    span = max(decode_span_words(sy[0], len(p) * 8) for _, p, sy in items) if plain else None
+    buf, T, B = pack_entropy_upload(items)
+    parts = split_entropy_upload(lane.upload(key, torch.from_numpy(buf)), T, B)
+    return kagari_decode_device(*parts, count, DECODE_BLOCK, span)
+
+
+def dispatch_entropy(lane, items, channels: int, s: Settings, manba: bool = False, run=None):
+    """entropy_streams, then the dequantize, unlift and inverse colour
+    (stream_pixels): the group's (or the run's) u8 pixels on the lane's
+    device, enqueued."""
+    t = items[0][0]
+    return stream_pixels(entropy_streams(lane, items, channels, s, manba, run), t.w, t.h,
+                         channels, s)
+
+
+def dispatch_streams(lane, batch: np.ndarray, tw: int, th: int, channels: int, s: Settings, key,
+                     run=None):
+    """upload_streams, then stream_pixels: the group's (or the run's) u8
+    pixels on the lane's device, enqueued."""
+    return stream_pixels(upload_streams(lane, batch, key, run), tw, th, channels, s)
 
 
 def scan_blocks(view, cursor: int, grid, s: Settings, channels: int,
@@ -367,17 +408,15 @@ def quirk_streams(items, s: Settings, channels: int) -> list:
     return streams
 
 
-def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels: int,
-                                  device: torch.device, events=None, events_user=None,
-                                  pool: Optional[ThreadPoolExecutor] = None, host=None) -> list:
-    """Device-entropy decode, phase 1: walk the blocks and scan them for
-    sync records on the host (scan_blocks), then per shape group upload,
-    decode, unlift and format on the device, enqueued without waiting.
-    Returns (tiles, th, tw, pixels on the device) per group: the Kagari
-    groups, then the Manbavaran ones, then the quirk tiles'. `pool` sets
-    the scans' threads (scan_blocks); given an executor slot `host`
-    (runtime/executor.py Slot), the uploads go through its pinned buffers
-    on its stream.
+def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels: int, lane,
+                                  events=None, events_user=None,
+                                  pool: Optional[ThreadPoolExecutor] = None) -> list:
+    """Device-entropy decode, phase 1, on a lane (parallel/mesh.py Shard):
+    walk the blocks and scan them for sync records on the host
+    (scan_blocks), then per shape group upload, decode, unlift and format
+    on the device, enqueued without waiting. Returns (tiles, pixels on the
+    device) per group: the Kagari groups, then the Manbavaran ones, then
+    the quirk tiles'. `pool` sets the scans' threads (scan_blocks).
 
     Events as in ako_tpu's fused path: one COMPRESSION pair (tile 0)
     around the walk and the scans, then one per group around its upload
@@ -387,48 +426,21 @@ def dispatch_tiles_device_entropy(view, cursor: int, grid, s: Settings, channels
     total = len(grid)
     fire(events, 0, total, Event.COMPRESSION_START, events_user)
     with tracing.span("ako.decode.scan"):
-        per_shape, per_shape_manba, host_tiles = scan_blocks(view, cursor, grid, s, channels,
-                                                             pool)
+        kagari, manba, quirk = scan_blocks(view, cursor, grid, s, channels, pool)
     fire(events, 0, total, Event.COMPRESSION_END, events_user)
 
     dispatched = []
-    for (tw, th), items in per_shape.items():
-        t0 = items[0][0].index
-        fire(events, t0, total, Event.COMPRESSION_START, events_user)
-        count = tile_block_sizes(items[0][0], s, channels)[0] // 2
-        span = None  # K4 reads the pool; only the plain decoder needs a window
-        if device.type == "cpu":
-            span = max(decode_span_words(sy[0], len(p) * 8) for _, p, sy in items)
-        buf, T, B = pack_entropy_upload(items)
-        parts = split_entropy_upload(
-            to_device(torch.from_numpy(buf), device, host, ("kagari", tw, th)), T, B)
-        coeffs = kagari_decode_device(*parts, count, DECODE_BLOCK, span)
-        pixels = stream_pixels(coeffs, tw, th, channels, s)
-        fire(events, t0, total, Event.COMPRESSION_END, events_user)
-        dispatched.append(([t for t, _, _ in items], th, tw, pixels))
-
-    for (tw, th), items in per_shape_manba.items():
-        t0 = items[0][0].index
-        fire(events, t0, total, Event.COMPRESSION_START, events_user)
-        count = tile_block_sizes(items[0][0], s, channels)[0] // 2
-        # K6d reads the pool; only the plain decoder needs windows
-        spans = manba_spans(items) if device.type == "cpu" else (None, None)
-        buf, T, B = pack_manba_upload(items)
-        parts = split_manba_upload(
-            to_device(torch.from_numpy(buf), device, host, ("manba", tw, th)), T, B)
-        coeffs = manba_decode_device(*parts, count, DECODE_BLOCK, *spans)
-        pixels = stream_pixels(coeffs, tw, th, channels, s)
-        fire(events, t0, total, Event.COMPRESSION_END, events_user)
-        dispatched.append(([t for t, _, _ in items], th, tw, pixels))
-
-    for (tw, th), items in host_tiles.items():
-        t0 = items[0][0].index
-        fire(events, t0, total, Event.COMPRESSION_START, events_user)
-        streams = quirk_streams(items, s, channels)
-        coeffs = to_device(torch.from_numpy(np.stack(streams)), device, host, ("quirk", tw, th))
-        pixels = stream_pixels(coeffs, tw, th, channels, s)
-        fire(events, t0, total, Event.COMPRESSION_END, events_user)
-        dispatched.append(([t for t, _, _ in items], th, tw, pixels))
+    for kind, groups in (("kagari", kagari), ("manba", manba), ("quirk", quirk)):
+        for (tw, th), items in groups.items():
+            t0 = items[0][0].index
+            fire(events, t0, total, Event.COMPRESSION_START, events_user)
+            if kind == "quirk":
+                pixels = dispatch_streams(lane, np.stack(quirk_streams(items, s, channels)), tw,
+                                          th, channels, s, ("quirk", tw, th))
+            else:
+                pixels = dispatch_entropy(lane, items, channels, s, manba=kind == "manba")
+            fire(events, t0, total, Event.COMPRESSION_END, events_user)
+            dispatched.append(([t for t, _, _ in items], pixels))
     return dispatched
 
 
@@ -461,6 +473,7 @@ def decode_tile_events(view, cursor: int, grid, s: Settings, channels: int, imag
     FORMAT around the pixel download and placement; each stage boundary
     waits for the device. A tracing mode: the same pixels as the batched
     path, at the cost of one dispatch a tile."""
+    lane = Caller(device)
     total = len(grid)
     for t in grid:
         payload, cursor = read_tile_block(view, cursor, t, s, channels)
@@ -472,21 +485,18 @@ def decode_tile_events(view, cursor: int, grid, s: Settings, channels: int, imag
         if sync[5] > 31:
             metrics.bump(metrics.DEC_HOST_FALLBACK)
             values = kagari_decode(tds // 2, payload, tds + spacing)[0]
-            coeffs = torch.from_numpy(values[None]).to(device)
+            coeffs = upload_streams(lane, values[None], ("quirk", t.w, t.h))
         else:
             metrics.bump(metrics.DEC_DEVICE)
-            span = decode_span_words(sync[0], len(payload) * 8) if device.type == "cpu" else None
-            buf, T, B = pack_entropy_upload([(t, payload, sync)])
-            parts = split_entropy_upload(torch.from_numpy(buf).to(device), T, B)
-            coeffs = kagari_decode_device(*parts, tds // 2, DECODE_BLOCK, span)
-        wait_device(coeffs)
+            coeffs = entropy_streams(lane, [(t, payload, sync)], channels, s)
+        lane.synchronize()
         fire(events, t.index, total, Event.COMPRESSION_END, events_user)
         fire(events, t.index, total, Event.WAVELET_START, events_user)
         pixels = stream_pixels(coeffs, t.w, t.h, channels, s)
-        wait_device(pixels)
+        lane.synchronize()
         fire(events, t.index, total, Event.WAVELET_END, events_user)
         fire(events, t.index, total, Event.FORMAT_START, events_user)
-        image[t.y : t.y + t.h, t.x : t.x + t.w, :] = pixels.cpu().numpy()[0]
+        place(image, [t], lane.fetch(("pixels", t.w, t.h), pixels))
         fire(events, t.index, total, Event.FORMAT_END, events_user)
 
 
@@ -525,21 +535,19 @@ def decode(
     if device_entropy and s.compression == Compression.KAGARI and tile_events_mode(events):
         decode_tile_events(view, cursor, grid, s, channels, image, dev, events, events_user)
         return image, s, channels
+    lane = Caller(dev)
     if device_entropy and s.compression in (Compression.KAGARI, Compression.MANBAVARAN):
-        dispatched = dispatch_tiles_device_entropy(
-            view, cursor, grid, s, channels, dev, events, events_user
-        )
+        dispatched = dispatch_tiles_device_entropy(view, cursor, grid, s, channels, lane, events,
+                                                   events_user)
         # WAVELET covers the wait for each group's device work, FORMAT
         # the pixel download and placement
-        for tiles, _th, _tw, pixels in dispatched:
+        for tiles, _ in dispatched:
             fire(events, tiles[0].index, total, Event.WAVELET_START, events_user)
-            wait_device(pixels)
+            lane.synchronize()
             fire(events, tiles[0].index, total, Event.WAVELET_END, events_user)
-        for tiles, th, tw, pixels in dispatched:
+        for i, (tiles, pixels) in enumerate(dispatched):
             fire(events, tiles[0].index, total, Event.FORMAT_START, events_user)
-            pix = pixels.cpu().numpy()
-            for i, t in enumerate(tiles):
-                image[t.y : t.y + th, t.x : t.x + tw, :] = pix[i]
+            place(image, tiles, lane.fetch(("pixels", i), pixels))
             fire(events, tiles[0].index, total, Event.FORMAT_END, events_user)
         return image, s, channels
 
@@ -555,12 +563,12 @@ def decode(
     for (tw, th), tiles in geometry.group_by_shape(grid).items():
         t0 = tiles[0].index
         fire(events, t0, total, Event.WAVELET_START, events_user)
-        batch = np.stack([streams[t.index] for t in tiles], axis=0)
-        pix = decode_tiles_device(batch, tw, th, channels, s, dev)
+        pixels = dispatch_streams(lane, np.stack([streams[t.index] for t in tiles]), tw, th,
+                                  channels, s, ("streams", tw, th))
+        pix = lane.fetch(("pixels", tw, th), pixels)
         fire(events, t0, total, Event.WAVELET_END, events_user)
         fire(events, t0, total, Event.FORMAT_START, events_user)
-        for i, t in enumerate(tiles):
-            image[t.y : t.y + th, t.x : t.x + tw, :] = pix[i]
+        place(image, tiles, pix)
         fire(events, t0, total, Event.FORMAT_END, events_user)
 
     return image, s, channels
@@ -574,7 +582,7 @@ def decode_tiles_iter(blob: bytes, max_batch: int = 32, device=None):
     AkoError. Consecutive same-shaped tiles (a grid row, typically), up to
     `max_batch`, go through one batched unlift on `device` (None means the
     CUDA card, as for decode); the entropy decode runs on the host."""
-    dev = resolve_device(device)
+    lane = Caller(resolve_device(device))
     view = memoryview(blob)
     channels, image_w, image_h, s = container.head_read(view)
     _check_decode_budget(image_w, image_h, channels)
@@ -584,9 +592,10 @@ def decode_tiles_iter(blob: bytes, max_batch: int = 32, device=None):
     def flush():
         if not pending:
             return
-        t0 = pending[0][0]
-        batch = np.stack([v for _, v in pending], axis=0)
-        pixels = decode_tiles_device(batch, t0.w, t0.h, channels, s, dev)
+        tw, th = pending[0][0].w, pending[0][0].h
+        pixels = dispatch_streams(lane, np.stack([v for _, v in pending]), tw, th, channels, s,
+                                  ("streams", tw, th))
+        pixels = lane.fetch(("pixels", tw, th), pixels)
         yield from ((t, px) for (t, _), px in zip(pending, pixels))
         pending.clear()
 

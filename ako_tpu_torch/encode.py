@@ -54,6 +54,7 @@ from ako_tpu_torch.ops.kagari_device import kagari_encode_device
 from ako_tpu_torch.ops.lifting import forward_tiles
 from ako_tpu_torch.ops.manba_device import manba_encode_device, unpack_record
 from ako_tpu_torch.ops.quantization import level_qg
+from ako_tpu_torch.parallel.mesh import Caller
 from ako_tpu_torch.runtime import hostcodec
 from ako_tpu_torch.runtime.kagari import (
     BLOCK_HEAD,
@@ -207,18 +208,17 @@ def tile_stream_bytes(t, s: Settings, channels: int) -> int:
     return geometry.tile_data_size(t.w, t.h) * channels
 
 
-def image_fill_val(image: np.ndarray) -> Optional[int]:
-    """The value of a constant trailing channel (the alpha=255 norm) of
-    a 2- or 4-channel image, else None: the device-entropy encoder then
-    uploads one channel fewer and broadcasts it on the device."""
-    channels = image.shape[-1]
-    if channels in (2, 4) and image.size:
-        # torch's compare of the strided plane runs on several threads
-        a = torch.from_numpy(image)[..., -1]
-        first = int(image.flat[channels - 1])
-        if bool(a.eq(first).all()):
-            return first
-    return None
+def host_block(values: np.ndarray, tile_bytes: int, method: Compression) -> bytes:
+    """A tile's block from its int16 stream of `tile_bytes` bytes, made on
+    the host: the stream itself under NONE, else the host coder's block
+    (compress_block); raises AkoError(ERROR) on an incompressible tile, as
+    the reference does."""
+    if method == Compression.NONE:
+        return values.tobytes()
+    block = compress_block(values, tile_bytes, method)
+    if block is None:
+        raise AkoError(Status.ERROR, "incompressible tile")
+    return block
 
 
 def stage_tiles(src, tiles, tw: int, th: int):
@@ -256,6 +256,68 @@ def forward_streams(tiles_dev, tw: int, th: int, channels: int, s: Settings):
     return forward_tiles(tiles_dev, schedule, s.wavelet, s.wrap, qg, s.color, discard)
 
 
+# The per-shape-group round trip, written once for every route: the
+# one-shot calls (a Caller lane), the streaming executor (its Slots), the
+# tile-sharded route (a run of a group on each of a mesh's Shards) and
+# rate control. A group function takes the whole group and, on a mesh,
+# its shard's run [lo, hi); rows past the group's end are pads, whose
+# results are dropped.
+
+
+def pad_rows(x, rows: int):
+    """x with zero rows appended up to `rows`."""
+    if x.shape[0] >= rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+
+def stage_group(lane, batch, fill_val, run=None):
+    """A shape group's u8 tiles cut from the lane's source (stage_tiles of
+    Shard.source), or the run [lo, hi) of them, on the lane's device as
+    (hi - lo, th, tw, channels): zero tiles past the group's end, and the
+    constant last channel `fill_val` put back."""
+    lo, hi = run or (0, len(batch))
+    x = pad_rows(lane.stage(batch[lo:hi]), hi - lo)
+    if fill_val is None:
+        return x
+    return torch.cat([x, x.new_full(x.shape[:-1] + (1,), fill_val)], dim=-1)
+
+
+def dispatch_group(lane, tiles, tiles_dev, channels: int, s: Settings, run=None,
+                   entropy: bool = True) -> tuple:
+    """A shape group's staged u8 tiles (stage_group), or a run's, through
+    the device, enqueued: the colour transform, lift and quantize/gate
+    (forward_streams), then the entropy coder (entropy_group). Without
+    `entropy` the host frames the blocks (raw blocks, the host coder) and
+    the record is (real tiles, streams on the device)."""
+    stream = forward_streams(tiles_dev, tiles[0].w, tiles[0].h, channels, s)
+    if not entropy:
+        lo, hi = run or (0, len(tiles))
+        return tiles[lo:hi], stream
+    return entropy_group(lane, tiles, stream, channels, s, run)
+
+
+def entropy_group(lane, tiles, stream, channels: int, s: Settings, run=None) -> tuple:
+    """A shape group's entropy stage on its (T, n) int16 streams on the
+    lane's device, enqueued: K6e under the MANBAVARAN extension, else K3
+    at the pack budget; the (T,) totals' (K6e: the records') download
+    started on the lane (Shard.prefetch). Given a run [lo, hi), the
+    streams are the run's and its real tiles the group's tiles[lo:hi].
+    Returns the record collect_tiles_blocks (collect_tiles_manba) frames;
+    the streams stay on the device for the host coder's fallback, so no
+    tile is lifted twice."""
+    lo, hi = run or (0, len(tiles))
+    tw, th = tiles[0].w, tiles[0].h
+    capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
+    if effective_method(s.compression) == Compression.MANBAVARAN:
+        record, rans, extras = manba_encode_device(stream, capacity)
+        record = lane.prefetch(("record", tw, th), record)
+        return tiles[lo:hi], stream, record, rans, extras, capacity
+    budget = pack_budget(capacity, s.quantization)
+    comp, totals = kagari_encode_device(stream, capacity, budget)
+    return tiles[lo:hi], stream, comp, lane.prefetch(("totals", tw, th), totals), capacity, budget
+
+
 def encode_tiles_device(
     image: np.ndarray,
     s: Settings,
@@ -265,96 +327,50 @@ def encode_tiles_device(
 ) -> list:
     """Run the device stage for every tile; returns a list of int16
     numpy coefficient streams in tile (row-major) order."""
+    lane = Caller(device)
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
     total = len(grid)
+    src, fill_val = lane.source(image)
 
     out: list = [None] * total
     for (tw, th), tiles in geometry.group_by_shape(grid).items():
         t0 = tiles[0].index
         fire(events, t0, total, Event.FORMAT_START, events_user)
-        batch = np.stack([image[t.y : t.y + th, t.x : t.x + tw, :] for t in tiles], axis=0)
-        tiles_dev = torch.from_numpy(batch).to(device)
+        tiles_dev = stage_group(lane, stage_tiles(src, tiles, tw, th), fill_val)
         fire(events, t0, total, Event.FORMAT_END, events_user)
         fire(events, t0, total, Event.WAVELET_START, events_user)
-        coeffs = forward_streams(tiles_dev, tw, th, channels, s).cpu().numpy()
+        _, stream = dispatch_group(lane, tiles, tiles_dev, channels, s, entropy=False)
+        coeffs = lane.fetch(("streams", tw, th), stream)
         fire(events, t0, total, Event.WAVELET_END, events_user)
         for i, t in enumerate(tiles):
             out[t.index] = coeffs[i]
     return out
 
 
-def to_device(t, device, host=None, key=None):
-    """The host tensor t on `device`: a plain copy, or, given an executor
-    slot `host` (runtime/executor.py Slot), a copy through the slot's
-    pinned buffer `key`, enqueued on its stream without waiting."""
-    return t.to(device) if host is None else host.upload(key, t, device)
-
-
-def to_host(t, host=None, key=None) -> np.ndarray:
-    """The device tensor t as a host array, once the device has made it: a
-    plain copy, or, given an executor slot `host`, a copy through the
-    slot's pinned buffer `key` on its stream."""
-    if host is None:
-        return t.cpu().numpy()
-    out = host.download(key, t)
-    host.sync()
-    return out.numpy()
-
-
-def fallback_streams(stream, fallback: np.ndarray, host=None, key=None) -> np.ndarray:
+def fallback_streams(lane, stream, fallback: np.ndarray, key) -> np.ndarray:
     """The (len(fallback), n) int16 streams of a shape group's tiles at
     the indices `fallback`, on the host, for the host coder."""
-    index = to_device(torch.from_numpy(fallback), stream.device, host,
-                      None if host is None else key + ("index",))
-    return to_host(stream[index], host, key)
-
-
-def staging_source(image: np.ndarray, device=None, host=None) -> tuple:
-    """(src, fill_val): the image as a tensor to stage tiles from, without
-    its constant last channel when it has one (image_fill_val), which
-    with_fill puts back on the device. Given an executor slot `host`,
-    the whole image instead, on `device` through the slot's pinned buffer
-    in one contiguous copy, and no fill: the tiles are then cut on the
-    device, so the host's work is that copy alone (no strided gather and
-    no compare of the last channel, both torch ops whose intra-op threads
-    would take cores from the other images' host work)."""
-    image = np.ascontiguousarray(image)  # torch takes no negative strides
-    if host is not None:
-        return host.upload("image", torch.from_numpy(image), device), None
-    fill_val = image_fill_val(image)
-    src = torch.from_numpy(image)
-    return (src if fill_val is None else src[..., :-1]), fill_val
-
-
-def with_fill(tiles_dev, fill_val):
-    """The staged tiles with their constant last channel appended on the
-    device (no-op when fill_val is None)."""
-    if fill_val is None:
-        return tiles_dev
-    last = tiles_dev.new_full(tiles_dev.shape[:-1] + (1,), fill_val)
-    return torch.cat([tiles_dev, last], dim=-1)
+    index = lane.upload(key + ("index",), torch.from_numpy(fallback))
+    return lane.fetch(key, stream[index])
 
 
 def dispatch_tiles_fused(
     image: np.ndarray,
     s: Settings,
-    device: torch.device,
+    lane,
     events: Optional[EventsCallback] = None,
     events_user=None,
-    host=None,
 ) -> tuple:
-    """Device-entropy encode, phase 1: per shape group one u8 upload,
-    then colour + lift + quantize/gate + tokenize/pack on the device,
-    enqueued without waiting. Returns (grid, per-group records). Given an
-    executor slot `host`, the upload goes through its pinned buffers and
-    the totals' download is enqueued too (collect_tiles_blocks with the
-    same slot reads them).
+    """Device-entropy encode, phase 1, on a lane (parallel/mesh.py Shard):
+    per shape group the staging (stage_group), then colour + lift +
+    quantize/gate + tokenize/pack on the device (dispatch_group),
+    enqueued without waiting. Returns (grid, per-group records).
 
     Events fire per shape group (tile_no = the group's first tile), as
-    in ako_tpu's fused path: FORMAT covers the group's tile gather and
-    upload. staging_source runs before the first of them, under the
-    span ako.encode.source, and the whole phase is the span
+    in ako_tpu's fused path: FORMAT covers the group's staging. The
+    lane's source runs before the first of them, under the span
+    ako.encode.source, and the whole phase is the span
     ako.encode.dispatch (utils/tracing.py): what it holds beyond those two
     is the groups' bookkeeping and the launches."""
     with tracing.span("ako.encode.dispatch"):
@@ -362,47 +378,35 @@ def dispatch_tiles_fused(
         grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
         total = len(grid)
         with tracing.span("ako.encode.source"):
-            src, fill_val = staging_source(image, device, host)
+            src, fill_val = lane.source(image)
 
         dispatched = []
         for (tw, th), tiles in geometry.group_by_shape(grid).items():
-            capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
-            budget = pack_budget(capacity, s.quantization)
             t0 = tiles[0].index
             fire(events, t0, total, Event.FORMAT_START, events_user)
-            tiles_dev = stage_tiles(src, tiles, tw, th).to(device)
+            tiles_dev = stage_group(lane, stage_tiles(src, tiles, tw, th), fill_val)
             fire(events, t0, total, Event.FORMAT_END, events_user)
-            # the stream stays on the device for the near-capacity fallback,
-            # so no tile is lifted twice
-            stream = forward_streams(with_fill(tiles_dev, fill_val), tw, th, channels, s)
-            comp, totals = kagari_encode_device(stream, capacity, budget)
-            if host is not None:
-                totals = host.download(("totals", tw, th), totals)
-            dispatched.append((tiles, stream, comp, totals, capacity, budget))
+            dispatched.append(dispatch_group(lane, tiles, tiles_dev, channels, s))
         return grid, dispatched
 
 
-def collect_tiles_blocks(grid, dispatched, events=None, events_user=None, host=None) -> list:
-    """Device-entropy encode, phase 2: per shape group one download of
-    the (T,) totals and one of the compressed rows, cut at the group's
-    largest total; frame the blocks. Tiles over the budget or within
-    _CAPACITY_MARGIN of the capacity take the host coder on their
-    stream, and both kinds are counted (utils/metrics.py). Given the
-    executor slot that dispatched them, it first waits for the slot's
-    dispatch (the totals are then on the host) and downloads through the
-    slot's pinned buffers on its stream.
+def collect_tiles_blocks(grid, dispatched, lane, events=None, events_user=None) -> list:
+    """Device-entropy encode, phase 2, on the lane that dispatched them:
+    per shape group one download of the (T,) totals and one of the
+    compressed rows, cut at the group's largest total; frame the blocks.
+    Tiles over the budget or within _CAPACITY_MARGIN of the capacity take
+    the host coder on their stream, and both kinds are counted
+    (utils/metrics.py). A run's pad rows are not read.
 
     WAVELET covers the wait for the group's device work, COMPRESSION
     the byte download and framing."""
     total = len(grid)
     out: list = [None] * total
-    if host is not None:
-        host.wait()
     for tiles, stream, comp, totals_t, capacity, budget in dispatched:
         t0 = tiles[0].index
         tw, th = tiles[0].w, tiles[0].h
         fire(events, t0, total, Event.WAVELET_START, events_user)
-        totals = totals_t.cpu().numpy()
+        totals = totals_t.cpu().numpy()[: len(tiles)]
         fire(events, t0, total, Event.WAVELET_END, events_user)
         fire(events, t0, total, Event.COMPRESSION_START, events_user)
         past = (totals > budget) | (totals >= capacity - _CAPACITY_MARGIN)
@@ -411,42 +415,35 @@ def collect_tiles_blocks(grid, dispatched, events=None, events_user=None, host=N
         metrics.bump(metrics.ENC_DEVICE, len(ok))
         metrics.bump(metrics.ENC_HOST_FALLBACK, len(fallback))
         if len(ok):
-            rows = to_host(comp[:, : int(totals[ok].max())], host, ("rows", tw, th))
+            rows = lane.fetch(("rows", tw, th), comp[: len(tiles), : int(totals[ok].max())])
             for i in ok:
                 n = int(totals[i])
                 out[tiles[i].index] = BLOCK_HEAD.pack(n) + rows[i, :n].tobytes()
         if len(fallback):
-            streams = fallback_streams(stream, fallback, host, ("fallback", tw, th))
+            streams = fallback_streams(lane, stream, fallback, ("fallback", tw, th))
             for values, i in zip(streams, fallback):
-                block = compress_block(values, capacity + BLOCK_HEAD.size)
-                if block is None:
-                    raise AkoError(Status.ERROR, "incompressible tile")
-                out[tiles[i].index] = block
+                out[tiles[i].index] = host_block(values, capacity + BLOCK_HEAD.size,
+                                                 Compression.KAGARI)
         fire(events, t0, total, Event.COMPRESSION_END, events_user)
     return out
 
 
-def _dispatch_manba_group(src, fill_val, tiles, channels: int, s: Settings, device, total: int,
-                          events, events_user, host) -> tuple:
-    """One shape group of dispatch_tiles_manba: the u8 upload, the lift
-    and K6e enqueued; FORMAT around the staging and upload, WAVELET
-    opened before the device work."""
+def _dispatch_manba_group(lane, src, fill_val, tiles, channels: int, s: Settings, total: int,
+                          events, events_user) -> tuple:
+    """One shape group of dispatch_tiles_manba: the staging, the lift and
+    K6e enqueued; FORMAT around the staging, WAVELET opened before the
+    device work."""
     tw, th = tiles[0].w, tiles[0].h
-    capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
     t0 = tiles[0].index
     fire(events, t0, total, Event.FORMAT_START, events_user)
-    tiles_dev = stage_tiles(src, tiles, tw, th).to(device)
+    tiles_dev = stage_group(lane, stage_tiles(src, tiles, tw, th), fill_val)
     fire(events, t0, total, Event.FORMAT_END, events_user)
     fire(events, t0, total, Event.WAVELET_START, events_user)
-    stream = forward_streams(with_fill(tiles_dev, fill_val), tw, th, channels, s)
-    record, rans, extras = manba_encode_device(stream, capacity)
-    if host is not None:
-        record = host.download(("record", tw, th), record)
-    return tiles, stream, record, rans, extras, capacity
+    return dispatch_group(lane, tiles, tiles_dev, channels, s)
 
 
-def _collect_manba_group(group: tuple, s: Settings, out: list, total: int, events, events_user,
-                         host) -> None:
+def _collect_manba_group(lane, group: tuple, s: Settings, out: list, total: int, events,
+                         events_user) -> None:
     """One shape group of collect_tiles_manba into `out`: the record on
     the host closes WAVELET; COMPRESSION around the byte download and the
     framing."""
@@ -462,56 +459,46 @@ def _collect_manba_group(group: tuple, s: Settings, out: list, total: int, event
     fallback = np.flatnonzero(~fits)
     if len(use):
         rw, ew = int(rbytes[use].max()), int(ebytes[use].max())
-        rans_tail = to_host(rans[:, capacity - rw :], host, ("rans", tw, th))
-        extras_head = to_host(extras[:, :ew], host, ("extras", tw, th))
+        rans_tail = lane.fetch(("rans", tw, th), rans[:, capacity - rw :])
+        extras_head = lane.fetch(("extras", tw, th), extras[:, :ew])
         for i in use:
             payload = manba_assemble(freq[i], x[i], rans_tail[i, rw - rbytes[i] :], rbytes[i],
                                      extras_head[i], ebits[i], ok[i], capacity)
             out[tiles[i].index] = BLOCK_HEAD.pack(len(payload)) + payload
     if len(fallback):
-        streams = fallback_streams(stream, fallback, host, ("fallback", tw, th))
+        streams = fallback_streams(lane, stream, fallback, ("fallback", tw, th))
         for values, i in zip(streams, fallback):
-            block = compress_block(values, capacity + BLOCK_HEAD.size, s.compression)
-            if block is None:
-                raise AkoError(Status.ERROR, "incompressible tile")
-            out[tiles[i].index] = block
+            out[tiles[i].index] = host_block(values, capacity + BLOCK_HEAD.size, s.compression)
     metrics.bump(metrics.ENC_DEVICE, len(use))
     metrics.bump(metrics.ENC_HOST_FALLBACK, len(fallback))
     fire(events, t0, total, Event.COMPRESSION_END, events_user)
 
 
-def dispatch_tiles_manba(image: np.ndarray, s: Settings, device: torch.device,
-                         host=None) -> tuple:
+def dispatch_tiles_manba(image: np.ndarray, s: Settings, lane) -> tuple:
     """Device-entropy encode for the MANBAVARAN extension, phase 1
-    (ako_tpu/encode.py:792-856): per shape group one u8 upload, the
-    colour transform, lift and quantize/gate (forward_streams), then the
-    rANS encoder (manba_encode_device, kernel K6e), enqueued without
-    waiting. Returns (grid, per-group records). Given an executor slot
-    `host`, the upload goes through its pinned buffers and the (T,
-    RECORD_WORDS) records' download is enqueued too."""
+    (ako_tpu/encode.py:792-856), on a lane: per shape group the staging,
+    the colour transform, lift and quantize/gate (forward_streams), then
+    the rANS encoder (manba_encode_device, kernel K6e), enqueued without
+    waiting, the (T, RECORD_WORDS) records' download started. Returns
+    (grid, per-group records)."""
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
-    src, fill_val = staging_source(image, device, host)
+    src, fill_val = lane.source(image)
     return grid, [
-        _dispatch_manba_group(src, fill_val, tiles, channels, s, device, len(grid), None, None,
-                              host)
+        _dispatch_manba_group(lane, src, fill_val, tiles, channels, s, len(grid), None, None)
         for tiles in geometry.group_by_shape(grid).values()
     ]
 
 
-def collect_tiles_manba(grid, dispatched, s: Settings, host=None) -> list:
-    """Phase 2: per shape group the record comes back, then only the used
-    bytes (the group's longest rANS tail and extras head); the host frames
-    each payload (manba_assemble). A tile whose payload does not fit its
-    capacity takes the host coder on its stream; both kinds are counted
-    (utils/metrics.py). Given the executor slot that dispatched them, it
-    first waits for the slot's dispatch and downloads through the slot's
-    pinned buffers on its stream."""
-    if host is not None:
-        host.wait()
+def collect_tiles_manba(grid, dispatched, s: Settings, lane) -> list:
+    """Phase 2, on the lane that dispatched them: per shape group the
+    record comes back, then only the used bytes (the group's longest rANS
+    tail and extras head); the host frames each payload (manba_assemble).
+    A tile whose payload does not fit its capacity takes the host coder on
+    its stream; both kinds are counted (utils/metrics.py)."""
     out: list = [None] * len(grid)
     for group in dispatched:
-        _collect_manba_group(group, s, out, len(grid), None, None, host)
+        _collect_manba_group(lane, group, s, out, len(grid), None, None)
     return out
 
 
@@ -519,68 +506,46 @@ def encode_tiles_blocks_manba(image: np.ndarray, s: Settings, device: torch.devi
                               events=None, events_user=None) -> list:
     """dispatch_tiles_manba and collect_tiles_manba in a row, one shape
     group at a time, so that the events keep ako_tpu's per-group order:
-    FORMAT around staging and upload, WAVELET around the device work up
-    to the record, COMPRESSION around the byte download and framing."""
+    FORMAT around the staging, WAVELET around the device work up to the
+    record, COMPRESSION around the byte download and framing."""
+    lane = Caller(device)
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
-    src, fill_val = staging_source(image)
+    src, fill_val = lane.source(image)
     out: list = [None] * len(grid)
     for tiles in geometry.group_by_shape(grid).values():
-        group = _dispatch_manba_group(src, fill_val, tiles, channels, s, device, len(grid), events,
-                                      events_user, None)
-        _collect_manba_group(group, s, out, len(grid), events, events_user, None)
+        group = _dispatch_manba_group(lane, src, fill_val, tiles, channels, s, len(grid), events,
+                                      events_user)
+        _collect_manba_group(lane, group, s, out, len(grid), events, events_user)
     return out
-
-
-def wait_device(t, stream=None) -> None:
-    """Block the host until the device work that made t is done: the work
-    queued so far on `stream`, by default the current stream of t's
-    device in this thread, where the port's calls enqueue (an executor
-    waiting from another thread names its slot's stream). It waits on an
-    event recorded there, so work queued later, on that stream or any
-    other, is not waited for. Nothing on the CPU."""
-    if t.is_cuda:
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(t.device) if stream is None else stream)
-        done.synchronize()
 
 
 def encode_tiles_blocks_tile_events(image: np.ndarray, s: Settings, device: torch.device,
                                     events, events_user) -> list:
     """The device-entropy Kagari encode one tile at a time, with the
     reference's per-tile event pairs (ako.h:75-84; ako_tpu/encode.py:
-    674-734): FORMAT around staging and upload, WAVELET around the lift,
+    674-734): FORMAT around the staging, WAVELET around the lift,
     COMPRESSION around the pack, its download and the framing; each stage
     boundary waits for the device. A tracing mode: the same blocks as the
     batched path, at the cost of one dispatch a tile."""
+    lane = Caller(device)
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
     total = len(grid)
-    src = torch.from_numpy(np.ascontiguousarray(image))
+    src, fill_val = lane.source(image)
     out = []
     for t in grid:
-        capacity = tile_stream_bytes(t, s, channels) - BLOCK_HEAD.size
-        budget = pack_budget(capacity, s.quantization)
         fire(events, t.index, total, Event.FORMAT_START, events_user)
-        tiles_dev = stage_tiles(src, [t], t.w, t.h).to(device)
-        wait_device(tiles_dev)
+        tiles_dev = stage_group(lane, stage_tiles(src, [t], t.w, t.h), fill_val)
+        lane.synchronize()
         fire(events, t.index, total, Event.FORMAT_END, events_user)
         fire(events, t.index, total, Event.WAVELET_START, events_user)
         stream = forward_streams(tiles_dev, t.w, t.h, channels, s)
-        wait_device(stream)
+        lane.synchronize()
         fire(events, t.index, total, Event.WAVELET_END, events_user)
         fire(events, t.index, total, Event.COMPRESSION_START, events_user)
-        comp, totals = kagari_encode_device(stream, capacity, budget)
-        n = int(totals[0])
-        if n > budget or n >= capacity - _CAPACITY_MARGIN:
-            metrics.bump(metrics.ENC_HOST_FALLBACK)
-            block = compress_block(stream[0].cpu().numpy(), capacity + BLOCK_HEAD.size)
-            if block is None:
-                raise AkoError(Status.ERROR, "incompressible tile")
-        else:
-            metrics.bump(metrics.ENC_DEVICE)
-            block = BLOCK_HEAD.pack(n) + comp[0, :n].cpu().numpy().tobytes()
-        out.append(block)
+        record = entropy_group(lane, [t], stream, channels, s)
+        out.append(collect_tiles_blocks(grid, [record], lane)[t.index])
         fire(events, t.index, total, Event.COMPRESSION_END, events_user)
     return out
 
@@ -610,13 +575,7 @@ def encode_tiles_host(image: np.ndarray, s: Settings, events=None, events_user=N
             stream = hostcodec.tile_lift(planes, s.wavelet, s.wrap, qg)
         fire(events, t.index, total, Event.WAVELET_END, events_user)
         fire(events, t.index, total, Event.COMPRESSION_START, events_user)
-        if s.compression == Compression.NONE:
-            blocks.append(stream.tobytes())
-        else:
-            block = compress_block(stream, tile_stream_bytes(t, s, channels), s.compression)
-            if block is None:
-                raise AkoError(Status.ERROR, "incompressible tile")
-            blocks.append(block)
+        blocks.append(host_block(stream, tile_stream_bytes(t, s, channels), s.compression))
         fire(events, t.index, total, Event.COMPRESSION_END, events_user)
     return blocks
 
@@ -659,23 +618,15 @@ def encode(
         if tile_events_mode(events):
             return head + b"".join(
                 encode_tiles_blocks_tile_events(image, s, dev, events, events_user))
-        grid, dispatched = dispatch_tiles_fused(image, s, dev, events, events_user)
-        return head + b"".join(collect_tiles_blocks(grid, dispatched, events, events_user))
+        lane = Caller(dev)
+        grid, dispatched = dispatch_tiles_fused(image, s, lane, events, events_user)
+        return head + b"".join(collect_tiles_blocks(grid, dispatched, lane, events, events_user))
 
     streams = encode_tiles_device(image, s, dev, events, events_user)
-
     blocks = [head]
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
-    total = len(grid)
     for t, values in zip(grid, streams):
-        fire(events, t.index, total, Event.COMPRESSION_START, events_user)
-        if s.compression != Compression.NONE:
-            block = compress_block(values, tile_stream_bytes(t, s, channels), s.compression)
-            if block is None:
-                raise AkoError(Status.ERROR, "incompressible tile")
-            blocks.append(block)
-        else:
-            blocks.append(values.tobytes())
-        fire(events, t.index, total, Event.COMPRESSION_END, events_user)
-
+        fire(events, t.index, len(grid), Event.COMPRESSION_START, events_user)
+        blocks.append(host_block(values, tile_stream_bytes(t, s, channels), s.compression))
+        fire(events, t.index, len(grid), Event.COMPRESSION_END, events_user)
     return b"".join(blocks)

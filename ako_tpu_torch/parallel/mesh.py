@@ -1,4 +1,4 @@
-"""Device meshes: the port's counterpart of jax.sharding.Mesh
+"""Device meshes and lanes: the port's counterpart of jax.sharding.Mesh
 (ako_tpu/parallel/mesh.py).
 
 A Mesh is a numpy object array of torch.devices with a name per axis,
@@ -9,6 +9,11 @@ the first line of the other axes. Each position of the mesh is a Shard
 with its own CUDA stream, made once per mesh and position, also when
 shards share a device, so that the event ordering that several cards need
 is exercised on one.
+
+A Shard is the port's one lane type, what the encode and decode group
+functions run on: the one-shot calls run on a Caller, a mesh's shards on
+Shards, and the streaming executor's images on Slots
+(runtime/executor.py), whose copies are pinned.
 """
 
 from __future__ import annotations
@@ -22,20 +27,27 @@ import torch
 
 
 class Shard:
-    """One mesh position: its device and, on a CUDA device, its own
-    stream. Work for the shard is enqueued inside `use()`; `record()`
-    marks what has been enqueued so far, for other shards to wait on."""
+    """A lane: one device, on a CUDA device a stream of its own, and the
+    way data crosses between the host and the device. Work for the lane
+    is enqueued inside `use()`; `record()` marks what has been enqueued so
+    far, for other lanes to wait on.
+
+    A Shard's copies are plain: pageable, and a download waits for the
+    work that makes its tensor on the current stream. It stages tiles on
+    the host: a shape group's tiles are gathered there (encode.stage_tiles
+    on `source()`) and go to the device in one copy. The `key` of a copy
+    names the host buffer that a Slot copies through; a Shard has none."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def use(self):
-        """The shard's stream as the current stream of its device."""
+        """The lane's stream as the current stream of its device."""
         return contextlib.nullcontext() if self.stream is None else torch.cuda.stream(self.stream)
 
     def record(self):
-        """An event after the work enqueued on the shard's stream so far
+        """An event after the work enqueued on the lane's stream so far
         (None on the CPU, where work is done when it returns)."""
         if self.stream is None:
             return None
@@ -44,19 +56,61 @@ class Shard:
         return ev
 
     def wait(self, event) -> None:
-        """Later work on the shard's stream waits for `event`."""
+        """Later work on the lane's stream waits for `event`."""
         if event is not None:
             self.stream.wait_event(event)
 
     def synchronize(self) -> None:
-        """Block the host until the shard's stream is done."""
+        """Block the host until the lane's stream is done."""
         if self.stream is not None:
             self.stream.synchronize()
 
+    def upload(self, key, t: torch.Tensor) -> torch.Tensor:
+        """The host tensor t on the lane's device."""
+        return t.to(self.device)
+
+    def download(self, key, t: torch.Tensor) -> torch.Tensor:
+        """The device tensor t on the host, to be read once the device has
+        made it: a plain copy has, when it returns."""
+        return t.cpu()
+
+    def prefetch(self, key, t: torch.Tensor) -> torch.Tensor:
+        """t, to be read with `.cpu()` once the device has made it: a plain
+        download blocks, so t stays on the device until then; a Slot starts
+        its download now."""
+        return t
+
+    def fetch(self, key, t: torch.Tensor) -> np.ndarray:
+        """The device tensor t as a host array, once the device has made
+        it."""
+        return self.download(key, t).numpy()
+
+    def source(self, image: np.ndarray) -> tuple:
+        """(src, fill_val): the image as a tensor that encode.stage_tiles
+        cuts a shape group's tiles from, and the value of its constant last
+        channel (the alpha=255 norm of a 2- or 4-channel image), else None.
+        A Shard's src is the image on the host without that channel, which
+        encode.stage_group puts back on the device."""
+        image = np.ascontiguousarray(image)  # torch takes no negative strides
+        src = torch.from_numpy(image)
+        channels = image.shape[-1]
+        if channels in (2, 4) and image.size:
+            first = int(image.flat[channels - 1])
+            # torch's compare of the strided plane runs on several threads
+            if bool(src[..., -1].eq(first).all()):
+                return src[..., :-1], first
+        return src, None
+
+    def stage(self, batch: torch.Tensor) -> torch.Tensor:
+        """Tiles cut from `source()` on the lane's device: the host
+        gather's one copy."""
+        return batch.to(self.device)
+
 
 class Caller(Shard):
-    """The caller's current stream on `device`, as a Shard: where a
-    sharded function's inputs were made and its outputs are returned."""
+    """The caller's current stream on `device`, as a lane: the one-shot
+    calls' (encode, decode, rate control), and where a sharded function's
+    inputs were made and its outputs are returned."""
 
     def __init__(self, device: torch.device):
         self.device = device

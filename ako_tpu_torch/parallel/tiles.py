@@ -4,11 +4,12 @@ axis (the port of ako_tpu/parallel/tiles.py).
 Ako tiles are fully independent (own pyramid, own quantization heads,
 own entropy block), so each shape group's tiles are padded to a multiple
 of the axis's size (`pad_batch`) and cut into equal runs, one a shard;
-every shard runs the port's one-device functions on its run, on its own
-stream: stage_tiles / forward_streams / K3 (kagari_encode_device) /
-collect_tiles_blocks to encode, and pack_entropy_upload / K4
-(kagari_decode_device) / stream_pixels to decode. The pad tiles' results
-are dropped. Blobs and pixels are the one-device codec's.
+each shard runs the one-device group functions on its run, on its own
+stream (parallel/mesh.py Shard, a lane whose copies are plain):
+encode.stage_group / encode.dispatch_group (the lift and K3) /
+encode.collect_tiles_blocks to encode, and decode.dispatch_entropy (K4
+and the unlift) or decode.dispatch_streams / decode.place to decode. The
+pad tiles' results are dropped. Blobs and pixels are the one-device codec's.
 
 Each shard's work stays on its device and stream, whether the mesh's
 devices are distinct cards or one card repeated. The route's host work
@@ -34,37 +35,29 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ako_tpu_torch.core import container, geometry
-from ako_tpu_torch.core.settings import AkoError, Compression, Settings, Status
+from ako_tpu_torch.core.settings import Compression, Settings
 from ako_tpu_torch.decode import (
     _check_decode_budget,
-    pack_entropy_upload,
+    dispatch_entropy,
+    dispatch_streams,
+    place,
     quirk_streams,
     read_tile_stream,
     scan_blocks,
-    split_entropy_upload,
-    stream_pixels,
 )
 from ako_tpu_torch.encode import (
     checked_settings,
     collect_tiles_blocks,
-    forward_streams,
-    pack_budget,
+    dispatch_group,
+    host_block,
+    stage_group,
     stage_tiles,
-    staging_source,
     tile_stream_bytes,
-    with_fill,
-)
-from ako_tpu_torch.ops.kagari_device import (
-    DECODE_BLOCK,
-    decode_span_words,
-    kagari_decode_device,
-    kagari_encode_device,
 )
 from ako_tpu_torch.parallel.mesh import Mesh
-from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, compress_block, effective_method
+from ako_tpu_torch.runtime.kagari import effective_method
 from ako_tpu_torch.utils import metrics, tracing
 
 
@@ -85,16 +78,6 @@ def _runs(n: int, n_shards: int) -> list:
     return [(s * per, (s + 1) * per) for s in range(n_shards)]
 
 
-def _shard_tiles(batch, lo: int, hi: int, shard, fill_val):
-    """Tiles [lo, hi) of the host batch on the shard's device, zero tiles
-    past its end, the constant last channel put back (with_fill)."""
-    with shard.use():
-        real = batch[lo:hi].to(shard.device)
-        if real.shape[0] < hi - lo:
-            real = torch.cat([real, real.new_zeros((hi - lo - real.shape[0],) + real.shape[1:])])
-        return with_fill(real, fill_val)
-
-
 def encode_tiles_sharded(
     image: np.ndarray,
     s: Settings,
@@ -107,20 +90,20 @@ def encode_tiles_sharded(
     image_h, image_w, channels = image.shape
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
     shards = mesh.shards(axis_name)
-    src, fill_val = staging_source(image)
+    src, fill_val = shards[0].source(image)
     out: list = [None] * len(grid)
     for (tw, th), tiles in geometry.group_by_shape(grid).items():
         batch = stage_tiles(src, tiles, tw, th)
         done = []
-        for shard, (lo, hi) in zip(shards, _runs(len(tiles), len(shards))):
-            part = _shard_tiles(batch, lo, hi, shard, fill_val)
+        for shard, run in zip(shards, _runs(len(tiles), len(shards))):
             with shard.use():
-                done.append((shard, lo, forward_streams(part, tw, th, channels, s)))
-        for shard, lo, streams in done:
-            shard.synchronize()
-            host = streams.cpu().numpy()
-            for i, t in enumerate(tiles[lo : lo + len(host)]):
-                out[t.index] = host[i]
+                part = stage_group(shard, batch, fill_val, run)
+                done.append((shard, dispatch_group(shard, tiles, part, channels, s, run,
+                                                   entropy=False)))
+        for shard, (real, streams) in done:
+            with shard.use():
+                for t, values in zip(real, shard.fetch(("streams", tw, th), streams)):
+                    out[t.index] = values
     return out
 
 
@@ -146,47 +129,32 @@ def encode_image_sharded(
             s.compression == Compression.NONE
             or effective_method(s.compression) == Compression.MANBAVARAN
         ):
-            parts: list = [head]
-            for t, values in zip(grid, encode_tiles_sharded(image, s, mesh, axis_name)):
-                if s.compression == Compression.NONE:
-                    parts.append(values.tobytes())
-                    continue
-                block = compress_block(values, tile_stream_bytes(t, s, channels), s.compression)
-                if block is None:
-                    raise AkoError(Status.ERROR, "incompressible tile")
-                parts.append(block)
-            return b"".join(parts)
+            streams = encode_tiles_sharded(image, s, mesh, axis_name)
+            return head + b"".join(host_block(v, tile_stream_bytes(t, s, channels), s.compression)
+                                   for t, v in zip(grid, streams))
 
         shards = mesh.shards(axis_name)
         src = fill_val = None
         dispatched = []
         for (tw, th), tiles in geometry.group_by_shape(grid).items():
-            capacity = tile_stream_bytes(tiles[0], s, channels) - BLOCK_HEAD.size
-            budget = pack_budget(capacity, s.quantization)
             with tracing.span("ako.shard.encode.stage"):
                 if src is None:  # in the first group's span: one span a group
-                    src, fill_val = staging_source(image)
+                    src, fill_val = shards[0].source(image)
                 batch = stage_tiles(src, tiles, tw, th)
-            for shard, (lo, hi) in zip(shards, _runs(len(tiles), len(shards))):
-                with tracing.span("ako.shard.encode.dispatch"):
-                    part = _shard_tiles(batch, lo, hi, shard, fill_val)
-                    with shard.use():
-                        # the stream stays on the shard for the near-capacity fallback
-                        stream = forward_streams(part, tw, th, channels, s)
-                        comp, totals = kagari_encode_device(stream, capacity, budget)
-                real = tiles[lo:hi]
-                if real:
-                    dispatched.append((shard, (real, stream, comp[: len(real)],
-                                               totals[: len(real)], capacity, budget)))
+            for shard, run in zip(shards, _runs(len(tiles), len(shards))):
+                with tracing.span("ako.shard.encode.dispatch"), shard.use():
+                    part = stage_group(shard, batch, fill_val, run)
+                    record = dispatch_group(shard, tiles, part, channels, s, run)
+                if record[0]:
+                    dispatched.append((shard, record))
         # Each shard's rows come back cut at its largest compressed size
         # (collect_tiles_blocks); ako_tpu rounds that width up to a power of
         # two (_bucket_width) only to bound its compiled gather programs,
         # which the port does not have. The blob is the same.
         blocks: list = [None] * len(grid)
         for shard, record in dispatched:
-            with tracing.span("ako.shard.encode.collect"):
-                shard.synchronize()
-                got = collect_tiles_blocks(grid, [record])
+            with tracing.span("ako.shard.encode.collect"), shard.use():
+                got = collect_tiles_blocks(grid, [record], shard)
             for t in record[0]:
                 blocks[t.index] = got[t.index]
         return head + b"".join(blocks)
@@ -233,49 +201,28 @@ def decode_image_sharded(
 
         shards = mesh.shards(axis_name)
         done = []
-        for (tw, th), items in per_shape.items():
-            count = geometry.tile_data_size(tw, th) * channels // 2
-            # pad rows repeat the last real tile: a valid decode whose output
-            # is dropped (zero rows would make the decoder chase garbage
-            # offsets)
-            padded = items + [items[-1]] * (pad_batch(len(items), len(shards)) - len(items))
-            for shard, (lo, hi) in zip(shards, _runs(len(items), len(shards))):
-                with tracing.span("ako.shard.decode.dispatch"):
-                    run = padded[lo:hi]
-                    span = None  # K4 reads the pool; only the plain decoder needs a window
-                    if shard.device.type == "cpu":
-                        span = max(decode_span_words(sy[0], len(p) * 8) for _, p, sy in run)
-                    buf, T, B = pack_entropy_upload(run)
-                    with shard.use():
-                        parts = split_entropy_upload(torch.from_numpy(buf).to(shard.device), T, B)
-                        coeffs = kagari_decode_device(*parts, count, DECODE_BLOCK, span)
-                        done.append((shard, [t for t, _, _ in items[lo:hi]],
-                                     stream_pixels(coeffs, tw, th, channels, s)))
-        _place(done, image)
+        for items in per_shape.values():
+            tiles = [t for t, _, _ in items]
+            for shard, run in zip(shards, _runs(len(items), len(shards))):
+                with tracing.span("ako.shard.decode.dispatch"), shard.use():
+                    done.append((shard, tiles[run[0] : run[1]],
+                                 dispatch_entropy(shard, items, channels, s, run=run)))
+        _place_runs(done, image)
 
         if host_streams:
             host_grid = [t for t in grid if t.index in host_streams]
-            # reindex into a dense list for decode_tiles_sharded's contract
-            dense = [host_streams[t.index] for t in host_grid]
-            remapped = [
-                geometry.TilePlacement(i, t.x, t.y, t.w, t.h)
-                for i, t in enumerate(host_grid)
-            ]
-            decode_tiles_sharded(dense, remapped, image, s, channels, mesh, axis_name)
+            decode_tiles_sharded(host_streams, host_grid, image, s, channels, mesh, axis_name)
 
         return image, s, channels
 
 
-def _place(done: list, image: np.ndarray) -> None:
-    """Each shard's (T, th, tw, C) pixels into `image` at its tiles, once
-    its stream is done; its pad tiles' pixels are dropped. One span
-    ako.shard.decode.place a shard's run."""
+def _place_runs(done: list, image: np.ndarray) -> None:
+    """Each shard's run of pixels into `image` at its tiles, once its
+    stream is done (decode.place). One span ako.shard.decode.place a
+    shard's run."""
     for shard, tiles, pixels in done:
-        with tracing.span("ako.shard.decode.place"):
-            shard.synchronize()
-            pix = pixels.cpu().numpy()
-            for i, t in enumerate(tiles):
-                image[t.y : t.y + t.h, t.x : t.x + t.w, :] = pix[i]
+        with tracing.span("ako.shard.decode.place"), shard.use():
+            place(image, tiles, shard.fetch(("pixels",), pixels))
 
 
 def decode_tiles_sharded(
@@ -288,16 +235,15 @@ def decode_tiles_sharded(
     axis_name: str = "tiles",
 ) -> None:
     """Device stage of decode over a mesh; writes pixels into `image`
-    in place (same contract as the loop in decode.decode)."""
+    in place (same contract as the loop in decode.decode). `streams` maps
+    each tile's index to its int16 stream (a list in grid order, or a
+    dict for a part of the grid)."""
     shards = mesh.shards(axis_name)
     done = []
     for (tw, th), tiles in geometry.group_by_shape(grid).items():
-        batch = torch.from_numpy(np.stack([streams[t.index] for t in tiles], axis=0))
-        for shard, (lo, hi) in zip(shards, _runs(len(tiles), len(shards))):
+        batch = np.stack([streams[t.index] for t in tiles])
+        for shard, run in zip(shards, _runs(len(tiles), len(shards))):
             with shard.use():
-                coeffs = batch[lo:hi].to(shard.device)
-                if coeffs.shape[0] < hi - lo:
-                    coeffs = torch.cat([coeffs, coeffs.new_zeros(
-                        (hi - lo - coeffs.shape[0], coeffs.shape[1]))])
-                done.append((shard, tiles[lo:hi], stream_pixels(coeffs, tw, th, channels, s)))
-    _place(done, image)
+                done.append((shard, tiles[run[0] : run[1]], dispatch_streams(
+                    shard, batch, tw, th, channels, s, ("streams", tw, th), run)))
+    _place_runs(done, image)

@@ -5,9 +5,10 @@ same public names and arguments and one more, `device`: None means the
 CUDA card and raises when there is none, "cpu" the plain torch path (no
 streams, plain buffers), as the tests run it.
 
-On the card every in-flight image holds a slot (Slot): a CUDA stream of
-its own and host buffers, pinned, made once per key and size and reused
-by each image that takes the slot. An image's dispatch runs on the
+On the card every in-flight image holds a slot (Slot): a lane
+(parallel/mesh.py Shard) with a CUDA stream of its own whose copies go
+through host buffers, pinned, made once per key and size and reused by
+each image that takes the slot. An image's dispatch runs on the
 calling thread under its slot's stream: the staged upload, the lift and
 the entropy kernels and the first downloads, all enqueued without
 waiting, closed by an event. Its collect runs on an IO thread under the
@@ -54,7 +55,6 @@ written against ako_tpu's API runs unchanged.
 from __future__ import annotations
 
 import concurrent.futures as cf
-import contextlib
 import math
 import os
 import queue
@@ -72,9 +72,10 @@ from ako_tpu_torch.decode import (
     dispatch_tiles_device_entropy,
     host_decode_mode,
     host_decode_plan,
+    dispatch_streams,
+    place,
     read_tile_block,
     read_tile_stream,
-    stream_pixels,
 )
 from ako_tpu_torch.encode import (
     checked_image,
@@ -85,14 +86,15 @@ from ako_tpu_torch.encode import (
     dispatch_tiles_manba,
     encode_tiles_device,
     encode_tiles_host,
+    host_block,
     host_encode_mode,
     host_span_plan,
     resolve_device,
     tile_stream_bytes,
-    to_device,
 )
+from ako_tpu_torch.parallel.mesh import Shard
 from ako_tpu_torch.runtime import hostcodec
-from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, compress_block, effective_method
+from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, effective_method
 from ako_tpu_torch.utils import tracing
 
 
@@ -101,25 +103,19 @@ def _inflight(default: int) -> int:
     return max(1, int(os.environ.get("AKO_ENC_INFLIGHT", str(default))))
 
 
-class Slot:
-    """One in-flight image's CUDA stream and host buffers. On the card the
-    buffers are pinned, so that the copies through them run on the slot's
-    stream while the host goes on, and the slot's waits sleep (blocking
-    events) instead of spinning on a core that the other images' sync
-    scans need; on the CPU the slot has no stream and its
-    buffers are plain. Encode and decode take a slot as their `host`
-    argument (encode.to_device, encode.to_host)."""
+class Slot(Shard):
+    """One in-flight image's lane: a Shard whose copies go through host
+    buffers, made once per key and reused. On the card the buffers are
+    pinned, so that the copies through them run on the slot's stream
+    while the host goes on, and the slot's waits sleep (blocking events)
+    instead of spinning on a core that the other images' sync scans need;
+    on the CPU the slot has no stream and its buffers are plain. Its tiles
+    are cut on the device from one upload of the whole image (source)."""
 
     def __init__(self, device: torch.device):
-        cuda = device.type == "cuda"
-        self.stream = torch.cuda.Stream(device) if cuda else None
-        self.dispatched = torch.cuda.Event(blocking=True) if cuda else None
+        super().__init__(device)
+        self.dispatched = torch.cuda.Event(blocking=True) if self.stream is not None else None
         self._buffers: dict = {}
-
-    def use(self):
-        """The context in which this thread's device work goes to the
-        slot's stream."""
-        return contextlib.nullcontext() if self.stream is None else torch.cuda.stream(self.stream)
 
     def buffer(self, key, shape, dtype) -> torch.Tensor:
         """The host buffer `key` as a tensor of `shape` and `dtype`: made at
@@ -133,34 +129,56 @@ class Slot:
             self._buffers[key] = buf
         return buf[:n].view(shape)
 
-    def upload(self, key, t: torch.Tensor, device) -> torch.Tensor:
-        """The host tensor t on `device` through the buffer `key`, the copy
-        to the device enqueued on the current stream (the slot's, under
-        use()). numpy copies t into the buffer: torch's copy would run on
-        its intra-op threads, which then spin on cores that the other
-        images' sync scans need."""
+    def upload(self, key, t: torch.Tensor) -> torch.Tensor:
+        """The host tensor t on the slot's device through the buffer `key`,
+        the copy enqueued on the current stream (the slot's, under use()).
+        numpy copies t into the buffer: torch's copy would run on its
+        intra-op threads, which then spin on cores that the other images'
+        sync scans need."""
         buf = self.buffer(key, t.shape, t.dtype)
         buf.numpy()[...] = t.numpy()
-        return buf.to(device, non_blocking=True)
+        return buf.to(self.device, non_blocking=True)
 
     def download(self, key, t: torch.Tensor) -> torch.Tensor:
         """The device tensor t into the buffer `key`, the copy enqueued on
-        the current stream; read the buffer after sync()."""
+        the current stream; read the buffer after synchronize() or the
+        dispatch's wait."""
         buf = self.buffer(key, t.shape, t.dtype)
         buf.copy_(t, non_blocking=True)
         return buf
 
-    def record(self) -> None:
-        """Close the dispatch: an event after its work on the slot's stream."""
+    def prefetch(self, key, t: torch.Tensor) -> torch.Tensor:
+        return self.download(key, t)
+
+    def fetch(self, key, t: torch.Tensor) -> np.ndarray:
+        out = self.download(key, t)
+        self.synchronize()
+        return out.numpy()
+
+    def source(self, image: np.ndarray) -> tuple:
+        """(the whole image on the device through the buffer "image", no
+        fill): the tiles are then cut on the device, so the host's work is
+        one contiguous copy (no strided gather and no compare of the last
+        channel, both torch ops whose intra-op threads would take cores from
+        the other images' host work)."""
+        image = np.ascontiguousarray(image)  # torch takes no negative strides
+        return self.upload("image", torch.from_numpy(image)), None
+
+    def stage(self, batch: torch.Tensor) -> torch.Tensor:
+        return batch  # cut on the device
+
+    def record(self):
+        """Close the dispatch: the slot's event after its work so far."""
         if self.stream is not None:
             self.dispatched.record(self.stream)
+        return self.dispatched
 
-    def wait(self) -> None:
+    def wait_dispatch(self) -> None:
         """Block until the dispatch's work and copies are done."""
         if self.stream is not None:
             self.dispatched.synchronize()
 
-    def sync(self) -> None:
+    def synchronize(self) -> None:
         """Block until the work enqueued on the slot's stream so far is done."""
         if self.stream is not None:
             done = torch.cuda.Event(blocking=True)
@@ -173,9 +191,10 @@ def _pipeline(side: str, items: Iterable, dispatch: Callable, collect: Callable,
     """collect(dispatch(item, slot), slot) for each item, in order, with
     up to `depth` items in flight. dispatch runs on this thread under the
     slot's stream and is closed by the slot's event; collect runs on one
-    of `depth` IO threads under the same stream. Item i takes slot
-    i % depth, which item i - depth has left: its result was taken before
-    item i is dispatched. Each dispatch and each collect is a span,
+    of `depth` IO threads under the same stream, once that event is
+    reached (the dispatch's prefetched downloads are then on the host).
+    Item i takes slot i % depth, which item i - depth has left: its result
+    was taken before item i is dispatched. Each dispatch and each collect is a span,
     ako.exec.<side>.dispatch and ako.exec.<side>.collect (side "enc" or
     "dec"; utils/tracing.py)."""
     slots = [Slot(device) for _ in range(depth)]
@@ -183,6 +202,7 @@ def _pipeline(side: str, items: Iterable, dispatch: Callable, collect: Callable,
 
     def run_collect(state, slot):
         with slot.use(), tracing.span(collect_span):
+            slot.wait_dispatch()
             return collect(state, slot)
 
     with cf.ThreadPoolExecutor(max_workers=depth, thread_name_prefix="ako-io") as io:
@@ -206,12 +226,7 @@ def _entropy_encode_image(streams: List[np.ndarray], grid, channels: int, s: Set
     (ako_tpu/runtime/executor.py:44)."""
 
     def one(t, values):
-        if s.compression == Compression.NONE:
-            return values.tobytes()
-        block = compress_block(values, tile_stream_bytes(t, s, channels), s.compression)
-        if block is None:
-            raise AkoError(Status.ERROR, "incompressible tile")
-        return block
+        return host_block(values, tile_stream_bytes(t, s, channels), s.compression)
 
     if pool is None or len(grid) < 2:
         blocks = [one(t, v) for t, v in zip(grid, streams)]
@@ -269,17 +284,17 @@ class PipelineEncoder:
         head = container.head_write(channels, w, h, s)
         manba = effective_method(s.compression) == Compression.MANBAVARAN
         if manba:
-            grid, dispatched = dispatch_tiles_manba(image, s, self.device, slot)
+            grid, dispatched = dispatch_tiles_manba(image, s, slot)
         else:
-            grid, dispatched = dispatch_tiles_fused(image, s, self.device, host=slot)
+            grid, dispatched = dispatch_tiles_fused(image, s, slot)
         return head, manba, grid, dispatched
 
     def _collect_device_entropy(self, state: tuple, slot: Slot) -> bytes:
         head, manba, grid, dispatched = state
         if manba:
-            blocks = collect_tiles_manba(grid, dispatched, self.settings, host=slot)
+            blocks = collect_tiles_manba(grid, dispatched, self.settings, slot)
         else:
-            blocks = collect_tiles_blocks(grid, dispatched, host=slot)
+            blocks = collect_tiles_blocks(grid, dispatched, slot)
         return head + b"".join(blocks)
 
     def _dispatch_host_entropy(self, image, slot: Slot) -> tuple:
@@ -386,12 +401,12 @@ class PipelineDecoder:
 
     def _dispatch_device(self, streams, grid, channels: int, s: Settings, slot: Slot) -> list:
         """The host-entropy route's device stage: per shape group one upload
-        of the streams, the unlift, one pixel download, enqueued."""
+        of the streams and the unlift, enqueued."""
         dispatched = []
         for (tw, th), tiles in geometry.group_by_shape(grid).items():
-            batch = torch.from_numpy(np.stack([streams[t.index] for t in tiles]))
-            coeffs = to_device(batch, self.device, slot, ("streams", tw, th))
-            dispatched.append((tiles, th, tw, stream_pixels(coeffs, tw, th, channels, s)))
+            pixels = dispatch_streams(slot, np.stack([streams[t.index] for t in tiles]), tw, th,
+                                      channels, s, ("streams", tw, th))
+            dispatched.append((tiles, pixels))
         return dispatched
 
     def _collect(self, state: tuple, slot: Slot) -> np.ndarray:
@@ -406,14 +421,11 @@ class PipelineDecoder:
         image = np.empty(shape, dtype=np.uint8)
         if kind == "host":
             for f in parts:
-                for t, pix in f.result():
-                    image[t.y : t.y + t.h, t.x : t.x + t.w] = pix
+                tiles, pixels = zip(*f.result())
+                place(image, tiles, pixels)
             return image
-        slot.wait()
-        for tiles, th, tw, pix in parts:
-            pix = pix.numpy()
-            for i, t in enumerate(tiles):
-                image[t.y : t.y + th, t.x : t.x + tw] = pix[i]
+        for tiles, pixels in parts:
+            place(image, tiles, pixels.numpy())
         return image
 
     def _dispatch_blob(self, blob: bytes, pool, device_entropy: bool, slot: Slot) -> tuple:
@@ -433,12 +445,12 @@ class PipelineDecoder:
             return self._dispatch_host(blob, view, pool, grid, s, shape)
         if device_entropy and s.compression in (Compression.KAGARI, Compression.MANBAVARAN):
             dispatched = dispatch_tiles_device_entropy(view, container.HEAD_SIZE, grid, s, channels,
-                                                       self.device, pool=pool, host=slot)
+                                                       slot, pool=pool)
         else:
             streams = self._entropy_stage(view, pool, grid, s, channels)
             dispatched = self._dispatch_device(streams, grid, channels, s, slot)
-        parts = [(tiles, th, tw, slot.download(("pixels", i), pixels))
-                 for i, (tiles, th, tw, pixels) in enumerate(dispatched)]
+        parts = [(tiles, slot.prefetch(("pixels", i), pixels))
+                 for i, (tiles, pixels) in enumerate(dispatched)]
         return "device", parts, shape
 
     def _dispatch_host(self, blob: bytes, view, pool, grid, s: Settings, shape: tuple) -> tuple:

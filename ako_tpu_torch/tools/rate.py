@@ -32,17 +32,17 @@ from ako_tpu_torch.encode import (
     _CAPACITY_MARGIN,
     checked_settings,
     collect_tiles_blocks,
-    pack_budget,
+    entropy_group,
+    host_block,
     resolve_device,
+    stage_group,
     stage_tiles,
-    staging_source,
     tile_qg,
-    with_fill,
 )
-from ako_tpu_torch.ops.kagari_device import kagari_encode_device
 from ako_tpu_torch.ops.lifting import forward_tiles
 from ako_tpu_torch.ops.rate_device import identity_qg, probe_qg, rate_serialize, rate_sizes
-from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, compress_block, effective_method
+from ako_tpu_torch.parallel.mesh import Caller
+from ako_tpu_torch.runtime.kagari import BLOCK_HEAD, effective_method
 from ako_tpu_torch.utils import tracing
 
 
@@ -50,13 +50,13 @@ class _CachedEncoder:
     """Encodes the same image at many quantization factors, computing
     the wavelet pyramid at most once per color variant, on `device`
     (None: the CUDA card, which must be there; "cpu": the plain torch
-    path)."""
+    path), through the caller's lane (parallel/mesh.py Caller)."""
 
     def __init__(self, image: np.ndarray, base: Settings, device=None):
         self.image = image
         self.base = base
         self.h, self.w, self.channels = image.shape
-        self.device = resolve_device(device)
+        self.lane = Caller(resolve_device(device))
         self._pyramids: Dict[Color, list] = {}
         self._source = None
 
@@ -71,20 +71,21 @@ class _CachedEncoder:
     def _tile_pyramids(self, s: Settings) -> list:
         """Per shape group (tiles, raw (T, n) int16 streams on the
         device): the colour transform and the lift at the identity q/g
-        table, staged as encode.dispatch_tiles_fused stages them, once per
-        colour variant: each build is the span ako.rate.pyramid."""
+        table, staged as encode.dispatch_tiles_fused stages them
+        (encode.stage_group), once per colour variant: each build is the
+        span ako.rate.pyramid."""
         key = s.color
         if key in self._pyramids:
             return self._pyramids[key]
         with tracing.span("ako.rate.pyramid"):
             if self._source is None:
-                self._source = staging_source(self.image)
+                self._source = self.lane.source(self.image)
             src, fill_val = self._source
             grid = geometry.tile_grid(self.w, self.h, s.tiles_dimension)
             out = []
             for (tw, th), tiles in geometry.group_by_shape(grid).items():
                 schedule = geometry.lift_schedule(tw, th)
-                tiles_dev = with_fill(stage_tiles(src, tiles, tw, th).to(self.device), fill_val)
+                tiles_dev = stage_group(self.lane, stage_tiles(src, tiles, tw, th), fill_val)
                 raw = forward_tiles(tiles_dev, schedule, s.wavelet, s.wrap,
                                     identity_qg(schedule, self.channels), s.color,
                                     bool(s.discard_non_visible))
@@ -112,32 +113,24 @@ class _CachedEncoder:
         grid = geometry.tile_grid(self.w, self.h, s.tiles_dimension)
         # the device packer emits Kagari blocks; the real-rANS
         # extension (effective MANBAVARAN) must host-code
-        device_entropy = (self.device.type == "cuda"
+        device_entropy = (self.lane.device.type == "cuda"
                           and effective_method(s.compression) != Compression.MANBAVARAN)
         blocks: list = [None] * len(grid)
         dispatched = []
-        for tiles, raw in self._tile_pyramids(s):
-            schedule, qs, gs, tds = self._probe(tiles, s)
-            streams = rate_serialize(raw, schedule, self.channels, qs, gs)
-            if device_entropy:
-                capacity = tds - BLOCK_HEAD.size
-                budget = pack_budget(capacity, s.quantization)
-                comp, totals = kagari_encode_device(streams, capacity, budget)
-                dispatched.append((tiles, streams, comp, totals, capacity, budget))
-                continue
-            host = streams.cpu().numpy()
-            for i, t in enumerate(tiles):
-                block = compress_block(host[i], tds, s.compression)
-                if block is None:
-                    return None
-                blocks[t.index] = block
-        if dispatched:
-            try:
-                for t, block in zip(grid, collect_tiles_blocks(grid, dispatched)):
-                    if block is not None:
-                        blocks[t.index] = block
-            except AkoError:
-                return None
+        try:
+            for tiles, raw in self._tile_pyramids(s):
+                schedule, qs, gs, tds = self._probe(tiles, s)
+                streams = rate_serialize(raw, schedule, self.channels, qs, gs)
+                if device_entropy:
+                    dispatched.append(entropy_group(self.lane, tiles, streams, self.channels, s))
+                    continue
+                for t, values in zip(tiles, self.lane.fetch(("streams",), streams)):
+                    blocks[t.index] = host_block(values, tds, s.compression)
+            for t, block in zip(grid, collect_tiles_blocks(grid, dispatched, self.lane)):
+                if block is not None:
+                    blocks[t.index] = block
+        except AkoError:
+            return None
         return head + b"".join(blocks)
 
     def size_at(self, q: int) -> int:
@@ -161,17 +154,15 @@ class _CachedEncoder:
             total = container.HEAD_SIZE
             for tiles, raw in self._tile_pyramids(s):
                 schedule, qs, gs, tds = self._probe(tiles, s)
-                sizes = rate_sizes(raw, schedule, self.channels, qs, gs).cpu().numpy()
+                sizes = rate_sizes(raw, schedule, self.channels, qs, gs)
+                sizes = self.lane.fetch(("sizes",), sizes)
                 capacity = tds - BLOCK_HEAD.size
                 risky = np.flatnonzero(sizes >= capacity - _CAPACITY_MARGIN)
                 if len(risky):
-                    index = torch.from_numpy(risky).to(raw.device)
+                    index = self.lane.upload(("risky",), torch.from_numpy(risky))
                     streams = rate_serialize(raw[index], schedule, self.channels, qs, gs)
-                    for values, i in zip(streams.cpu().numpy(), risky):
-                        block = compress_block(values, tds, s.compression)
-                        if block is None:
-                            raise AkoError(Status.ERROR, "incompressible tile")
-                        sizes[i] = len(block) - BLOCK_HEAD.size
+                    for values, i in zip(self.lane.fetch(("risky",), streams), risky):
+                        sizes[i] = len(host_block(values, tds, s.compression)) - BLOCK_HEAD.size
                 total += int(sizes.sum()) + BLOCK_HEAD.size * len(tiles)
             self._last = q
             return total

@@ -1855,6 +1855,7 @@ def executor(card: str, dev=None) -> None:
     import chip_smoke as cs
     from ako_tpu_torch.core import container, geometry
     from ako_tpu_torch.ops.kagari_device import DECODE_BLOCK
+    from ako_tpu_torch.parallel.mesh import Caller
     from ako_tpu_torch.runtime import executor as ex
     from ako_tpu_torch.runtime.kagari import kagari_sync, kagari_sync_tiles
     from ako_tpu_torch.utils.corpus import corpus
@@ -1913,13 +1914,14 @@ def executor(card: str, dev=None) -> None:
             image[t.y : t.y + 128, t.x : t.x + 128] = pix[i]
 
     slot = ex.Slot(dev)
-    src, _ = enc_mod.staging_source(images[0])
+    caller = Caller(dev)
+    src, _ = caller.source(images[0])
     host = {
         "walk": med(lambda: [dec_mod.read_tile_block(view, c, t, s, ch) for t, c in
                              ex._block_offsets(view, grid, s, ch)]),
         "pack_entropy_upload": med(lambda: dec_mod.pack_entropy_upload(items)),
         "placement": med(place),
-        "staging_source": med(lambda: enc_mod.staging_source(images[0])),
+        "Shard.source": med(lambda: caller.source(images[0])),
         "stage into pinned": med(lambda: slot.buffer("x", (80, 128, 128, ch - 1), torch.uint8)
                                  .copy_(enc_mod.stage_tiles(src, grid, 128, 128))),
     }
@@ -1961,10 +1963,11 @@ def executor(card: str, dev=None) -> None:
         timed(dec_mod, "kagari_decode_device"), timed(dec_mod, "stream_pixels"),
         timed(ex, "dispatch_tiles_device_entropy"),
         timed(ex, "dispatch_tiles_fused"), timed(ex, "collect_tiles_blocks"),
-        timed(enc_mod, "staging_source"), timed(enc_mod, "forward_streams"),
+        timed(ex.Slot, "source", "Slot.source"), timed(enc_mod, "forward_streams"),
         timed(enc_mod, "kagari_encode_device"),
         timed(ex.Slot, "upload", "Slot.upload"), timed(ex.Slot, "download", "Slot.download"),
-        timed(ex.Slot, "wait", "Slot.wait"), timed(ex.Slot, "sync", "Slot.sync"),
+        timed(ex.Slot, "wait_dispatch", "Slot.wait_dispatch"),
+        timed(ex.Slot, "synchronize", "Slot.synchronize"),
         timed(ex.PipelineDecoder, "_collect", "decoder collect"),
         timed(ex.PipelineDecoder, "_dispatch_blob", "decoder dispatch"),
     ]
@@ -1987,13 +1990,13 @@ def executor(card: str, dev=None) -> None:
 
     # variants in turns: wall and the process's CPU time (every thread) a
     # stream of 12, encode and decode apart
-    def torch_upload(self, key, t, device):
+    def torch_upload(self, key, t):
         buf = self.buffer(key, t.shape, t.dtype)
         buf.copy_(t)
-        return buf.to(device, non_blocking=True)
+        return buf.to(self.device, non_blocking=True)
 
     orig_upload = ex.Slot.upload
-    orig_wait, orig_sync = ex.Slot.wait, ex.Slot.sync
+    orig_wait, orig_sync = ex.Slot.wait_dispatch, ex.Slot.synchronize
 
     def spin_wait(self):  # cudaStreamSynchronize: spins, by the device's default flags
         if self.stream is not None:
@@ -2008,8 +2011,8 @@ def executor(card: str, dev=None) -> None:
         if torch_copies:
             ex.Slot.upload = torch_upload
         if spin:  # the slots' waits spin on a core, as a plain synchronize() does
-            ex.Slot.wait = spin_wait
-            ex.Slot.sync = spin_sync
+            ex.Slot.wait_dispatch = spin_wait
+            ex.Slot.synchronize = spin_sync
         try:
             if roundtrip:
                 t, c = time.perf_counter(), time.process_time()
@@ -2026,7 +2029,7 @@ def executor(card: str, dev=None) -> None:
         finally:
             torch.set_num_threads(old_threads)
             ex.Slot.upload = orig_upload
-            ex.Slot.wait, ex.Slot.sync = orig_wait, orig_sync
+            ex.Slot.wait_dispatch, ex.Slot.synchronize = orig_wait, orig_sync
 
     def one_shot():
         t, c = time.perf_counter(), time.process_time()

@@ -37,6 +37,7 @@ from ako_tpu_torch.encode import (
     host_span_plan,
 )
 from ako_tpu_torch.ops import kagari_device as kd
+from ako_tpu_torch.parallel.mesh import Caller, Shard
 from ako_tpu_torch.runtime import kernels
 from ako_tpu_torch.runtime.executor import PipelineDecoder, PipelineEncoder, Slot, roundtrip_iter
 from ako_tpu_torch.utils import metrics
@@ -307,17 +308,18 @@ def test_span_calls_check_their_arrays():
 
 @pytest.mark.parametrize("slot", (False, True))
 def test_manba_split_equals_the_one_shot(monkeypatch, slot):
-    """dispatch_tiles_manba then collect_tiles_manba (plain, and through
-    a CPU slot's buffers) give encode_tiles_blocks_manba's blocks, which
-    frame ako_tpu's blobs; both shape groups."""
+    """dispatch_tiles_manba then collect_tiles_manba (on the one-shot
+    call's plain lane, and on a CPU slot, through its buffers) give
+    encode_tiles_blocks_manba's blocks, which frame ako_tpu's blobs; both
+    shape groups."""
     monkeypatch.setenv("AKO_TPU_MANBAVARAN", "1")
     images, blobs, _ = _reference("manba_t16")
     s = checked_settings(CASES["manba_t16"][1])
-    host = Slot(CPU) if slot else None
+    lane = Slot(CPU) if slot else Caller(CPU)
     for img, blob in zip(images, blobs):
-        grid, dispatched = dispatch_tiles_manba(img, s, CPU, host)
+        grid, dispatched = dispatch_tiles_manba(img, s, lane)
         assert len(dispatched) == 2
-        blocks = collect_tiles_manba(grid, dispatched, s, host)
+        blocks = collect_tiles_manba(grid, dispatched, s, lane)
         assert blocks == encode_tiles_blocks_manba(img, s, CPU)
         head = container.head_write(img.shape[2], img.shape[1], img.shape[0], s)
         assert head + b"".join(blocks) == blob
@@ -331,9 +333,20 @@ def test_slot_buffers_reused_and_grown():
     b = slot.buffer("k", (26,), torch.int32)
     assert b.numel() == 26 and b.data_ptr() != a.data_ptr()
     t = torch.arange(6, dtype=torch.int16).view(2, 3)
-    up = slot.upload("u", t, CPU)
+    up = slot.upload("u", t)
     assert torch.equal(up, t) and torch.equal(slot.download("d", up), t)
-    slot.record(), slot.wait(), slot.sync()  # no stream on the CPU: nothing to wait for
+    assert np.array_equal(slot.fetch("f", up), t.numpy())
+    assert {"u", "d", "f"} <= set(slot._buffers)  # each copy went through its buffer
+    assert up.data_ptr() == slot.buffer("u", (2, 3), torch.int16).data_ptr() != t.data_ptr()
+    slot.record(), slot.wait_dispatch(), slot.synchronize()  # no stream on the CPU: no wait
+    # a plain lane: plain copies (none at all from the CPU to the CPU), no buffer
+    shard = Shard(CPU)
+    up = shard.upload("u", t)
+    assert torch.equal(up, t) and up.data_ptr() == t.data_ptr()
+    assert shard.download("d", up).data_ptr() == shard.prefetch("p", up).data_ptr() == t.data_ptr()
+    assert np.array_equal(shard.fetch("f", up), t.numpy())
+    assert not hasattr(shard, "_buffers") and not hasattr(shard, "buffer")
+    shard.record(), shard.synchronize()
 
 
 # -------------------------------------------------- locks of the launch path

@@ -577,7 +577,7 @@ def test_two_axis_step():
 @pytest.mark.parametrize("shape", [(96, 128, 3), (80, 72, 3)], ids=["regular", "ragged"])
 def test_encode_tiles_sharded(shape):
     """Per-tile streams against ako_tpu's encode_tiles_device
-    (tests/test_parallel.py:173-193), over 8 shards and over 3."""
+    (tests/test_parallel.py:173-193), over 8 shards, 3 and 1."""
     from ako_tpu.encode import checked_settings as ref_checked
     from ako_tpu.encode import encode_tiles_device as ref_tiles
 
@@ -585,7 +585,7 @@ def test_encode_tiles_sharded(shape):
     img = rng.integers(0, 256, size=shape, dtype=np.uint8)
     s = Settings(quantization=16, tiles_dimension=32)
     ref = ref_tiles(img, ref_checked(_ref_settings(s)))
-    for n in (8, 3):
+    for n in (8, 3, 1):
         got = ptiles.encode_tiles_sharded(img, port_encode.checked_settings(s), _mesh(n, "tiles"))
         assert len(got) == len(ref)
         for a, b in zip(got, ref):
@@ -608,7 +608,7 @@ ENCODE = [
 @pytest.mark.parametrize("case", ENCODE, ids=["regular", "ragged4", "lossless", "raw", "manba"])
 def test_encode_image_sharded(case, monkeypatch):
     """Blobs byte-equal to ako_tpu.encode's (its host entropy path on the
-    CPU) and the port's one-device encode, over 8 shards and over 3."""
+    CPU) and the port's one-device encode, over 8 shards, 3 and 1."""
     shape, s, manba = case
     if manba:
         monkeypatch.setenv("AKO_TPU_MANBAVARAN", manba)
@@ -616,22 +616,22 @@ def test_encode_image_sharded(case, monkeypatch):
     img = (rng.integers(0, 256, size=shape) // 4 * 4).astype(np.uint8)
     ref = ako_tpu.encode(img, _ref_settings(s), device_entropy=False)
     assert ako_tpu_torch.encode(img, s, device="cpu") == ref
-    for n in (8, 3):
+    for n in (8, 3, 1):
         assert ptiles.encode_image_sharded(img, s, _mesh(n, "tiles")) == ref
 
 
 @pytest.mark.parametrize("device_entropy", [False, True])
 @pytest.mark.parametrize("shape", [(96, 128, 3), (80, 72, 4)], ids=["regular", "ragged4"])
 def test_decode_image_sharded(shape, device_entropy):
-    """Pixels bit-equal to ako_tpu.decode's, on both entropy routes; the
-    ragged 4-channel grid pads each shape group's batch (pad rows repeat
-    the last real tile)."""
+    """Pixels bit-equal to ako_tpu.decode's, on both entropy routes, over
+    8 shards, 3 and 1; the ragged 4-channel grid pads each shape group's
+    batch (pad rows repeat the last real tile)."""
     rng = np.random.default_rng(1234)
     img = rng.integers(0, 256, size=shape, dtype=np.uint8)
     blob = ako_tpu.encode(img, ako_tpu.Settings(quantization=16, tiles_dimension=32),
                           device_entropy=False)
     ref, _, _ = ako_tpu.decode(blob, device_entropy=False)
-    for n in (8, 3):
+    for n in (8, 3, 1):
         got, s2, ch = ptiles.decode_image_sharded(blob, _mesh(n, "tiles"),
                                                   device_entropy=device_entropy)
         assert ch == shape[2] and s2.tiles_dimension == 32
